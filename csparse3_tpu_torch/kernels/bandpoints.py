@@ -1,0 +1,292 @@
+"""Hybrid band + scattered-points split-complex SpMV.
+
+Grid admittance matrices in natural order have two kinds of structure
+(see the JAX package's ``csparse3_tpu/kernels/bandpoints.py``):
+
+* a handful of HEAVY diagonals (the lattice offsets {0, +-1, +-side})
+  carrying most of the nonzeros at near-full occupancy;
+* a sparse WASH of long-line entries spread thinly over a wide band.
+
+``SplitBandPoints`` stores the heavy diagonals as dense slabs and the wash
+as per-row point lists, and computes y = A x for split-complex x in one
+hand-written CUDA kernel per matvec (``csrc/bandpoints.cu``), which stands
+for the three Pallas kernels of the JAX module.  Beside it, in this module,
+is the plain PyTorch version of the same function: the wrapper runs it for
+a CPU tensor, and only there.  A CUDA tensor launches the kernel (built
+with nvcc at first use) or raises.
+
+What the TPU needed and Hopper does not is left out: the one-hot "gather"
+products (``_dot_onehot`` and its bf16 split), the VMEM window and
+supertile modes (``_auto_supertile``).  The arguments ``supertile=`` and
+``precision=`` are accepted for API parity and have no effect: without
+one-hot products every matvec is exact f32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..utils.build import BuildError, build_shared_library
+
+__all__ = ["OffsetsPlan", "SplitBandPoints", "split_offsets",
+           "load_cuda_library"]
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc", "bandpoints.cu")
+
+
+def _shifted(x2, offs, m):
+    """Windows x2[:, i + o] for i < m, zero outside [0, n): a (B, n) input
+    gives one (B, m) tensor per offset."""
+    n = x2.shape[1]
+    P = max(0, -min(offs))
+    Q = max(0, max(offs) + m - n)
+    xp = F.pad(x2, (P, Q))
+    return [xp[:, P + o: P + o + m] for o in offs]
+
+
+# ---------------------------------------------------------------------------
+# heavy-diagonal core: static-shift slabs
+# ---------------------------------------------------------------------------
+
+class OffsetsPlan(nn.Module):
+    """SpMV over an explicit list of diagonals: slabs[k, i] = A[i, i +
+    offs[k]], float32.  ``forward`` takes (n,) or (n, B)."""
+
+    def __init__(self, m, n, offs, slabs, device=None):
+        super().__init__()
+        self.m, self.n = m, n
+        self.offs = tuple(int(o) for o in offs)
+        self.register_buffer("slabs", torch.as_tensor(
+            slabs, dtype=torch.float32, device=device))
+
+    @classmethod
+    def from_entries(cls, m, n, rows, cols, vals, offs, device=None):
+        offs = sorted(int(o) for o in offs)
+        ra = np.zeros((len(offs), m), dtype=np.float32)
+        d = cols - rows
+        for k, o in enumerate(offs):
+            sel = d == o
+            ra[k, rows[sel]] = vals[sel]
+        return cls(m, n, offs, ra, device=device)
+
+    def rows(self, x2):
+        """Row layout: x2 (B, n) -> (B, m)."""
+        x2 = x2.to(torch.float32)
+        y = torch.zeros((x2.shape[0], self.m), dtype=torch.float32,
+                        device=x2.device)
+        if not self.offs:
+            return y
+        for k, win in enumerate(_shifted(x2, self.offs, self.m)):
+            y += self.slabs[k][None, :] * win
+        return y
+
+    @torch.inference_mode()
+    def forward(self, x):
+        x = x.to(torch.float32)
+        if x.ndim == 1:
+            return self.rows(x[None, :])[0]
+        return self.rows(x.T).T
+
+
+# ---------------------------------------------------------------------------
+# split plan: slabs + per-row point lists, one kernel per matvec
+# ---------------------------------------------------------------------------
+
+def split_offsets(rows, cols, n, frac: float = 0.02):
+    """Heavy offsets: those carrying at least ``frac * n`` entries."""
+    d = cols - rows
+    offs, counts = np.unique(d, return_counts=True)
+    return set(int(o) for o in offs[counts >= max(1, int(frac * n))])
+
+
+def _pack_points(m, rows, cols, valr, vali):
+    """Point entries as per-row lists, rows ascending (entries of a row
+    keep their input order: columns ascending for CSC input).  Returns
+    (ptr (m+1,), col, row) int32 and val (2, nnz) float32 = (re, im)."""
+    order = np.argsort(rows, kind="stable")
+    ptr = np.zeros(m + 1, dtype=np.int32)
+    ptr[1:] = np.cumsum(np.bincount(rows, minlength=m))
+    val = np.zeros((2, len(rows)), dtype=np.float32)
+    val[0] = valr[order]
+    if vali is not None:
+        val[1] = vali[order]
+    return (ptr, cols[order].astype(np.int32), rows[order].astype(np.int32),
+            val)
+
+
+@functools.cache
+def load_cuda_library():
+    """Build ``csrc/bandpoints.cu`` with nvcc for sm_90a (first use) and
+    load it.  Returns the ctypes library; raises BuildError when nvcc is
+    missing or refuses the source."""
+    nvcc = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise BuildError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                         "/usr/local/cuda/bin): cannot build the CUDA kernels")
+    path = build_shared_library(
+        "bandpoints", [_SRC],
+        lambda out: [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                     "-o", out, _SRC])
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.bandpoints_spmv.restype = ci
+    lib.bandpoints_spmv.argtypes = [ci, ci, ci] + [vp] * 11 + [ci, ci, vp]
+    lib.bandpoints_error_string.restype = ctypes.c_char_p
+    lib.bandpoints_error_string.argtypes = [ci]
+    return lib
+
+
+class SplitBandPoints(nn.Module):
+    """Split-complex SpMV = heavy-diagonal slabs + scattered points.
+
+    ``forward(xr, xi) -> (yr, yi)``, float32.  Built on the host from a
+    complex (or real) square CSC and placed on ``device``.  On a CUDA
+    device every matvec launches the CUDA kernel once per point group and
+    counts it in ``kernel_launches``; on the CPU it runs ``plain``.
+
+    ``group_span`` partitions the points into offset groups spanning that
+    many diagonals each, as in the JAX package; group 0 rides with the
+    slabs, every later group is a points-only launch that adds into y.
+    ``tile`` is the number of rows per CTA (a multiple of 32, <= 1024).
+    """
+
+    def __init__(self, a, frac: float = 0.02, tile: int = 256,
+                 group_span: int | None = None,
+                 supertile: bool | str | None = None,
+                 precision: str = "exact", device=None):
+        super().__init__()
+        if precision not in ("exact", "fast"):
+            raise ValueError(f"precision must be 'exact' or 'fast', "
+                             f"got {precision!r}")
+        if tile % 32 or not 32 <= tile <= 1024:
+            raise ValueError(f"tile must be a multiple of 32 in [32, 1024], "
+                             f"got {tile}")
+        if a.m != a.n:
+            raise ValueError(f"SplitBandPoints needs a square matrix, "
+                             f"got {a.shape}")
+        ip, ix, vals = a.np_arrays()
+        m, n = a.m, a.n
+        rows = ix.astype(np.int64)
+        cols = np.repeat(np.arange(n, dtype=np.int64), np.diff(ip))
+        self.iscomplex = np.iscomplexobj(vals)
+        vr = np.ascontiguousarray(vals.real).astype(np.float32)
+        vi = (np.ascontiguousarray(vals.imag).astype(np.float32)
+              if self.iscomplex else None)
+        heavy = split_offsets(rows, cols, n, frac)
+        d = cols - rows
+        core = np.isin(d, list(heavy)) if heavy else np.zeros(len(d), bool)
+        pts = ~core
+        self.m, self.n = m, n
+        self.tile = tile
+        self.group_span = group_span
+        self.offs = tuple(sorted(int(o) for o in heavy))
+        # slabs (2, D, m): re then im, one row per heavy diagonal
+        slabs = np.zeros((2, len(self.offs), m), dtype=np.float32)
+        for k, o in enumerate(self.offs):
+            sel = core & (d == o)
+            slabs[0, k, rows[sel]] = vr[sel]
+            if vi is not None:
+                slabs[1, k, rows[sel]] = vi[sel]
+        self.register_buffer("offs_t", torch.as_tensor(
+            np.asarray(self.offs, dtype=np.int32), device=device))
+        self.register_buffer("slabs", torch.as_tensor(slabs, device=device))
+        # point entries by offset group; group 0 is fused with the slabs
+        pr, pc, pvr = rows[pts], cols[pts], vr[pts]
+        pvi = vi[pts] if vi is not None else None
+        dd = pc - pr
+        if group_span is None or not len(dd):
+            gids = [np.ones(len(dd), dtype=bool)]
+        else:
+            gid = (dd - int(dd.min())) // group_span
+            gids = [gid == g for g in np.unique(gid)]
+        self.n_groups = len(gids)
+        for g, sel in enumerate(gids):
+            packed = _pack_points(m, pr[sel], pc[sel], pvr[sel],
+                                  pvi[sel] if pvi is not None else None)
+            for name, arr in zip(("ptr", "col", "row", "val"), packed):
+                self.register_buffer(f"p{g}_{name}",
+                                     torch.as_tensor(arr, device=device))
+        self.kernel_launches = 0
+
+    @property
+    def core_ndiag(self):
+        return len(self.offs)
+
+    def _group(self, g):
+        return tuple(getattr(self, f"p{g}_{k}")
+                     for k in ("ptr", "col", "row", "val"))
+
+    def _x2(self, xr, xi):
+        # (2, n) float32: the kernel's input dtype, as bandpoints.py casts
+        return torch.stack([xr.to(torch.float32), xi.to(torch.float32)])
+
+    @torch.inference_mode()
+    def plain(self, xr, xi):
+        """The plain PyTorch version of the kernel, on any device."""
+        x2 = self._x2(xr, xi)
+        y = torch.zeros((2, self.m), dtype=torch.float32, device=x2.device)
+        for g in range(self.n_groups):
+            _, col, row, val = self._group(g)
+            xc = x2.index_select(1, col)
+            y[0].index_add_(0, row, val[0] * xc[0] - val[1] * xc[1])
+            y[1].index_add_(0, row, val[0] * xc[1] + val[1] * xc[0])
+        if self.offs:
+            for k, w in enumerate(_shifted(x2, self.offs, self.m)):
+                sr, si = self.slabs[0, k], self.slabs[1, k]
+                y[0] += sr * w[0] - si * w[1]
+                y[1] += sr * w[1] + si * w[0]
+        return y[0], y[1]
+
+    @torch.inference_mode()
+    def forward(self, xr, xi):
+        if xr.device.type == "cpu" and xi.device.type == "cpu":
+            return self.plain(xr, xi)
+        return self.cuda_kernel(xr, xi)
+
+    @torch.inference_mode()
+    def cuda_kernel(self, xr, xi):
+        """The CUDA kernel, one launch per point group; raises for input
+        that is not on this plan's CUDA device."""
+        dev = self.slabs.device
+        if dev.type != "cuda" or xr.device != dev or xi.device != dev:
+            raise ValueError(
+                f"SplitBandPoints.cuda_kernel needs x on the plan's CUDA "
+                f"device; plan on {dev}, x on {xr.device} / {xi.device}")
+        if xr.shape != (self.n,) or xi.shape != (self.n,):
+            raise ValueError(f"x parts must have shape ({self.n},), got "
+                             f"{tuple(xr.shape)} / {tuple(xi.shape)}")
+        lib = load_cuda_library()
+        x2 = self._x2(xr, xi).contiguous()
+        y = torch.empty((2, self.m), dtype=torch.float32, device=dev)
+        D = len(self.offs)
+        slab_re = self.slabs.data_ptr()
+        slab_im = slab_re + D * self.m * 4
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for g in range(self.n_groups):
+                ptr, col, _, val = self._group(g)
+                nnz = col.numel()
+                err = lib.bandpoints_spmv(
+                    self.m, self.n, D if g == 0 else 0,
+                    self.offs_t.data_ptr(), slab_re, slab_im,
+                    ptr.data_ptr(), col.data_ptr(), val.data_ptr(),
+                    val.data_ptr() + nnz * 4, x2.data_ptr(),
+                    x2.data_ptr() + self.n * 4, y.data_ptr(),
+                    y.data_ptr() + self.m * 4, int(g > 0), self.tile, stream)
+                if err:
+                    raise RuntimeError(
+                        "bandpoints_spmv launch failed: "
+                        f"{lib.bandpoints_error_string(err).decode()}")
+                self.kernel_launches += 1
+        return y[0], y[1]
