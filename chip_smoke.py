@@ -1,26 +1,51 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
-Phases (any failure raises, and the script exits non-zero):
+Phases (any failure raises, and the script exits non-zero; each prints its
+seconds):
 
 1. device: needs torch.cuda; prints the card's name and power limit.
-2. build:  compiles both libraries from this checkout into
-           csparse3_tpu_torch/_build/ (nvcc: csrc/bandpoints.cu for sm_90a;
-           g++: native/host_ext.cpp + native/lu_sn.cpp) and prints the
-           seconds each took.
-3. kernel: the band+points SpMV on the 200k-bus synthetic Ybus (the JAX
-           bench's ``spmv_bp`` matrix): the CUDA kernel against its plain
-           PyTorch version on the card and against scipy complex128 on the
-           host, for the default plan and for an offset-group plan (the
-           points-only launches); CUDA-event times of both versions.
-4. newton: NewtonPowerFlow(synthetic_grid(10_000, seed=3), spmv='bandpoints',
+2. build:  compiles every library from this checkout into
+           csparse3_tpu_torch/_build/, all at once (nvcc for sm_90a:
+           csrc/bandpoints.cu, csrc/dia_spmv.cu, csrc/triad.cu; g++:
+           native/host_ext.cpp + native/lu_sn.cpp) and prints the seconds
+           each took.
+3. triad:  the triad kernel against its plain version (bit for bit), then
+           ``measure_hbm_bw``: the card's measured memory rate and its share
+           of the published 3.35 TB/s.
+4. kernel: the band+points SpMV on the 200k-bus synthetic Ybus: the CUDA
+           kernel against its plain PyTorch version on the card and against
+           scipy complex128 on the host, for the default plan and for an
+           offset-group plan (the points-only launches); CUDA-event and
+           profiler times of both versions, and of the one library call for
+           the same function (torch.sparse CSR complex64 @ x).
+5. dia:    the DIA SpMV on the RCM-ordered 200k-bus Ybus (D = 1885
+           diagonals), float32: ``SplitDIA`` and ``SplitSymDIA`` against
+           their plain versions and scipy complex128, row by row within the
+           rounding bound of the sums; times, bytes per call, shares of the
+           published and of the measured memory rate, and the library call.
+6. newton: NewtonPowerFlow(synthetic_grid(10_000, seed=3), spmv='bandpoints',
            solver='level', tol=5e-5) on the card from flat start: it must
            converge, its state must give a host float64 scipy mismatch
            <= 1e-4, the kernel must have launched once per mismatch
            evaluation, and the state must agree with the port's own
-           float64 spmv='ell' solve.  Then the same on ieee14().
+           float64 spmv='ell' solve.
+7. banded: the same grid in RCM order (``rcm_grid``):
+           NewtonPowerFlow(spmv='dia') in float64 must converge to 1e-10,
+           give a host float64 mismatch <= 1e-8, launch the DIA kernel once
+           per slab set per mismatch evaluation and agree with the 'ell'
+           state of phase 6 mapped by vm_old[perm] = vm_new;
+           FastDecoupled(spmv='symdia') and ('dia') must converge to 1e-8
+           and agree with that Newton state; dc_power_flow must match scipy
+           spsolve on the host.  Prints the dense tails ``solve_plan``
+           chose.  Then the DIA kernel alone at the shape these solves
+           launch it (float64, one slab set, stacked (2, n) input), general
+           and symmetric form: against its plain version and scipy float64
+           row by row within the rounding bound, with its times, the plain
+           version's and the library call's.
+8. ieee14: phase 6 on ieee14().
 
 Prints one JSON line of kernel records, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -33,12 +58,32 @@ import time
 
 import numpy as np
 
+N_KERNEL = 200_000   # buses of the SpMV kernel phases
+N_SOLVE = 10_000      # buses of the solver phases
+
+# published rates of one H100 SXM (NVIDIA data sheet): float32 and float64
+# outside the tensor cores; the device-memory rate is the port's own
+# constant (utils.roofline.H100_HBM_BYTES_PER_S), read once the card is found
+HBM_BYTES_PER_S = None
+F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12
+
 # kernel vs plain / scipy: float32 sums of a handful of complex products
 # per row, in different orders; 5e-6 of max|y| is ~40 float32 ulps
 SPMV_REL = 5e-6
 # bandpoints (float32 SpMV, stops at mismatch <= 5e-5) vs ell (float64)
 STATE_ATOL = 1e-4
 HOST_MISMATCH = 1e-4
+# spmv='dia' is float64 end to end and stops at mismatch <= 1e-10; the host
+# recomputes the mismatch with another summation order (~1e-13 apart)
+DIA_HOST_MISMATCH = 1e-8
+# two float64 Newton solves of one grid, both converged to 1e-10
+DIA_STATE_ATOL = 1e-8
+# fast-decoupled stops at mismatch/|V| <= 1e-8; the state error is that
+# residual times the inverse Jacobian's norm (some 1e1 per unit here)
+FDPF_STATE_ATOL = 1e-6
+# dc_power_flow against scipy spsolve, both float64 direct solves
+DC_RTOL = 1e-9
 
 
 def log(*a):
@@ -96,6 +141,17 @@ def device_profile(fn, reps):
     return wall, busy * 1e-6, len(spans), by_name
 
 
+def kernel_ms(by_name, pattern, launches_per_call):
+    """Device ms per call of the kernels whose name holds ``pattern``: the
+    mean over the launches the profiler recorded (it may drop a few at the
+    edges of its window) times the launches one call makes."""
+    recs = [v for k, v in by_name.items() if pattern in k]
+    count = sum(c for c, _ in recs)
+    if count == 0:
+        raise AssertionError(f"the profiler recorded no {pattern} launch")
+    return sum(t for _, t in recs) / count * launches_per_call * 1e3, count
+
+
 def host_mismatch(grid, Y, vm, va):
     from csparse3_tpu_torch.models.powerflow import sbus
 
@@ -106,6 +162,39 @@ def host_mismatch(grid, Y, vm, va):
     return float(np.abs(f).max())
 
 
+def bound_record(nbytes, flops, flop_rate=F32_FLOP_PER_S):
+    """bound_ms (the larger of bytes over the memory rate and operations
+    over the rate of their type, float32 unless given) and which of the two
+    it is."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
+    return dict(bound_ms=max(tb, tf),
+                bound_by="bytes" if tb >= tf else "operations")
+
+
+def library_spmv_ms(Y, xr_t, xi_t, yk, reps=50):
+    """Device ms of the one library call for a complex SpMV: a
+    torch.sparse CSR complex64 matrix times the complex64 vector.  It is
+    checked against the kernel's result and used nowhere in the port."""
+    import torch
+
+    csr = Y.to_scipy().tocsr().astype(np.complex64)
+    A = torch.sparse_csr_tensor(
+        torch.as_tensor(csr.indptr.astype(np.int64), device=xr_t.device),
+        torch.as_tensor(csr.indices.astype(np.int64), device=xr_t.device),
+        torch.as_tensor(csr.data, device=xr_t.device), size=csr.shape)
+    x = torch.complex(xr_t.float(), xi_t.float())
+    y = A @ x
+    scale = float(yk[0].abs().max())
+    err = max(float((y.real - yk[0]).abs().max()),
+              float((y.imag - yk[1]).abs().max()))
+    if err > 4 * SPMV_REL * scale:
+        raise AssertionError(f"library CSR product disagrees: {err}")
+    for _ in range(10):
+        A @ x
+    _, busy, _, _ = device_profile(lambda: A @ x, reps)
+    return busy / reps * 1e3
+
+
 def kernel_phase(dev):
     import torch
 
@@ -113,7 +202,7 @@ def kernel_phase(dev):
     from csparse3_tpu_torch.models.grids import synthetic_grid, ybus
 
     t0 = time.perf_counter()
-    Y, _, _ = ybus(synthetic_grid(200_000, seed=0))
+    Y, _, _ = ybus(synthetic_grid(N_KERNEL, seed=0))
     n = Y.n
     rng = np.random.RandomState(0)
     xr, xi = rng.rand(n).astype(np.float32), rng.rand(n).astype(np.float32)
@@ -155,19 +244,441 @@ def kernel_phase(dev):
             f"runs plain,kernel,kernel,plain = {t})")
         # device time alone, from the profiler's kernel records
         _, kbusy, klaunch, kby = device_profile(lambda: plan(xr_t, xi_t), 50)
-        kname = [k for k in kby if "band_points_kernel" in k]
-        kcount, ksec = kby[kname[0]]
+        ms, kcount = kernel_ms(kby, "band_points_kernel", plan.n_groups)
         _, pbusy, plaunch, _ = device_profile(
             lambda: plan.plain(xr_t, xi_t), 50)
-        ms, plain_ms = ksec / 50 * 1e3, pbusy / 50 * 1e3
+        plain_ms = pbusy / 50 * 1e3
         log(f"kernel[{label}]: kernel_device_ms_per_call={ms:.6f} "
             f"({kcount / 50:.0f} launches) plain_device_ms_per_call="
             f"{plain_ms:.6f} ({plaunch / 50:.0f} kernels) wrapper_device_"
             f"ms_per_call={kbusy / 50 * 1e3:.6f} ({klaunch / 50:.0f} "
             f"kernels) (torch.profiler, 50 calls)")
         out[label] = dict(abs_err=abs_plain, ms=ms, plain_ms=plain_ms)
+        if label == "default":
+            # what the kernel reads (slabs, offsets, point tables, x) and
+            # writes (y), each once; 8 float operations per complex nonzero
+            nbytes = sum(t.numel() * t.element_size() for t in (
+                plan.slabs, plan.offs_t, plan.p0_ptr, plan.p0_col,
+                plan.p0_val, xr_t, xi_t, yk))
+            flops = 8 * (plan.slabs[0].count_nonzero().item()
+                         + plan.p0_col.numel())
+            out[label].update(bound_record(nbytes, flops))
+            lib_ms = library_spmv_ms(Y, xr_t, xi_t, yk)
+            out[label]["library_ms"] = lib_ms
+            log(f"kernel[default]: bytes_per_call={nbytes} bound_ms="
+                f"{out[label]['bound_ms']:.6f} ({out[label]['bound_by']}) "
+                f"library_csr_c64_device_ms_per_call={lib_ms:.6f}")
     log(f"kernel: phase seconds {time.perf_counter() - t0:.1f}")
     return out["default"]
+
+
+def build_phase():
+    """Every library at once: one compiler process per source."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from csparse3_tpu_torch.kernels import bandpoints, dia
+    from csparse3_tpu_torch.native import host_ext
+    from csparse3_tpu_torch.utils import roofline
+
+    def timed(load):
+        t0 = time.perf_counter()
+        load()
+        return time.perf_counter() - t0
+
+    loads = dict(nvcc_bandpoints_s=bandpoints.load_cuda_library,
+                 nvcc_dia_spmv_s=dia.load_cuda_library,
+                 nvcc_triad_s=roofline.load_cuda_library,
+                 gxx_host_ext_s=host_ext.load)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(loads)) as pool:
+        secs = dict(zip(loads, pool.map(timed, loads.values())))
+    log("build: " + " ".join(f"{k}={v:.2f}" for k, v in secs.items())
+        + f" (started together) phase seconds {time.perf_counter() - t0:.1f}")
+
+
+def triad_phase(dev):
+    import torch
+
+    from csparse3_tpu_torch.utils import roofline
+
+    t0 = time.perf_counter()
+    n = 1 << 28  # 1 GiB of float32 in, 1 GiB out: far beyond the 50 MB L2
+    a = torch.rand(n, dtype=torch.float32, device=dev)
+    s = torch.full((1,), 1.2345678, dtype=torch.float32, device=dev)
+    # the ragged end (n % 4 != 0) and the full size; the kernel rounds the
+    # product and the sum separately, as the plain version: bound 0
+    err = 0.0
+    for view in (a[: 4 * 1000 + 3], a):
+        o, ref = roofline.triad(view, s), roofline.triad_plain(view, s)
+        torch.cuda.synchronize()
+        err = max(err, float((o - ref).abs().max()))
+        if not torch.equal(o, ref):
+            raise AssertionError(f"triad disagrees with its plain version "
+                                 f"by {err} (bound 0: same roundings)")
+    half = torch.tensor(0.5, device=dev)
+    lib = torch.add(half, a, alpha=1.2345678)  # s rounded to float32 inside
+    lib_err = float((lib - ref).abs().max())
+    o = torch.empty_like(a)
+    for _ in range(3):
+        roofline.triad_cuda(a, s, out=o)
+    ms = cuda_ms(lambda: roofline.triad_cuda(a, s, out=o), 10)
+    del lib, ref
+    plain_ms = cuda_ms(lambda: roofline.triad_plain(a, s), 5)
+    lib_ms = cuda_ms(lambda: torch.add(half, a, alpha=1.2345678), 5)
+    nbytes = 2 * n * 4
+    rec = dict(abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               **bound_record(nbytes, 2 * n))
+    log(f"triad: n={n} max_abs_err_vs_plain={err} (bound 0) "
+        f"kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} (two passes) "
+        f"library_torch_add_alpha_ms={lib_ms:.6f} (max abs diff to plain "
+        f"{lib_err:.3e}) bound_ms={rec['bound_ms']:.6f} (cuda events)")
+    del a, o
+    # the main path of this kernel: the bandwidth probe
+    roofline.LAUNCHES["triad"] = 0
+    bw = roofline.measure_hbm_bw(mb=1024, device=dev)
+    rec["launches"] = roofline.LAUNCHES["triad"]
+    if rec["launches"] == 0:
+        raise AssertionError("measure_hbm_bw launched no triad kernel")
+    if not 0.1 * HBM_BYTES_PER_S < bw < 1.05 * HBM_BYTES_PER_S:
+        raise AssertionError(f"implausible memory rate {bw:.3e} B/s")
+    log(f"triad: hbm_measured_TBps={bw / 1e12:.6f} share_of_published_peak="
+        f"{bw / HBM_BYTES_PER_S:.4f} (1 GiB in + 1 GiB out per launch, "
+        f"{rec['launches']} launches) phase seconds "
+        f"{time.perf_counter() - t0:.1f}")
+    return rec, bw
+
+
+def dia_phase(dev, bw):
+    """K4 at full size: the RCM-ordered Ybus, float32."""
+    import torch
+
+    from csparse3_tpu_torch import CSC, SplitDIA, SplitSymDIA
+    from csparse3_tpu_torch.kernels import dia as kdia
+    from csparse3_tpu_torch.linalg.ordering import rcm
+    from csparse3_tpu_torch.models.grids import synthetic_grid, ybus
+    from csparse3_tpu_torch.utils.roofline import pct_roofline, plan_bytes
+
+    t0 = time.perf_counter()
+    Y0, _, _ = ybus(synthetic_grid(N_KERNEL, seed=0))
+    perm = rcm(Y0)
+    Yp = Y0[perm, perm]
+    ip, ix, dt = Yp.np_arrays()
+    Y = CSC(Yp.m, Yp.n, ip, ix, dt.astype(np.complex64))  # float32 parts
+    n = Y.n
+    rng = np.random.RandomState(0)
+    xr, xi = rng.rand(n).astype(np.float32), rng.rand(n).astype(np.float32)
+    A = Y.to_scipy().tocsr()
+    z = A.astype(np.complex128) @ (xr.astype(np.float64) + 1j * xi)
+    z2 = np.stack([z.real, z.imag])
+    # Row-wise rounding bound.  The plans sum, per real slab set and input
+    # part, the k_i stored nonzeros of row i in float32 (the band's zeros
+    # add exactly; each multiply-add rounds once or twice), then combine
+    # two such sums with one more rounding.  With u = 2^-24 every version
+    # is within (k_i + 2) u (|Ar| + |Ai|)(|xr| + |xi|)_i of the exact
+    # product, whatever the order of the sum; k_i <= kmax.  The matrix and
+    # x are float32 on both sides, so scipy's complex128 product is exact
+    # to ~1e-16 of the same quantity.
+    kmax = int(np.diff(A.indptr).max())
+    absA = abs(A.real).astype(np.float64) + abs(A.imag).astype(np.float64)
+    bound = (kmax + 2) * 2.0 ** -24 * 1.01 * (
+        absA @ (np.abs(xr).astype(np.float64) + np.abs(xi)))
+    bound_t = torch.as_tensor(bound, device=dev)
+    xr_t, xi_t = torch.as_tensor(xr, device=dev), torch.as_tensor(xi, device=dev)
+    log(f"dia: n={n} nnz={Y.nnz} max_row_nnz={kmax} host setup seconds "
+        f"{time.perf_counter() - t0:.1f}")
+    out = {}
+    for label, make in (("dia", lambda: SplitDIA(Y, device=dev)),
+                        ("symdia", lambda: SplitSymDIA(Y, tol=1e-6,
+                                                       device=dev))):
+        t1 = time.perf_counter()
+        plan = make()
+        t_build = time.perf_counter() - t1
+        kdia.LAUNCHES["dia_spmv"] = 0
+        yk = torch.stack(plan(xr_t, xi_t))
+        torch.cuda.synchronize()
+        if kdia.LAUNCHES["dia_spmv"] != 2:
+            raise AssertionError(f"{label}: {kdia.LAUNCHES['dia_spmv']} "
+                                 "launches for 2 slab sets")
+        yp = torch.stack(plan.plain(xr_t, xi_t))
+        torch.cuda.synchronize()
+        if kdia.LAUNCHES["dia_spmv"] != 2:
+            raise AssertionError(f"{label}: the plain version launched")
+        scale = float(yp.abs().max())
+        d_plain = (yk - yp).abs().double()
+        d_scipy = (yk.double() - torch.as_tensor(z2, device=dev)).abs()
+        r_plain = float((d_plain / (2 * bound_t)).max())
+        r_scipy = float((d_scipy / bound_t).max())
+        abs_plain = float(d_plain.max())
+        log(f"{label}: diagonals_per_slab_set={plan.re.ndiag} "
+            f"plan_build_s={t_build:.1f} max_abs_err_vs_plain={abs_plain:.3e} "
+            f"(rel to max|y| {abs_plain / scale:.3e}) "
+            f"worst_row_err_over_bound: vs_plain={r_plain:.4f} "
+            f"vs_scipy_c128={r_scipy:.4f} (bound: (kmax+2) u |A||x| per row, "
+            f"twice that between two float32 versions; must be <= 1) "
+            f"max_row_bound={bound.max():.3e}")
+        if not (r_plain <= 1 and r_scipy <= 1):
+            raise AssertionError(f"{label}: kernel disagrees")
+        for _ in range(5):
+            plan(xr_t, xi_t)
+        # plain, kernel, kernel, plain: one card, one call
+        t = [cuda_ms(lambda: plan.plain(xr_t, xi_t), 2),
+             cuda_ms(lambda: plan(xr_t, xi_t), 20),
+             cuda_ms(lambda: plan(xr_t, xi_t), 20),
+             cuda_ms(lambda: plan.plain(xr_t, xi_t), 2)]
+        _, kbusy, klaunch, kby = device_profile(lambda: plan(xr_t, xi_t), 10)
+        ms, kcount = kernel_ms(kby, "dia_spmv_kernel", 2)
+        _, pbusy, plaunch, _ = device_profile(
+            lambda: plan.plain(xr_t, xi_t), 2)
+        plain_ms = pbusy / 2 * 1e3
+        # both slab sets and x (read by each launch's two rows once), y
+        nbytes = plan_bytes(plan, xr_t, xi_t, yk)
+        flops = 2 * 2 * 2 * plan.re.slabs.numel() * (
+            2 if label == "symdia" else 1)
+        rec = dict(abs_err=abs_plain, ms=ms, plain_ms=plain_ms,
+                   **bound_record(nbytes, flops))
+        log(f"{label}: wrapper_ms_per_call={min(t[1], t[2]):.6f} "
+            f"plain_ms_per_call={min(t[0], t[3]):.6f} (cuda events, host "
+            f"overhead included; runs plain,kernel,kernel,plain = {t}) "
+            f"kernel_device_ms_per_call={ms:.6f} ({kcount / 10:.0f} launches) "
+            f"wrapper_device_ms_per_call={kbusy / 10 * 1e3:.6f} "
+            f"({klaunch / 10:.0f} kernels) plain_device_ms_per_call="
+            f"{plain_ms:.6f} ({plaunch / 2:.0f} kernels) (torch.profiler) "
+            f"bytes_per_call={nbytes} bound_ms={rec['bound_ms']:.6f} "
+            f"({rec['bound_by']}) share_of_published_peak="
+            f"{pct_roofline(nbytes, ms * 1e-3, HBM_BYTES_PER_S):.4f} "
+            f"share_of_measured_bandwidth="
+            f"{pct_roofline(nbytes, ms * 1e-3, bw):.4f}")
+        out[label] = rec
+        del plan, yk, yp
+        torch.cuda.empty_cache()
+    yk = torch.as_tensor(z2, device=dev, dtype=torch.float32)
+    lib_ms = library_spmv_ms(Y, xr_t, xi_t, yk)
+    log(f"dia: library_csr_c64_device_ms_per_call={lib_ms:.6f} (the same "
+        f"complex product from the {Y.nnz} nonzeros instead of the "
+        f"densified band) phase seconds {time.perf_counter() - t0:.1f}")
+    for rec in out.values():
+        rec["library_ms"] = lib_ms
+    return out
+
+
+def _tail_report(name, lu, dev):
+    auto = lu.solve_plan(device=dev)
+    level = lu.solve_plan(style="level", device=dev)
+    parts = []
+    for f, a, lv in (("L", auto.lplan, level.lplan),
+                     ("U", auto.uplan, level.uplan)):
+        tail = getattr(a, "tail", 0)
+        parts.append(f"{f}: dense_tail={tail} levels={a.nlevels} "
+                     f"(level-only plan: {lv.nlevels})")
+    log(f"banded: solve_plan('auto') of {name} (n={lu.n}, {lu.method}, "
+        f"lnz={lu.lnz}, unz={lu.unz}): " + "; ".join(parts))
+
+
+def main_shape_records(dev, n, plans):
+    """The DIA kernel as the banded solves launch it: float64, one real slab
+    set (general or symmetric form) on the stacked (2, n) input.  Holds each
+    slab set's launch against the plain version and against scipy on the
+    host, row by row, and times kernel, plain version and the library call
+    (a float64 torch.sparse CSR matrix times the (n, 2) input).  ``plans``
+    maps a label to (complex Ybus, its split plan); returns a record for
+    each label."""
+    import scipy.sparse as sp
+    import torch
+
+    from csparse3_tpu_torch.kernels import dia as kdia
+
+    x2 = torch.rand((2, n), dtype=torch.float64, device=dev)
+    x2h = x2.cpu().numpy()
+    out = {}
+    for label, (Y, plan) in plans.items():
+        sym = plan.re.symmetric
+        A = Y.to_scipy().tocsr()
+        if sym:
+            # what the symmetric plan holds: the upper triangle and its
+            # mirror (the plan admitted the matrix as symmetric to 1e-12)
+            A = (sp.triu(A) + sp.triu(A, 1).T).tocsr()
+        # Row-wise rounding bound, as in the float32 phase with u = 2^-53:
+        # every version (kernel, plain, scipy's float64 product) sums the
+        # k_i <= kmax stored nonzeros of row i with one or two roundings
+        # each, so it lies within (kmax + 2) u (|A| |x|)_i of the exact
+        # product and two versions within twice that
+        kmax = int(np.diff(A.indptr).max())
+        rec = dict(abs_err=0.0)
+        for part in ("re", "im"):
+            Ap = getattr(A, "real" if part == "re" else "imag").tocsr()
+            p = getattr(plan, part)
+            bound = torch.as_tensor(
+                2 * (kmax + 2) * 2.0 ** -53 * 1.01 * (abs(Ap) @ x2h.T).T,
+                device=dev)
+            before = kdia.LAUNCHES["dia_spmv"]
+            yk = kdia.dia_spmv_cuda(p.slabs, x2, p.omin, sym)
+            torch.cuda.synchronize()
+            if kdia.LAUNCHES["dia_spmv"] != before + 1:
+                raise AssertionError(f"{label}.{part}: not one launch")
+            yp = kdia.dia_spmv_plain(p.slabs, x2, p.omin, sym)
+            d_plain = (yk - yp).abs()
+            d_scipy = (yk - torch.as_tensor((Ap @ x2h.T).T, device=dev)).abs()
+            tiny = torch.finfo(torch.float64).tiny
+            r_plain = float((d_plain / (bound + tiny)).max())
+            r_scipy = float((d_scipy / (bound + tiny)).max())
+            err = float(d_plain.max())
+            rec["abs_err"] = max(rec["abs_err"], err)
+            log(f"banded: dia kernel[{label}.{part}] float64 slabs="
+                f"{tuple(p.slabs.shape)} x=(2, {n}) max_abs_err_vs_plain="
+                f"{err:.3e} worst_row_err_over_bound: vs_plain={r_plain:.4f} "
+                f"vs_scipy_f64={r_scipy:.4f} (bound: 2 (kmax+2) 2^-53 |A||x| "
+                f"per row, kmax={kmax}; must be <= 1) max_row_bound="
+                f"{float(bound.max()):.3e}")
+            if not (r_plain <= 1 and r_scipy <= 1):
+                raise AssertionError(f"{label}.{part}: kernel disagrees at "
+                                     "the main path's shape")
+        # times of the real-part launch (the imaginary part has the same shape)
+        p = plan.re
+        slabs, omin = p.slabs, p.omin
+        for _ in range(10):
+            kdia.dia_spmv_cuda(slabs, x2, omin, sym)
+        ev = cuda_ms(lambda: kdia.dia_spmv_cuda(slabs, x2, omin, sym), 200)
+        _, _, _, kby = device_profile(
+            lambda: kdia.dia_spmv_cuda(slabs, x2, omin, sym), 50)
+        ms, _ = kernel_ms(kby, "dia_spmv_kernel", 1)
+        kdia.dia_spmv_plain(slabs, x2, omin, sym)
+        _, pbusy, plaunch, _ = device_profile(
+            lambda: kdia.dia_spmv_plain(slabs, x2, omin, sym), 3)
+        plain_ms = pbusy / 3 * 1e3
+        csr = A.real.tocsr()
+        lib = torch.sparse_csr_tensor(
+            torch.as_tensor(csr.indptr.astype(np.int64), device=dev),
+            torch.as_tensor(csr.indices.astype(np.int64), device=dev),
+            torch.as_tensor(csr.data, device=dev), size=csr.shape)
+        xn2 = x2.T.contiguous()
+        yl = (lib @ xn2).T
+        yk = kdia.dia_spmv_cuda(slabs, x2, omin, sym)
+        if float((yl - yk).abs().max()) > 1e-12 * float(yk.abs().max()):
+            raise AssertionError(f"{label}: library CSR product disagrees")
+        for _ in range(10):
+            lib @ xn2
+        _, lbusy, _, _ = device_profile(lambda: lib @ xn2, 50)
+        nbytes = (slabs.numel() + x2.numel() + yk.numel()) * 8
+        flops = 2 * 2 * slabs.numel() * (2 if sym else 1)
+        rec.update(ms=ms, plain_ms=plain_ms, library_ms=lbusy / 50 * 1e3,
+                   **bound_record(nbytes, flops, F64_FLOP_PER_S))
+        log(f"banded: dia kernel[{label}] at this path's shape (float64, "
+            f"D={slabs.shape[0]}, n={n}, B=2, {nbytes} bytes per launch): "
+            f"device_ms_per_launch={ms:.6f} (torch.profiler), {ev:.6f} (cuda "
+            f"events over 200 launches) plain_device_ms={plain_ms:.6f} "
+            f"({plaunch / 3:.0f} kernels) library_csr_f64_device_ms="
+            f"{rec['library_ms']:.6f} bound_ms={rec['bound_ms']:.6f} "
+            f"({rec['bound_by']})")
+        out[label] = rec
+    return out
+
+
+def banded_phase(dev, ell_state):
+    """The banded power flow at 10k buses, RCM order: Newton on the DIA
+    kernel, fast-decoupled on the symmetric and the general DIA kernel, DC
+    flow.  Returns the DIA kernel's launches over the three solves and its
+    records at this path's shape."""
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from csparse3_tpu_torch.kernels import dia as kdia
+    from csparse3_tpu_torch.models.grids import SLACK, rcm_grid, synthetic_grid
+    from csparse3_tpu_torch.models.powerflow import (
+        FastDecoupled, NewtonPowerFlow, _b_series, dc_power_flow)
+
+    t0 = time.perf_counter()
+    g, perm = rcm_grid(synthetic_grid(N_SOLVE, seed=3))
+    t1 = time.perf_counter()
+    pf = NewtonPowerFlow(g, spmv="dia", device=dev)
+    t_build = time.perf_counter() - t1
+    fds = {}
+    for sp in ("symdia", "dia"):
+        t1 = time.perf_counter()
+        fds[sp] = FastDecoupled(g, spmv=sp, device=dev)
+        log(f"banded: FastDecoupled[{sp}] build_s="
+            f"{time.perf_counter() - t1:.3f}")
+    _tail_report("B'", fds["dia"].lu_bp, dev)
+    _tail_report("B''", fds["dia"].lu_bpp, dev)
+    for sp in fds:  # warm the solve paths (first-use allocations)
+        fds[sp].solve()
+
+    # ---- the main path: counts to 0, the three solves, counts read
+    kdia.LAUNCHES["dia_spmv"] = 0
+    t1 = time.perf_counter()
+    vm, va, it, res = pf.solve()
+    torch.cuda.synchronize()
+    t_newton = time.perf_counter() - t1
+    n_newton = kdia.LAUNCHES["dia_spmv"]
+    fd_out = {}
+    for sp, fd in fds.items():
+        before = kdia.LAUNCHES["dia_spmv"]
+        t1 = time.perf_counter()
+        r = fd.solve()
+        torch.cuda.synchronize()
+        fd_out[sp] = r + (time.perf_counter() - t1,
+                          kdia.LAUNCHES["dia_spmv"] - before)
+    launches = kdia.LAUNCHES["dia_spmv"]
+
+    hm = host_mismatch(g, pf.Y, vm, va)
+    vm_e, va_e = ell_state
+    diff = max(np.abs(vm - vm_e[perm]).max(), np.abs(va - va_e[perm]).max())
+    D = pf._yplan.re.ndiag
+    log(f"banded: newton[dia] buses={g.n_bus} diagonals={D} iterations={it} "
+        f"residual={res:.3e} host_f64_mismatch={hm:.3e} (bound "
+        f"{DIA_HOST_MISMATCH:.0e}) kernel_launches={n_newton} "
+        f"build_s={t_build:.3f} solve_s={t_newton:.4f} "
+        f"max_state_diff_vs_ell_of_natural_order={diff:.3e} (bound "
+        f"{DIA_STATE_ATOL:.0e})")
+    if not res <= pf.tol or it >= pf.max_iter:
+        raise AssertionError(f"newton[dia]: did not converge ({it}, {res})")
+    if hm > DIA_HOST_MISMATCH or diff > DIA_STATE_ATOL:
+        raise AssertionError("newton[dia]: wrong state")
+    # one launch per real slab set per mismatch evaluation
+    if n_newton == 0 or n_newton != 2 * (it + 1):
+        raise AssertionError(f"newton[dia]: {n_newton} launches for "
+                             f"{it + 1} mismatch evaluations")
+    for sp, (vm_f, va_f, it_f, res_f, sec, nl) in fd_out.items():
+        fd = fds[sp]
+        diff = max(np.abs(vm_f - vm).max(), np.abs(va_f - va).max())
+        log(f"banded: fdpf[{sp}] iterations={it_f} residual={res_f:.3e} "
+            f"kernel_launches={nl} solve_s={sec:.4f} "
+            f"max_state_diff_vs_newton={diff:.3e} (bound "
+            f"{FDPF_STATE_ATOL:.0e})")
+        if not res_f <= fd.tol or it_f >= fd.max_iter:
+            raise AssertionError(f"fdpf[{sp}]: did not converge")
+        if diff > FDPF_STATE_ATOL:
+            raise AssertionError(f"fdpf[{sp}]: disagrees with Newton")
+        # per iteration one residual and two half-step mismatches, then the
+        # residual that ends the loop and the one solve() reports; each is
+        # one launch per real slab set
+        if nl == 0 or nl != 2 * (3 * it_f + 2):
+            raise AssertionError(f"fdpf[{sp}]: {nl} launches for {it_f} "
+                                 "iterations")
+    wall, busy, nk, by = device_profile(fds["symdia"].solve, 1)
+    top = sorted(by.items(), key=lambda kv: -kv[1][1])[:5]
+    log(f"banded: fdpf[symdia] profiled solve wall_s={wall:.4f} "
+        f"device_busy_s={busy:.4f} idle_share={1 - busy / wall:.4f} "
+        f"kernels={nk} top_by_device_s=" + "; ".join(
+            f"{k[:60]} x{c} {s:.4f}" for k, (c, s) in top))
+    recs = main_shape_records(
+        dev, g.n_bus, {"dia": (pf.Y, pf._yplan),
+                       "symdia": (fds["symdia"].Y, fds["symdia"]._yplan)})
+
+    t1 = time.perf_counter()
+    th = dc_power_flow(g, device=dev)
+    torch.cuda.synchronize()
+    t_dc = time.perf_counter() - t1
+    keep = np.flatnonzero(g.bus_type != SLACK)
+    ref = np.zeros(g.n_bus)
+    ref[keep] = spla.spsolve(_b_series(g)[keep, keep].to_scipy().tocsc(),
+                             (g.pg - g.pd)[keep])
+    err = np.abs(th - ref).max() / np.abs(ref).max()
+    log(f"banded: dc_power_flow seconds={t_dc:.3f} (host factor included) "
+        f"max_rel_err_vs_scipy_spsolve={err:.3e} (bound {DC_RTOL:.0e})")
+    if not err <= DC_RTOL:
+        raise AssertionError("dc_power_flow disagrees with scipy")
+    log(f"banded: phase seconds {time.perf_counter() - t0:.1f}")
+    return launches, recs
 
 
 def newton_case(name, grid, dev, solves=1, profile_solve=False):
@@ -180,6 +691,7 @@ def newton_case(name, grid, dev, solves=1, profile_solve=False):
                          device=dev)
     t_build = time.perf_counter() - t0
     plan = pf._yplan
+    pf.solve()  # warm-up: first-use allocations
     times = []
     for _ in range(solves):
         plan.kernel_launches = 0
@@ -221,7 +733,7 @@ def newton_case(name, grid, dev, solves=1, profile_solve=False):
         f"seconds={time.perf_counter() - t0:.3f}")
     if not res_e < 1e-8 or diff > STATE_ATOL:
         raise AssertionError(f"{name}: bandpoints and ell disagree")
-    return launches
+    return launches, (vm_e, va_e)
 
 
 def main():
@@ -235,30 +747,61 @@ def main():
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
 
-    from csparse3_tpu_torch.kernels.bandpoints import load_cuda_library
-    from csparse3_tpu_torch.native import host_ext
+    t_all = time.perf_counter()
+    build_phase()
 
-    t0 = time.perf_counter()
-    load_cuda_library()
-    t1 = time.perf_counter()
-    host_ext.load()
-    t2 = time.perf_counter()
-    log(f"build: nvcc_bandpoints_s={t1 - t0:.2f} gxx_host_ext_s={t2 - t1:.2f}")
+    from csparse3_tpu_torch.utils.roofline import H100_HBM_BYTES_PER_S
+
+    global HBM_BYTES_PER_S
+    HBM_BYTES_PER_S = H100_HBM_BYTES_PER_S
 
     from csparse3_tpu_torch.models.grids import ieee14, synthetic_grid
 
     with torch.inference_mode():
+        tri, bw = triad_phase(dev)
         k = kernel_phase(dev)
-        launches = newton_case("synthetic10k", synthetic_grid(10_000, seed=3),
-                               dev, solves=3, profile_solve=True)
+        dia = dia_phase(dev, bw)
+        t0 = time.perf_counter()
+        launches, ell_state = newton_case(
+            "synthetic10k", synthetic_grid(N_SOLVE, seed=3), dev,
+            profile_solve=True)
+        log(f"newton[synthetic10k]: phase seconds "
+            f"{time.perf_counter() - t0:.1f}")
+        dia_launches, band = banded_phase(dev, ell_state)
         newton_case("ieee14", ieee14(), dev)
 
-    log(json.dumps({"kernels": [{
-        "name": "bandpoints_spmv", "route": "cuda",
-        "source": "csparse3_tpu_torch/csrc/bandpoints.cu",
-        "replaces": "csparse3_tpu/kernels/bandpoints.py:546",
-        "launches": launches, "max_abs_err": k["abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"]}]}))
+    def record(name, src, replaces, launches, r):
+        return {"name": name, "route": "cuda",
+                "source": f"csparse3_tpu_torch/csrc/{src}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": r["abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
+    log(json.dumps({"kernels": [
+        record("bandpoints_spmv", "bandpoints",
+               "csparse3_tpu/kernels/bandpoints.py:546", launches, k),
+        # the top-level numbers are one launch at the shape the banded
+        # solves give the kernel (float64, D=473, n=10k, stacked (2, n)
+        # input): the launches counted are those launches
+        dict(record("dia_spmv", "dia_spmv",
+                    "csparse3_tpu/kernels/dia_pallas.py:67", dia_launches,
+                    band["dia"]),
+             shape=f"float64 general form, one slab set of the {N_SOLVE}-bus "
+                   "RCM Ybus, x (2, n), per launch",
+             symmetric_form=band["symdia"],
+             # per SplitDIA / SplitSymDIA call (2 launches) on the 200k-bus
+             # RCM Ybus, float32; the library call is the complex64 CSR
+             # product
+             full_size_float32=dict(
+                 shape=f"float32, both slab sets of the {N_KERNEL}-bus RCM "
+                       "Ybus, per split-complex call of 2 launches",
+                 launches_per_call=2, general_form=dia["dia"],
+                 symmetric_form=dia["symdia"])),
+        record("triad", "triad", "probes/_probe_pallas.py:38",
+               tri["launches"], tri),
+    ]}))
+    log(f"total seconds {time.perf_counter() - t_all:.1f}")
     log(smi_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,31 +7,56 @@ factorization) is numpy and the repository's native C++; device work is
 torch, plus hand-written CUDA kernels (``csrc/``) where the JAX package had
 a Pallas kernel on the path.
 
-This is the first slice: what ``NewtonPowerFlow(spmv='ell' |
-'bandpoints', solver='level')`` needs.
+Ported so far: the Newton power flow (``NewtonPowerFlow(spmv='ell' |
+'bandpoints' | 'dia' | 'symdia', solver='level')``), and the banded path:
+``rcm_grid``, the DIA SpMV family with its CUDA kernel, ``FastDecoupled``,
+``dc_power_flow`` and the dense-tail triangular solves.
+
+Every entry point runs on the CUDA card unless the caller passes
+``device="cpu"`` (``config.default_device``).
 """
 
 __version__ = "0.1.0"
 
 from . import config  # noqa: F401
-from .types import COO, CSC, CSR  # noqa: F401
+from .config import default_device  # noqa: F401
+from .types import COO, CSC, CSR, DIA  # noqa: F401
 from .ops.construct import (  # noqa: F401
     canonicalize,
     csc_to_coo,
     csc_to_csr,
     csc_to_dense,
+    csc_to_dia,
+    dia_to_csc,
     csr_to_csc,
     from_triplets,
     to_scipy,
     transpose,
 )
-from .ops.matvec import SplitSpMV, SpMVPlan, spmv  # noqa: F401
+from .ops.matvec import (  # noqa: F401
+    DIAPlan,
+    SplitDIA,
+    SplitSpMV,
+    SplitSymDIA,
+    SpMVPlan,
+    SymDIAPlan,
+    dia_spmv,
+    spmv,
+)
+from .ops.slicing import sample_offsets, sample_values, submatrix  # noqa: F401
 from .kernels.bandpoints import (  # noqa: F401
     OffsetsPlan,
     SplitBandPoints,
     split_offsets,
 )
+from .kernels.dia import (  # noqa: F401
+    CudaDIA,
+    PallasDIA,
+    SplitCudaDIA,
+    SplitPallasDIA,
+)
 from .linalg import (  # noqa: F401
+    DenseTailTriSolvePlan,
     RefactorPlan,
     SolvePlan,
     SparseLU,
@@ -39,6 +64,17 @@ from .linalg import (  # noqa: F401
     splu,
     spsolve,
 )
-from . import linalg, models  # noqa: F401
-from .models import NewtonPowerFlow, newton_raphson  # noqa: F401
-from .utils.interop import csc_from_arrays, grid_from_arrays  # noqa: F401
+from . import linalg, models, utils  # noqa: F401
+from .models import (  # noqa: F401
+    FastDecoupled,
+    NewtonPowerFlow,
+    dc_power_flow,
+    newton_raphson,
+    rcm_grid,
+    reorder_grid,
+)
+from .utils.interop import (  # noqa: F401
+    csc_from_arrays,
+    dia_from_arrays,
+    grid_from_arrays,
+)

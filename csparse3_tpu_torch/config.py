@@ -6,6 +6,11 @@ device work is torch, and a CUDA kernel runs exactly when its input lies
 on a CUDA device.  What stays is the index dtype of host construction
 (``ops.construct``), with the JAX package's default; the other fields
 come back with the modules that read them.
+
+``default_device`` is where every entry point of the port runs when the
+caller names no device: the CUDA card.  There is no quiet CPU default: a
+caller without a card (the tests, a host-only user) passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -13,8 +18,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-__all__ = ["Config", "get_config"]
+__all__ = ["Config", "get_config", "default_device", "resolve_device"]
 
 
 @dataclasses.dataclass
@@ -28,3 +34,24 @@ _config = Config()
 
 def get_config() -> Config:
     return _config
+
+
+def default_device() -> torch.device:
+    """The device of every ``device=None``: the CUDA card.  Raises where
+    there is none, naming the way to ask for the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "csparse3_tpu_torch runs on the CUDA card by default and "
+            "torch.cuda.is_available() is False; pass device=\"cpu\" to "
+            "run on the CPU")
+    return torch.device("cuda")
+
+
+def resolve_device(device=None, like=None) -> torch.device:
+    """``device`` as a torch.device.  None is the device of ``like`` (a
+    container that was placed explicitly or built from tensors), else
+    ``default_device()``."""
+    if device is not None:
+        return torch.device(device)
+    placed = getattr(like, "_device", None)
+    return default_device() if placed is None else placed

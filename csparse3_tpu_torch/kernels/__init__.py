@@ -1,3 +1,11 @@
 """Hand-written CUDA kernels (``csrc/``) with their plain PyTorch twins."""
 
 from .bandpoints import OffsetsPlan, SplitBandPoints, split_offsets  # noqa: F401
+from .dia import (  # noqa: F401
+    CudaDIA,
+    PallasDIA,
+    SplitCudaDIA,
+    SplitPallasDIA,
+    dia_spmv_cuda,
+    dia_spmv_plain,
+)

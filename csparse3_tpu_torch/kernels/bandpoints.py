@@ -26,21 +26,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import shutil
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils.build import BuildError, build_shared_library
+from ..config import resolve_device
+from ..utils.build import build_cuda_library
 
 __all__ = ["OffsetsPlan", "SplitBandPoints", "split_offsets",
            "load_cuda_library"]
-
-_SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "bandpoints.cu")
 
 
 def _shifted(x2, offs, m):
@@ -65,6 +61,8 @@ class OffsetsPlan(nn.Module):
         super().__init__()
         self.m, self.n = m, n
         self.offs = tuple(int(o) for o in offs)
+        if not isinstance(slabs, torch.Tensor):
+            device = resolve_device(device)
         self.register_buffer("slabs", torch.as_tensor(
             slabs, dtype=torch.float32, device=device))
 
@@ -128,16 +126,7 @@ def load_cuda_library():
     """Build ``csrc/bandpoints.cu`` with nvcc for sm_90a (first use) and
     load it.  Returns the ctypes library; raises BuildError when nvcc is
     missing or refuses the source."""
-    nvcc = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise BuildError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                         "/usr/local/cuda/bin): cannot build the CUDA kernels")
-    path = build_shared_library(
-        "bandpoints", [_SRC],
-        lambda out: [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                     "-o", out, _SRC])
+    path = build_cuda_library("bandpoints")
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.bandpoints_spmv.restype = ci
@@ -151,7 +140,8 @@ class SplitBandPoints(nn.Module):
     """Split-complex SpMV = heavy-diagonal slabs + scattered points.
 
     ``forward(xr, xi) -> (yr, yi)``, float32.  Built on the host from a
-    complex (or real) square CSC and placed on ``device``.  On a CUDA
+    complex (or real) square CSC and placed on ``device`` (None: the CUDA
+    card, ``config.default_device()``).  On a CUDA
     device every matvec launches the CUDA kernel once per point group and
     counts it in ``kernel_launches``; on the CPU it runs ``plain``.
 
@@ -175,6 +165,7 @@ class SplitBandPoints(nn.Module):
         if a.m != a.n:
             raise ValueError(f"SplitBandPoints needs a square matrix, "
                              f"got {a.shape}")
+        device = resolve_device(device, a)
         ip, ix, vals = a.np_arrays()
         m, n = a.m, a.n
         rows = ix.astype(np.int64)

@@ -2,7 +2,7 @@
 
     lu = splu(A, ordering="amd", tol=1.0)   # host factorization, P A Q = L U
     x  = lu.solve(b)                         # b: (n,) or (n, k) batched RHS
-    plan = lu.solve_plan(device="cuda")      # level-scheduled device solver
+    plan = lu.solve_plan()                   # device solver on the CUDA card
     x  = plan(b)
 
 Factor once / solve many is the GridCal power-flow pattern.  The host
@@ -17,11 +17,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..config import resolve_device
 from ..native import host_ext
 from ..types import CSC
 from . import ordering as ordering_mod
 from .lu_host import HostLU
-from .trisolve import TriSolvePlan
+from .trisolve import DenseTailTriSolvePlan, TriSolvePlan, choose_dense_tail
 
 __all__ = ["SparseLU", "splu", "spsolve", "SolvePlan"]
 
@@ -30,12 +31,11 @@ class SolvePlan(nn.Module):
     """x = A^{-1} b from a factorization: permute, L-solve, U-solve,
     unpermute.  ``forward(b)`` takes b of shape (n,) or (n, k)."""
 
-    def __init__(self, lplan: TriSolvePlan, uplan: TriSolvePlan, perm_r,
-                 perm_c):
+    def __init__(self, lplan, uplan, perm_r, perm_c):
         super().__init__()
         self.lplan = lplan
         self.uplan = uplan
-        dev = lplan.e_rows.device
+        dev = next(lplan.buffers()).device
         # perm_r[k] = original row of pivot k; perm_c[k] = original col
         self.register_buffer("perm_r", torch.as_tensor(
             perm_r, dtype=torch.int64, device=dev))
@@ -84,45 +84,64 @@ class SparseLU:
     def unz(self) -> int:
         return self.U.nnz
 
-    def solve_plan(self, device="cpu") -> SolvePlan:
-        """Level-scheduled device solver on ``device`` (cached per device).
+    def solve_plan(self, style: str = "auto", device=None) -> SolvePlan:
+        """Device solver on ``device`` (None: ``config.default_device()``,
+        the CUDA card), cached per (style, device).
 
-        This is the JAX package's ``solve_plan(style='level')``.  Its
-        default style also gives each factor a dense blocked tail
-        (``DenseTailTriSolvePlan``) when the trailing corner is dense;
-        that plan is not ported yet, so every factor gets the level plan.
+        style='auto' (default): each factor gets a blocked dense tail
+        (``DenseTailTriSolvePlan``) when its trailing corner is dense (the
+        separator clique under amd/nd orderings, which holds most
+        dependency levels); 'level' forces the pure level-scheduled plan
+        (the layout ``RefactorPlan`` retargets).
         """
-        key = str(torch.device(device))
+        if style not in ("auto", "level"):
+            raise ValueError(f"unknown solve_plan style {style!r}")
+        device = resolve_device(device)
+        key = (style, str(device))
         if key not in self._plans:
             h = self._h
+
+            def factor_plan(Fp, Fi, Fx, lower):
+                # a singular factor carries an exact-zero pivot: the level
+                # plan propagates it as inf/nan (SuperLU-style), while the
+                # dense tail's block inverse would raise; keep 'level'
+                if style == "auto" and not self.is_singular:
+                    tail = choose_dense_tail(self.n, Fp, Fi)
+                    if tail:
+                        return DenseTailTriSolvePlan(
+                            self.n, Fp, Fi, Fx, lower=lower, tail=tail,
+                            device=device)
+                return TriSolvePlan(self.n, Fp, Fi, Fx, lower=lower,
+                                    device=device)
+
             self._plans[key] = SolvePlan(
-                TriSolvePlan(self.n, h.Lp, h.Li, h.Lx, lower=True,
-                             device=device),
-                TriSolvePlan(self.n, h.Up, h.Ui, h.Ux, lower=False,
-                             device=device),
-                h.perm_r, h.perm_c)
+                factor_plan(h.Lp, h.Li, h.Lx, True),
+                factor_plan(h.Up, h.Ui, h.Ux, False), h.perm_r, h.perm_c)
         return self._plans[key]
 
-    def refactor_plan(self, a: CSC, device="cpu"):
+    def refactor_plan(self, a: CSC, device=None):
         """KLU-style device refactorization plan: freeze this
         factorization's pattern and pivoting; ``plan.refactor(data)``
-        re-factors a same-pattern matrix on ``device``.  ``a`` must be
-        the canonical CSC this LU was computed from."""
+        re-factors a same-pattern matrix on ``device`` (None:
+        ``config.default_device()``).  ``a`` must be the canonical CSC
+        this LU was computed from."""
         from .refactor import RefactorPlan
 
         return RefactorPlan(self._h, a, device=device)
 
-    def solve(self, b):
-        """x = A^{-1} b (b: (n,) or (n, k), numpy or torch).  Runs on b's
-        device (the CPU for numpy) and returns a tensor there."""
+    def solve(self, b, device=None):
+        """x = A^{-1} b (b: (n,) or (n, k), numpy or torch).  A tensor is
+        solved on its own device; a numpy ``b`` goes to ``device`` (None:
+        ``config.default_device()``).  Returns a tensor there."""
         if self.is_singular:
             import warnings
 
             warnings.warn(
                 f"matrix is singular at columns {self.singular_cols[:8]}...; "
                 "solution contains inf/nan (SuperLU-compatible behavior)")
-        b = torch.as_tensor(b)
-        return self.solve_plan(b.device)(b)
+        if not isinstance(b, torch.Tensor):
+            b = torch.as_tensor(np.asarray(b), device=resolve_device(device))
+        return self.solve_plan(device=b.device)(b)
 
     def solve_host(self, b):
         """Host (numpy) solve — oracle path."""
@@ -200,6 +219,6 @@ def splu(a: CSC, ordering="auto", tol: float = 1.0,
     return SparseLU(host, method=method)
 
 
-def spsolve(a: CSC, b, ordering="auto", tol: float = 1.0):
-    """x = A^{-1} b (factor + solve)."""
-    return splu(a, ordering=ordering, tol=tol).solve(b)
+def spsolve(a: CSC, b, ordering="auto", tol: float = 1.0, device=None):
+    """x = A^{-1} b (factor + solve); see ``SparseLU.solve`` for where."""
+    return splu(a, ordering=ordering, tol=tol).solve(b, device=device)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..config import resolve_device
 from ..native import host_ext
 from .lu import SolvePlan
 from .lu_host import HostLU
@@ -44,7 +45,7 @@ def _level_ptr(lev, nlev):
 
 class RefactorPlan(nn.Module):
     """Built from a host factorization and the matrix it factored, placed
-    on ``device``.
+    on ``device`` (None: ``config.default_device()``, the CUDA card).
 
     ``refactor(new_data)`` -> SolvePlan with fresh numeric factors, where
     ``new_data`` is the data array of a CSC with the SAME canonical
@@ -53,6 +54,7 @@ class RefactorPlan(nn.Module):
 
     def __init__(self, host: HostLU, a_csc, device=None):
         super().__init__()
+        device = resolve_device(device)
         n = host.n
         Lp, Li = host.Lp.astype(np.int64), host.Li.astype(np.int64)
         Up, Ui = host.Up.astype(np.int64), host.Ui.astype(np.int64)
@@ -157,7 +159,10 @@ def retarget_solve_plan(obj, Lx, Ux, with_diag: bool = False):
     keep the RefactorPlan template layout (``_ltpl`` / ``_utpl`` solve
     plans and the ``_l_epos`` / ``_u_epos`` / ``_u_diagpos`` positions in
     X = [Lx | Ux]): gather the fresh values into the stored solve plans and
-    return a SolvePlan (plus the U diagonal when ``with_diag``).  The JAX
+    return a SolvePlan (plus the U diagonal when ``with_diag``).  The
+    templates are level plans whatever ``SparseLU.solve_plan`` would pick:
+    a dense tail's block inverses cannot be refreshed by a gather (the JAX
+    package retargets the level layout only, too).  The JAX
     package gathers through its one-hot ``rowgather`` workaround here;
     these are plain indexing."""
     X = torch.cat([Lx, Ux])

@@ -17,6 +17,15 @@ sorted by level, and slices each level: no padding, no dummy workspace
 row, no dropped indices.  The diagonal is folded in up front: row i's
 entries are stored pre-scaled by 1/diag[i], so a solve is x = b / diag
 followed by x[i] -= sum_j (F[i, j] / diag[i]) x[j] level by level.
+
+* Dense-tail hybrid solves (``DenseTailTriSolvePlan``): under a
+  fill-reducing ordering the trailing corner of a factor is the dense
+  separator clique and carries the deepest dependency chains.  It is
+  solved by blocked dense substitution (block inverses from the host,
+  (s, s) @ (s, B) matrix products), the sparse head keeps the level plan.
+  The JAX plan pads the tail to whole blocks and scans over strips with
+  drop-mode scatters; here the last block is simply short and the strips
+  are slices of one dense matrix.
 """
 
 from __future__ import annotations
@@ -27,7 +36,10 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["lsolve", "usolve", "level_schedule", "TriSolvePlan"]
+from ..config import resolve_device
+
+__all__ = ["lsolve", "usolve", "level_schedule", "TriSolvePlan",
+           "choose_dense_tail", "DenseTailTriSolvePlan"]
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +158,8 @@ def _build_slabs(n, rows, lev) -> _Slabs:
 class TriSolvePlan(nn.Module):
     """Level-scheduled triangular solve for one factor.
 
-    Built from CSC factor arrays on the host and placed on ``device``;
+    Built from CSC factor arrays on the host and placed on ``device``
+    (None: ``config.default_device()``, the CUDA card);
     ``forward(b)`` (also ``solve``) takes b of shape (n,) or (n, k).
     ``e_order`` (host) maps the level-sorted entries back to the factor's
     off-diagonal entries in CSC order, which is how
@@ -174,7 +187,7 @@ class TriSolvePlan(nn.Module):
         self.lower = lower
         self.e_order = o
         self.e_ptr = slabs.e_ptr.tolist()
-        dev = torch.device(device) if device is not None else None
+        dev = resolve_device(device)
         self.register_buffer("e_rows", torch.as_tensor(rows[o], device=dev))
         self.register_buffer("e_cols", torch.as_tensor(cols[o], device=dev))
         self.register_buffer("dinv", torch.as_tensor(dinv, device=dev))
@@ -221,5 +234,130 @@ class TriSolvePlan(nn.Module):
             contrib = x[self.e_cols[a:c]] * self.e_scaled[a:c, None]
             x.index_add_(0, self.e_rows[a:c], contrib, alpha=-1)
         return x[:, 0] if squeeze else x
+
+    solve = forward
+
+
+# ---------------------------------------------------------------------------
+# dense-tail hybrid plan
+# ---------------------------------------------------------------------------
+
+def choose_dense_tail(n, Fp, Fi, max_tail=4096, min_tail=512,
+                      min_density=0.15, block=256):
+    """Pick a trailing-block size T (a multiple of ``block``) such that the
+    T x T corner of the factor is at least ``min_density`` dense: the
+    signature of the final separator clique under amd/nd orderings.
+    Returns 0 when no worthwhile tail exists."""
+    Fp = np.asarray(Fp)
+    Fi = np.asarray(Fi).astype(np.int64)
+    cols = np.repeat(np.arange(n, dtype=np.int64), np.diff(Fp))
+    best = 0
+    T = min(max_tail, (n // 2) // block * block)
+    while T >= min_tail:
+        k0 = n - T
+        cnt = int(((cols >= k0) & (Fi >= k0)).sum())
+        if cnt >= min_density * (T * T / 2):
+            best = T
+            break
+        T -= block if T - block >= min_tail else T
+    return best
+
+
+class DenseTailTriSolvePlan(nn.Module):
+    """Triangular solve = level-scheduled head + blocked dense tail.
+
+    The last ``tail`` rows and columns of the factor are held as one dense
+    (tail, tail) matrix and solved block by block (``block`` rows at a
+    time): x_b = inv(D_bb) r_b, then r -= D[:, b] x_b for the rows not yet
+    solved.  The block inverses are computed on the host at build time.
+    The head (n - tail rows) is a ``TriSolvePlan``; the entries that couple
+    head and tail are one gather, multiply and ``index_add_``.  Same
+    ``forward`` interface as ``TriSolvePlan``; ``SparseLU.solve_plan``
+    picks it when ``choose_dense_tail`` finds a qualifying corner.
+    """
+
+    def __init__(self, n, Fp, Fi, Fx, lower: bool, tail: int,
+                 block: int = 256, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        Fp = np.asarray(Fp)
+        rows = np.asarray(Fi).astype(np.int64)
+        Fx = np.asarray(Fx)
+        n_head = n - tail
+        cols = np.repeat(np.arange(n, dtype=np.int64), np.diff(Fp))
+
+        # lower: head-internal needs both row and col in the head; upper:
+        # rows <= col < n_head is implied by the column test
+        head = (cols < n_head) & (rows < n_head) if lower else (cols < n_head)
+        cross = ((cols < n_head) & (rows >= n_head)) if lower else (
+            (cols >= n_head) & (rows < n_head))
+        tail_m = (cols >= n_head) & (rows >= n_head)
+
+        # head sub-CSC (square n_head); the mask keeps CSC order
+        hc = cols[head]
+        hp = np.zeros(n_head + 1, dtype=np.int64)
+        hp[1:] = np.cumsum(np.bincount(hc, minlength=n_head))
+        self.head = TriSolvePlan(n_head, hp, rows[head], Fx[head],
+                                 lower=lower, device=dev)
+
+        # cross entries: lower reads the head's x into tail rows, upper
+        # reads the tail's x into head rows (tail ids are local)
+        if lower:
+            cr, cc = rows[cross] - n_head, cols[cross]
+        else:
+            cr, cc = rows[cross], cols[cross] - n_head
+        self.register_buffer("c_rows", torch.as_tensor(cr, device=dev))
+        self.register_buffer("c_cols", torch.as_tensor(cc, device=dev))
+        self.register_buffer("c_vals", torch.as_tensor(Fx[cross], device=dev))
+
+        dense = np.zeros((tail, tail), dtype=Fx.dtype)
+        dense[rows[tail_m] - n_head, cols[tail_m] - n_head] = Fx[tail_m]
+        self.blocks = [(lo, min(lo + block, tail))
+                       for lo in range(0, tail, block)]
+        self.register_buffer("dense", torch.as_tensor(dense, device=dev))
+        for k, (lo, hi) in enumerate(self.blocks):
+            self.register_buffer(f"invd{k}", torch.as_tensor(
+                np.linalg.inv(dense[lo:hi, lo:hi]), device=dev))
+        self.n, self.lower, self.tail, self.s = n, lower, tail, block
+
+    @property
+    def nlevels(self):
+        return self.head.nlevels + len(self.blocks)
+
+    def _dense_solve(self, r):
+        """Blocked substitution on the (tail, B) right-hand side ``r``,
+        in place; returns it as the solution."""
+        order = range(len(self.blocks))
+        for b in (order if self.lower else reversed(order)):
+            lo, hi = self.blocks[b]
+            xb = getattr(self, f"invd{b}") @ r[lo:hi]
+            r[lo:hi] = xb
+            if self.lower:
+                r[hi:] -= self.dense[hi:, lo:hi] @ xb
+            else:
+                r[:lo] -= self.dense[:lo, lo:hi] @ xb
+        return r
+
+    @torch.inference_mode()
+    def forward(self, b):
+        squeeze = b.ndim == 1
+        if squeeze:
+            b = b[:, None]
+        n_head = self.n - self.tail
+        dtype = torch.promote_types(b.dtype, self.dense.dtype)
+        if self.lower:
+            xh = self.head(b[:n_head])
+            r = b[n_head:].to(dtype, copy=True)
+            r.index_add_(0, self.c_rows,
+                         self.c_vals[:, None] * xh[self.c_cols], alpha=-1)
+            xt = self._dense_solve(r)
+        else:
+            xt = self._dense_solve(b[n_head:].to(dtype, copy=True))
+            bh = b[:n_head].to(dtype, copy=True)
+            bh.index_add_(0, self.c_rows,
+                          self.c_vals[:, None] * xt[self.c_cols], alpha=-1)
+            xh = self.head(bh)
+        out = torch.cat([xh.to(dtype), xt])
+        return out[:, 0] if squeeze else out
 
     solve = forward

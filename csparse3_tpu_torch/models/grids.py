@@ -12,6 +12,9 @@ This module provides the grid cases the benchmarks need:
                        arbitrary scale (10k / 100k / 1M nodes; BASELINE
                        configs 2-5): a 2-D lattice backbone (transmission
                        grids are near-planar) plus random chords.
+* ``rcm_grid``       — the same grid with its buses renumbered in reverse
+                       Cuthill-McKee order, which makes Ybus banded (the
+                       form the DIA SpMV plans want).
 * ``ybus``           — vectorized admittance assembly (standard pi-model
                        with off-nominal taps and shunts) via one
                        ``from_triplets`` sort-build; also returns the
@@ -31,7 +34,7 @@ import numpy as np
 from ..ops import construct
 
 __all__ = ["Grid", "branch_admittances", "ieee14", "synthetic_grid",
-           "ybus", "connectivity"]
+           "ybus", "connectivity", "reorder_grid", "rcm_grid"]
 
 # bus types
 PQ, PV, SLACK = 0, 1, 2
@@ -237,3 +240,28 @@ def connectivity(grid: Grid):
     Cf = construct.from_triplets(br, grid.f, ones, (m, n))
     Ct = construct.from_triplets(br, grid.t, ones, (m, n))
     return Cf, Ct
+
+
+def reorder_grid(grid: Grid, perm) -> Grid:
+    """Renumber buses by ``perm`` (new index k = old bus perm[k]), e.g. an
+    RCM order, which makes Ybus banded so that the gather-free DIA plans
+    apply.  Returns a new Grid; results map back via
+    vm_old[perm] = vm_new."""
+    perm = np.asarray(perm)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return grid._replace(
+        f=inv[grid.f], t=inv[grid.t],
+        bus_type=grid.bus_type[perm], pd=grid.pd[perm], qd=grid.qd[perm],
+        pg=grid.pg[perm], vm0=grid.vm0[perm], gs=grid.gs[perm],
+        bs=grid.bs[perm],
+    )
+
+
+def rcm_grid(grid: Grid):
+    """(reordered grid, perm) with buses in RCM order of the Ybus pattern."""
+    from ..linalg.ordering import rcm
+
+    Y, _, _ = ybus(grid)
+    perm = rcm(Y)
+    return reorder_grid(grid, perm), perm

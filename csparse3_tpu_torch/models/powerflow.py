@@ -1,4 +1,11 @@
-"""Newton power flow, the library's main path.
+"""Power-flow solvers: the library's main paths.
+
+* ``dc_power_flow``  linear B theta = P, one LU factor + solve.
+* ``FastDecoupled``  FDXB fast-decoupled AC power flow: two constant
+                     matrices B' / B'' factored ONCE on the host; every
+                     iteration is then {split-complex Ybus SpMV, two
+                     triangular solves} on the device.
+* ``NewtonPowerFlow`` / ``newton_raphson``  full Newton, below.
 
 ``NewtonPowerFlow`` (the JAX package's ``csparse3_tpu/models/powerflow.py``
 class of the same name, ``solver='level'``): the Jacobian pattern is fixed
@@ -11,9 +18,13 @@ loop here, with one host read of the residual norm per iteration.
 
 ``newton_raphson`` is the host reference (``splu`` per iteration).
 
-Not ported yet, and refused with ``NotImplementedError``: spmv 'dia' /
-'symdia' and solver 'blocklu' / 'multifrontal' (see ROADMAP.md), with the
-multifrontal pivot-growth gate and its host fallback.
+Every entry point runs on ``device``; None is ``config.default_device()``,
+the CUDA card, and a caller without one passes ``device="cpu"``.
+
+Not ported yet, and refused with ``NotImplementedError``: the Newton
+solvers 'blocklu' / 'multifrontal' (with the multifrontal pivot-growth
+gate and its host fallback) and the fast-decoupled solvers 'banded' /
+'blocklu', which wait for ``BandedLU`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,12 +32,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..linalg import splu
 from ..ops import construct, matvec
 from ..types import CSC
-from .grids import Grid, ybus
+from .grids import SLACK, Grid, ybus
 
-__all__ = ["sbus", "newton_raphson", "NewtonPowerFlow"]
+__all__ = ["sbus", "dc_power_flow", "FastDecoupled", "newton_raphson",
+           "NewtonPowerFlow"]
 
 
 def sbus(grid: Grid):
@@ -37,22 +50,180 @@ def sbus(grid: Grid):
 def _make_yplan(Y, spmv, device):
     """Split-complex Ybus SpMV plan on ``device``.
 
-    'ell'        — gather-based SplitSpMV, float64;
-    'bandpoints' — heavy-diagonal slabs + scattered points
-                   (kernels.bandpoints, the CUDA kernel on a GPU), float32
-                   by design: the Newton mismatch floors near f32 precision.
+    'ell'        gather-based SplitSpMV;
+    'dia'        gather-free banded slabs (pair with models.grids.rcm_grid),
+                 the CUDA kernel of kernels.dia on a GPU;
+    'symdia'     like 'dia' but stores only the upper diagonals: Ybus is
+                 complex symmetric when taps are real (no phase shifters),
+                 which halves the slab traffic.  Raises if Y is not
+                 symmetric;
+    'bandpoints' heavy-diagonal slabs + scattered points
+                 (kernels.bandpoints, its CUDA kernel on a GPU), float32 by
+                 design: the Newton mismatch floors near f32 precision.
+
+    'ell', 'dia' and 'symdia' keep Ybus's dtype (float64 parts).
     """
     if spmv == "ell":
         return matvec.SplitSpMV(Y, device=device)
+    if spmv == "dia":
+        return matvec.SplitDIA(Y, device=device)
+    if spmv == "symdia":
+        return matvec.SplitSymDIA(Y, tol=1e-12, device=device)
     if spmv == "bandpoints":
         from ..kernels.bandpoints import SplitBandPoints
 
         return SplitBandPoints(Y, device=device)
-    if spmv in ("dia", "symdia"):
-        raise NotImplementedError(
-            f"spmv={spmv!r} is not ported yet (ROADMAP: the DIA family and "
-            "kernel K4, 'spmv dia/symdia' in the modules still to come)")
-    raise ValueError(f"unknown spmv {spmv!r}; have 'ell', 'bandpoints'")
+    raise ValueError(f"unknown spmv {spmv!r}; have 'ell', 'dia', 'symdia', "
+                     "'bandpoints'")
+
+
+# ---------------------------------------------------------------------------
+# DC power flow
+# ---------------------------------------------------------------------------
+
+def _b_series(grid: Grid) -> CSC:
+    """Series-susceptance matrix (r = 0, b = 0, tap = 1): DC power flow's B
+    and the fast-decoupled B'."""
+    n = grid.n_bus
+    bsus = 1.0 / grid.x
+    f, t = grid.f, grid.t
+    return construct.from_triplets(
+        np.concatenate([f, t, f, t]), np.concatenate([f, t, t, f]),
+        np.concatenate([bsus, bsus, -bsus, -bsus]), (n, n))
+
+
+def dc_power_flow(grid: Grid, ordering="auto", device=None):
+    """theta = B^{-1} P with the slack row and column removed, solved on
+    ``device``; returns the bus angles as host numpy (radians, slack = 0)."""
+    device = resolve_device(device)
+    keep = np.flatnonzero(grid.bus_type != SLACK)
+    Br = _b_series(grid)[keep, keep]
+    P = (grid.pg - grid.pd)[keep]
+    lu = splu(Br, ordering=ordering)
+    th = np.zeros(grid.n_bus)
+    th[keep] = lu.solve(P, device=device).cpu().numpy()
+    return th
+
+
+# ---------------------------------------------------------------------------
+# fast-decoupled power flow (XB scheme)
+# ---------------------------------------------------------------------------
+
+class FastDecoupled:
+    """Factor-once fast-decoupled AC power flow on ``device``.
+
+    Construction does the host work (Ybus, B' and B'' assembly, two LU
+    factorizations, the solve plans); ``step`` / ``run`` are device work:
+    per iteration two Ybus SpMVs and one solve against each factorization.
+    """
+
+    def __init__(self, grid: Grid, ordering="auto", tol=1e-8, max_iter=50,
+                 spmv="ell", solver="level", device=None):
+        """spmv: 'ell' (gathers), 'dia' (gather-free banded slabs: reorder
+        the grid with models.grids.rcm_grid first so that Ybus is banded),
+        'symdia' (dia with only the upper diagonals stored; valid when
+        Ybus is complex symmetric, i.e. no phase shifters) or
+        'bandpoints'.  solver: 'level' (``SparseLU.solve_plan``: level
+        schedules with a dense tail where the factor has one)."""
+        if solver in ("banded", "blocklu"):
+            raise NotImplementedError(
+                f"solver={solver!r} is not ported yet: it needs BandedLU "
+                "(ROADMAP.md, the banded solvers in the modules still to "
+                "come)")
+        if solver != "level":
+            raise ValueError(f"unknown solver {solver!r}; have 'level'")
+        self.grid = grid
+        self.tol = tol
+        self.max_iter = max_iter
+        self.device = resolve_device(device)
+        n = grid.n_bus
+        self.Y, _, _ = ybus(grid)
+        self.pvpq = np.concatenate([grid.pv, grid.pq])
+        self.pq = grid.pq
+        self.slack = grid.slack
+
+        # B': series susceptance only, slack removed
+        Bp = _b_series(grid)[self.pvpq, self.pvpq]
+        # B'': -imag(Ybus) on PQ buses
+        ipY, ixY, dtY = self.Y.np_arrays()
+        colsY = np.repeat(np.arange(n), np.diff(ipY))
+        Bpp = construct.from_triplets(ixY, colsY, -dtY.imag,
+                                      (n, n))[self.pq, self.pq]
+        self.lu_bp = splu(Bp, ordering=ordering)
+        self.lu_bpp = splu(Bpp, ordering=ordering)
+        self._bp_plan = self.lu_bp.solve_plan(device=self.device)
+        self._bpp_plan = self.lu_bpp.solve_plan(device=self.device)
+        self._yplan = _make_yplan(self.Y, spmv, self.device)
+
+        def f64(a):
+            return torch.as_tensor(np.ascontiguousarray(a),
+                                   dtype=torch.float64, device=self.device)
+
+        sb = sbus(grid)
+        self._sbr, self._sbi = f64(sb.real), f64(sb.imag)
+        self._vm0 = f64(grid.vm0)
+        self._pvpq_t = torch.as_tensor(self.pvpq, dtype=torch.int64,
+                                       device=self.device)
+        self._pq_t = torch.as_tensor(self.pq, dtype=torch.int64,
+                                     device=self.device)
+
+    def mismatch(self, vm, va, sbr=None, sbi=None):
+        """Power mismatch dS = (S(V) - Sbus) / Vm as (real, imag) parts."""
+        sbr = self._sbr if sbr is None else sbr
+        sbi = self._sbi if sbi is None else sbi
+        vr = vm * torch.cos(va)
+        vi = vm * torch.sin(va)
+        yr, yi = self._yplan(vr, vi)
+        # s = v * conj(Y v)
+        sr = vr * yr + vi * yi
+        si = vi * yr - vr * yi
+        return (sr - sbr) / vm, (si - sbi) / vm
+
+    @torch.inference_mode()
+    def step(self, carry):
+        """One P-theta / Q-V half-iteration pair; returns the new carry
+        (vm, va, sbr, sbi) and leaves the one given untouched."""
+        vm, va, sbr, sbi = carry
+        mr, _ = self.mismatch(vm, va, sbr, sbi)
+        va = va.index_add(0, self._pvpq_t, self._bp_plan(mr[self._pvpq_t]),
+                          alpha=-1)
+        _, mi = self.mismatch(vm, va, sbr, sbi)
+        vm = vm.index_add(0, self._pq_t, self._bpp_plan(mi[self._pq_t]),
+                          alpha=-1)
+        return (vm, va, sbr, sbi)
+
+    @torch.inference_mode()
+    def residual(self, vm, va, sbr=None, sbi=None):
+        """Max-norm of the mismatch over the equations solved (P at PV and
+        PQ buses, Q at PQ buses), a 0-d tensor."""
+        mr, mi = self.mismatch(vm, va, sbr, sbi)
+        r = torch.cat([mr[self._pvpq_t], mi[self._pq_t]])
+        return r.abs().max() if r.numel() else torch.zeros(
+            (), dtype=vm.dtype, device=vm.device)
+
+    @torch.inference_mode()
+    def run(self, vm0, va0, sbr=None, sbi=None):
+        """Iterate from (vm0, va0) while the residual exceeds ``tol`` and
+        fewer than ``max_iter`` iterations ran; returns (vm, va,
+        iterations) with vm, va on the device.  One host read of the
+        residual per iteration."""
+        sbr = self._sbr if sbr is None else sbr
+        sbi = self._sbi if sbi is None else sbi
+        carry = (vm0.to(self.device, torch.float64),
+                 va0.to(self.device, torch.float64), sbr, sbi)
+        it = 0
+        while it < self.max_iter and float(
+                self.residual(*carry)) > self.tol:
+            carry = self.step(carry)
+            it += 1
+        return carry[0], carry[1], it
+
+    def solve(self, flat_start=True):
+        """Solve from the grid's flat start; returns host numpy (vm, va),
+        the iteration count and the final residual."""
+        vm, va, it = self.run(self._vm0, torch.zeros_like(self._vm0))
+        res = float(self.residual(vm, va))
+        return vm.cpu().numpy(), va.cpu().numpy(), int(it), res
 
 
 def _jacobian(Y: CSC, v, ibus, pvpq, pq):
@@ -112,10 +283,12 @@ class NewtonPowerFlow:
     """
 
     def __init__(self, grid: Grid, tol=1e-10, max_iter=20, ordering="auto",
-                 spmv="ell", solver="level", device="cpu"):
-        """spmv: 'ell' (float64 gathers) or 'bandpoints' (float32 slabs +
-        points, the CUDA kernel on a GPU).  solver: 'level' (KLU-style
-        RefactorPlan + level-scheduled solves)."""
+                 spmv="ell", solver="level", device=None):
+        """spmv: 'ell' (float64 gathers), 'dia' / 'symdia' (float64 banded
+        slabs, for a grid reordered with models.grids.rcm_grid; the DIA
+        CUDA kernel on a GPU) or 'bandpoints' (float32 slabs + points, its
+        CUDA kernel on a GPU).  solver: 'level' (KLU-style RefactorPlan +
+        level-scheduled solves)."""
         if solver in ("blocklu", "multifrontal"):
             raise NotImplementedError(
                 f"solver={solver!r} is not ported yet (ROADMAP: the banded "
@@ -125,7 +298,7 @@ class NewtonPowerFlow:
         self.grid = grid
         self.tol = tol
         self.max_iter = max_iter
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         n = grid.n_bus
         self.Y, _, _ = ybus(grid)
         self._yplan = _make_yplan(self.Y, spmv, self.device)
@@ -255,17 +428,20 @@ class NewtonPowerFlow:
         """Solve from the grid's flat start; returns host numpy (vm, va),
         the iteration count and the final mismatch max-norm."""
         n = self.grid.n_bus
-        vm0 = torch.as_tensor(self.grid.vm0.astype(np.float64))
-        va0 = torch.zeros(n, dtype=torch.float64)
+        vm0 = torch.as_tensor(self.grid.vm0.astype(np.float64),
+                              device=self.device)
+        va0 = torch.zeros(n, dtype=torch.float64, device=self.device)
         vm, va, it, res = self.run(vm0, va0)
         return vm.cpu().numpy(), va.cpu().numpy(), int(it), float(res)
 
 
 @torch.inference_mode()
 def newton_raphson(grid: Grid, tol=1e-10, max_iter=20, ordering="auto",
-                   device="cpu"):
+                   device=None):
     """Full Newton power flow with a host factorization per iteration (the
-    reference implementation); returns (vm, va, iterations, residual)."""
+    reference implementation), products and solves on ``device``; returns
+    (vm, va, iterations, residual)."""
+    device = resolve_device(device)
     n = grid.n_bus
     Y, _, _ = ybus(grid)
     yplan = matvec.SpMVPlan(Y, device=device)

@@ -1,3 +1,3 @@
-"""Construction, conversion and SpMV."""
+"""Construction, conversion, slicing and SpMV."""
 
-from . import construct, matvec  # noqa: F401
+from . import construct, matvec, slicing  # noqa: F401

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..config import get_config
-from ..types import COO, CSC, CSR
+from ..types import COO, CSC, CSR, DIA
 
 __all__ = [
     "expand_indptr_np",
@@ -25,6 +25,8 @@ __all__ = [
     "csr_to_csc",
     "transpose",
     "canonicalize",
+    "csc_to_dia",
+    "dia_to_csc",
     "csc_to_dense",
     "coo_to_dense",
     "to_scipy",
@@ -44,7 +46,8 @@ def from_triplets(rows, cols, vals, shape, *, sum_duplicates=True,
                   device=None) -> CSC:
     """Canonical CSC from COO triplets; duplicates are summed by default
     (scipy-style, what Ybus assembly needs).  Host numpy; the result is
-    placed on ``device`` (CPU when None)."""
+    placed on ``device`` (None: ``config.default_device()``, resolved when
+    a tensor of the result is first read)."""
     m, n = shape
     np_idx = np.dtype(get_config().index_dtype)
     rows = np.asarray(rows).astype(np_idx, copy=False)
@@ -82,7 +85,7 @@ def from_triplets(rows, cols, vals, shape, *, sum_duplicates=True,
 def coo_to_csc(coo: COO, sum_duplicates: bool = True) -> CSC:
     r, c, d = coo.np_arrays()
     return from_triplets(r, c, d, coo.shape, sum_duplicates=sum_duplicates,
-                         device=coo.device)
+                         device=coo._device)
 
 
 def _empty_csc(m, n, dtype, device) -> CSC:
@@ -93,7 +96,7 @@ def _empty_csc(m, n, dtype, device) -> CSC:
 
 def csc_to_coo(a: CSC) -> COO:
     ip, rows, vals = a.np_arrays()
-    return COO(a.m, a.n, rows, expand_indptr_np(ip), vals, device=a.device)
+    return COO(a.m, a.n, rows, expand_indptr_np(ip), vals, device=a._device)
 
 
 def _resort_np(n_major, major, minor, vals, idx_dtype):
@@ -115,7 +118,7 @@ def csc_to_csr(a: CSC) -> CSR:
         np.dtype(get_config().index_dtype))
     return CSR(a.m, a.n, indptr, np.ascontiguousarray(c_s),
                np.ascontiguousarray(v_s), canonical=a.canonical,
-               device=a.device)
+               device=a._device)
 
 
 def csr_to_csc(a: CSR) -> CSC:
@@ -126,7 +129,7 @@ def csr_to_csc(a: CSR) -> CSC:
         np.dtype(get_config().index_dtype))
     return CSC(a.m, a.n, indptr, np.ascontiguousarray(r_s),
                np.ascontiguousarray(v_s), canonical=a.canonical,
-               device=a.device)
+               device=a._device)
 
 
 def transpose(a: CSC) -> CSC:
@@ -140,12 +143,46 @@ def transpose(a: CSC) -> CSC:
         np.dtype(get_config().index_dtype))
     return CSC(a.n, a.m, indptr, np.ascontiguousarray(r_s),
                np.ascontiguousarray(v_s), canonical=a.canonical,
-               device=a.device)
+               device=a._device)
 
 
 def canonicalize(a: CSC, *, sum_duplicates=True) -> CSC:
     """Sort rows within columns and merge duplicates."""
     return coo_to_csc(csc_to_coo(a), sum_duplicates=sum_duplicates)
+
+
+def csc_to_dia(a: CSC) -> DIA:
+    """CSC -> DIA (host; the diagonal count is data-dependent)."""
+    ip, rows, vals = a.np_arrays()
+    cols = expand_indptr_np(ip).astype(np.int64)
+    offs_all = cols - rows.astype(np.int64)
+    offsets = np.unique(offs_all)
+    data = np.zeros((len(offsets), a.n), dtype=vals.dtype)
+    di = np.searchsorted(offsets, offs_all)
+    data[di, cols] = vals
+    return DIA(a.m, a.n, offsets.astype(np.int32), data, device=a._device)
+
+
+def dia_to_csc(a: DIA) -> CSC:
+    """DIA -> CSC (host); stored zeros of a diagonal are dropped."""
+    offs, dat = a.np_arrays()
+    rows_l, cols_l, vals_l = [], [], []
+    for i, off in enumerate(offs):
+        off = int(off)
+        j_lo, j_hi = max(0, off), min(a.n, a.m + off)
+        if j_hi <= j_lo:
+            continue
+        j = np.arange(j_lo, j_hi)
+        v = dat[i, j_lo:j_hi]
+        nz = v != 0
+        rows_l.append(j[nz] - off)
+        cols_l.append(j[nz])
+        vals_l.append(v[nz])
+    if not rows_l:
+        return _empty_csc(a.m, a.n, dat.dtype, a._device)
+    return from_triplets(
+        np.concatenate(rows_l), np.concatenate(cols_l),
+        np.concatenate(vals_l), (a.m, a.n), device=a._device)
 
 
 def _dense(m, n, rows, cols, data):

@@ -14,18 +14,35 @@ plan does (``csparse3_tpu/ops/matvec.py``):
 
 ``SplitSpMV`` is the split-complex form, (xr, xi) -> (yr, yi), the
 interface every Ybus plan of the power-flow solvers shares.
+
+The DIA family is the gather-free form for banded matrices (an RCM-ordered
+grid Ybus, ``models.grids.rcm_grid``): ``DIAPlan`` densifies the offset
+range [omin, omax] into row-aligned slabs, ``SymDIAPlan`` stores only the
+diagonals d >= 0 of a symmetric matrix, ``SplitDIA`` / ``SplitSymDIA`` are
+their split-complex forms.  They keep the matrix's dtype.  A product on a
+CPU tensor runs the plain version of ``kernels.dia``; on a CUDA tensor it
+launches that module's CUDA kernel, or raises.  ``chunk=`` (the JAX
+plans' diagonals per scan step) is accepted and has no effect.
+
+Every plan is placed on ``device``; None is the device its matrix was
+placed on explicitly, else ``config.default_device()``, the CUDA card.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..types import CSC
+from ..config import resolve_device
+from ..kernels import dia as dia_kernel
+from ..types import CSC, DIA
 from . import construct
 
-__all__ = ["spmv", "SpMVPlan", "SplitSpMV"]
+__all__ = ["spmv", "SpMVPlan", "SplitSpMV", "dia_spmv", "DIAPlan",
+           "SymDIAPlan", "SplitDIA", "SplitSymDIA"]
 
 
 def _check(m, n, x):
@@ -61,6 +78,7 @@ class SpMVPlan(nn.Module):
     def __init__(self, a: CSC, layout: str | None = None,
                  max_waste: float = 4.0, device=None):
         super().__init__()
+        device = resolve_device(device, a)
         self.m, self.n = a.shape
         ip, rows_np, vals_np = a.np_arrays()
         rows_np = rows_np.astype(np.int64)
@@ -129,20 +147,224 @@ class SplitSpMV(nn.Module):
 
     def __init__(self, a: CSC, layout: str | None = None, device=None):
         super().__init__()
-        ip, rows, vals = a.np_arrays()
-        self.iscomplex = np.iscomplexobj(vals)
-        re = CSC(a.m, a.n, ip, rows, np.ascontiguousarray(vals.real),
-                 canonical=a.canonical)
+        device = resolve_device(device, a)
+        self.iscomplex, re, im = _split_real(a)
         self.re = SpMVPlan(re, layout=layout, device=device)
-        if self.iscomplex:
-            im = CSC(a.m, a.n, ip, rows, np.ascontiguousarray(vals.imag),
-                     canonical=a.canonical)
-            self.im = SpMVPlan(im, layout=layout, device=device)
-        else:
-            self.im = None
+        self.im = None if im is None else SpMVPlan(im, layout=layout,
+                                                   device=device)
 
     @torch.inference_mode()
     def forward(self, xr, xi):
         if self.im is None:
             return self.re(xr), self.re(xi)
         return (self.re(xr) - self.im(xi), self.re(xi) + self.im(xr))
+
+
+# ---------------------------------------------------------------------------
+# DIA family: gather-free banded SpMV
+# ---------------------------------------------------------------------------
+
+@torch.inference_mode()
+def dia_spmv(a: DIA, x):
+    """y = A @ x for a DIA container, on x's device: per diagonal ``off``,
+    y[j - off] += data[i, j] * x[j] over the valid j range (a shifted dense
+    multiply-add, no gather and no scatter)."""
+    if not isinstance(a, DIA):
+        raise TypeError(f"dia_spmv takes a DIA matrix, got {type(a).__name__}")
+    _check(a.m, a.n, x)
+    offs, data = a.np_arrays()
+    data = torch.as_tensor(data, device=x.device)
+    y = torch.zeros((a.m,) + tuple(x.shape[1:]), device=x.device,
+                    dtype=torch.promote_types(data.dtype, x.dtype))
+    for i, off in enumerate(offs):
+        off = int(off)
+        j_lo, j_hi = max(0, off), min(a.n, a.m + off)
+        if j_hi > j_lo:
+            seg = data[i, j_lo:j_hi]
+            y[j_lo - off: j_hi - off] += (
+                seg if x.ndim == 1 else seg[:, None]) * x[j_lo:j_hi]
+    return y
+
+
+def _as_dia(a):
+    return a if isinstance(a, DIA) else construct.csc_to_dia(a)
+
+
+def _split_real(a):
+    """(iscomplex, real-part CSC, imaginary-part CSC or None) of a CSC."""
+    ip, rows, vals = a.np_arrays()
+    iscomplex = np.iscomplexobj(vals)
+    re = CSC(a.m, a.n, ip, rows, np.ascontiguousarray(vals.real),
+             canonical=a.canonical)
+    im = CSC(a.m, a.n, ip, rows, np.ascontiguousarray(vals.imag),
+             canonical=a.canonical) if iscomplex else None
+    return iscomplex, re, im
+
+
+class _BandPlan(nn.Module):
+    """What the two banded plans share: (D, m) slabs on the device, and a
+    forward that carries (n,) or (n, B) input as (B, n) to ``kernels.dia``;
+    ``apply_bn`` takes and returns that layout directly."""
+
+    symmetric = False
+    omin = 0
+
+    @property
+    def ndiag(self) -> int:
+        return self.slabs.shape[0]
+
+    def apply_bn(self, xbn, plain: bool = False):
+        """y (B, m) for x given as (B, n), the kernel's own layout, in the
+        plan's working dtype; ``plain`` asks for the plain PyTorch version.
+        The kernel takes one dtype: an input wider than the slabs is
+        refused on a CUDA device rather than casting the slabs on every
+        call."""
+        if xbn.shape[-1] != self.n:
+            raise ValueError(f"dimension mismatch: matrix is ({self.m}, "
+                             f"{self.n}), x has {xbn.shape[-1]} rows")
+        dtype = torch.promote_types(self.slabs.dtype, xbn.dtype)
+        if xbn.device.type != "cpu" and dtype != self.slabs.dtype:
+            raise TypeError(
+                f"{type(self).__name__} holds {self.slabs.dtype} slabs and "
+                f"got {xbn.dtype} input: cast x, or build the plan from a "
+                f"matrix of the wider dtype")
+        fn = dia_kernel.dia_spmv_plain if plain else dia_kernel.band_spmv
+        return fn(self.slabs, xbn.to(dtype), self.omin, self.symmetric)
+
+    def _call(self, x, plain):
+        _check(self.m, self.n, x)
+        if x.ndim == 1:
+            return self.apply_bn(x[None, :], plain)[0]
+        return self.apply_bn(x.T, plain).T
+
+    @torch.inference_mode()
+    def plain(self, x):
+        """The plain PyTorch version, on any device."""
+        return self._call(x, True)
+
+    @torch.inference_mode()
+    def forward(self, x):
+        return self._call(x, False)
+
+
+class DIAPlan(_BandPlan):
+    """Gather-free banded SpMV over row-aligned diagonal slabs.
+
+    The matrix (a CSC or a DIA) is stored as a DENSE range of diagonals
+    [omin, omax]: ``slabs[o - omin, i] = A[i, i + o]``, missing offsets
+    hold zero slabs (RCM bands are nearly dense in offset space).  A
+    product reads D * m values, whatever the nonzero count.
+    ``forward(x)`` takes (n,) or (n, B).
+    """
+
+    def __init__(self, a, chunk: int = 8, device=None):
+        super().__init__()
+        device = resolve_device(device, a)
+        d = _as_dia(a)
+        self.m, self.n = m, n = d.shape
+        offs, data = d.np_arrays()
+        offs = offs.astype(np.int64)
+        omin, omax = int(offs.min()), int(offs.max())
+        ra = np.zeros((omax - omin + 1, m), dtype=data.dtype)
+        for t, off in enumerate(offs):
+            i_lo, i_hi = max(0, -off), min(m, n - off)
+            if i_hi > i_lo:
+                ra[off - omin, i_lo:i_hi] = data[t, i_lo + off: i_hi + off]
+        self.omin = omin
+        self.chunk = int(chunk)
+        self.register_buffer("slabs", torch.as_tensor(ra, device=device))
+
+
+class SymDIAPlan(_BandPlan):
+    """Symmetric banded SpMV storing only the diagonals d >= 0: half the
+    slab traffic of ``DIAPlan`` on symmetric matrices (admittance and
+    B'/B'' matrices are symmetric absent phase shifters).  The lower
+    triangle is applied as the mirror of the stored one.
+
+    ``check`` verifies A[i + d, i] == A[i, i + d] against the stored
+    negative diagonals within ``tol`` (relative and absolute) and raises
+    ValueError otherwise.
+    """
+
+    symmetric = True
+
+    def __init__(self, a, chunk: int = 64, check: bool = True,
+                 tol: float = 0.0, device=None):
+        super().__init__()
+        device = resolve_device(device, a)
+        d = _as_dia(a)
+        self.m, self.n = d.shape
+        if self.m != self.n:
+            raise ValueError("SymDIAPlan requires a square matrix")
+        offs, data = d.np_arrays()
+        offs = offs.astype(np.int64)
+        m = self.m
+        omax = int(offs.max(initial=0))
+        omin = int(offs.min(initial=0))
+        if omin < -omax or -omin < omax:
+            raise ValueError("matrix bandwidth is not symmetric")
+        # ra[d, i] = A[i, i + d] for d >= 0 (upper triangle + diagonal)
+        ra = np.zeros((omax + 1, m), dtype=data.dtype)
+        for t, off in enumerate(offs):
+            if off >= 0 and m - off > 0:
+                ra[off, : m - off] = data[t, off:m]
+        if check:
+            # data[t, j] = A[j - off, j]: a negative diagonal must equal
+            # its mirror
+            for t, off in enumerate(offs):
+                if off >= 0:
+                    continue
+                dd = -off
+                if not np.allclose(data[t, : m - dd], ra[dd, : m - dd],
+                                   rtol=tol, atol=tol):
+                    raise ValueError(
+                        "matrix values are not symmetric (diagonal "
+                        f"{off}); use DIAPlan, or check=False to skip")
+        self.omax = omax
+        self.chunk = int(chunk)
+        self.register_buffer("slabs", torch.as_tensor(ra, device=device))
+
+
+class _SplitBand(nn.Module):
+    """Split-complex banded SpMV over two real plans ``re`` / ``im``:
+    ``forward(xr, xi) -> (yr, yi)`` with the algebra of ``SplitSpMV``,
+    each real slab set streamed once for the stacked (2, n) input."""
+
+    @torch.inference_mode()
+    def forward(self, xr, xi):
+        return dia_kernel.split_complex_apply(
+            self.re.apply_bn, self.im and self.im.apply_bn, xr, xi)
+
+    @torch.inference_mode()
+    def plain(self, xr, xi):
+        """The plain PyTorch version, on any device."""
+        return dia_kernel.split_complex_apply(
+            functools.partial(self.re.apply_bn, plain=True),
+            self.im and functools.partial(self.im.apply_bn, plain=True),
+            xr, xi)
+
+
+class SplitDIA(_SplitBand):
+    """Split-complex banded SpMV: a complex matrix as two real DIAPlans."""
+
+    def __init__(self, a, chunk: int = 8, device=None):
+        super().__init__()
+        device = resolve_device(device, a)
+        self.iscomplex, re, im = _split_real(a)
+        self.re = DIAPlan(re, chunk=chunk, device=device)
+        self.im = None if im is None else DIAPlan(im, chunk=chunk,
+                                                  device=device)
+
+
+class SplitSymDIA(_SplitBand):
+    """Split-complex symmetric banded SpMV: a complex-symmetric matrix
+    (Ybus is complex symmetric, not hermitian) as two real SymDIAPlans."""
+
+    def __init__(self, a, chunk: int = 64, check: bool = True,
+                 tol: float = 0.0, device=None):
+        super().__init__()
+        device = resolve_device(device, a)
+        self.iscomplex, re, im = _split_real(a)
+        kw = dict(chunk=chunk, check=check, tol=tol, device=device)
+        self.re = SymDIAPlan(re, **kw)
+        self.im = None if im is None else SymDIAPlan(im, **kw)

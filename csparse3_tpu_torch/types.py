@@ -9,9 +9,13 @@ Host and device: a container built from numpy keeps those arrays as a host
 cache, so ``np_arrays()`` (the entry to every host-symbolic step: ordering,
 factorization, plan packing) never copies from the device.  The torch
 tensors are made on first access of ``indptr`` / ``indices`` / ``data``
-(or ``rows`` / ``cols`` / ``data``), on the container's ``device``, which
-is explicit: the ``device=`` argument, else that of the tensors given,
-else the CPU.  ``to(device)`` returns a container placed elsewhere.
+(or ``rows`` / ``cols`` / ``data``), on the container's ``device``: the
+``device=`` argument, else that of the tensors given, else
+``config.default_device()`` (the CUDA card; it raises without one, so a
+host-only caller passes ``device="cpu"``).  That default is resolved at
+the first access of ``device`` or of a tensor, not at construction: the
+host-symbolic steps read ``np_arrays()`` and need no device at all.
+``to(device)`` returns a container placed elsewhere.
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["CSC", "CSR", "COO"]
+from .config import resolve_device
+
+__all__ = ["CSC", "CSR", "COO", "DIA"]
 
 
 def _host_cache(*arrays):
@@ -44,8 +50,15 @@ class _SparseBase:
         self.nnz = int(nnz) if nnz is not None else int(np.shape(arrays[1])[0])
         if device is None:
             device = next((a.device for a in arrays
-                           if isinstance(a, torch.Tensor)), "cpu")
-        self.device = torch.device(device)
+                           if isinstance(a, torch.Tensor)), None)
+        # None: the default device, resolved at first use (``device``)
+        self._device = None if device is None else torch.device(device)
+
+    @property
+    def device(self) -> torch.device:
+        if self._device is None:
+            self._device = resolve_device(None)
+        return self._device
 
     def _field(self, i):
         v = self._arrays[i]
@@ -62,7 +75,10 @@ class _SparseBase:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self._field(2).dtype
+        v = self._arrays[2]
+        if isinstance(v, torch.Tensor):
+            return v.dtype
+        return torch.from_numpy(np.empty(0, dtype=np.asarray(v).dtype)).dtype
 
     def np_arrays(self):
         """Host numpy copies of the three arrays, trimmed to nnz (the
@@ -75,8 +91,9 @@ class _SparseBase:
         return (a0 if self._names[0] == "indptr" else a0[:k]), a1[:k], a2[:k]
 
     def __repr__(self):
+        where = "default" if self._device is None else self._device
         return (f"{type(self).__name__}(m={self.m}, n={self.n}, "
-                f"nnz={self.nnz}, dtype={self.dtype}, device={self.device})")
+                f"nnz={self.nnz}, dtype={self.dtype}, device={where})")
 
 
 class CSC(_SparseBase):
@@ -99,6 +116,11 @@ class CSC(_SparseBase):
         arrays = self._np if self._np is not None else self._arrays
         return CSC(self.m, self.n, *arrays, nnz=self.nnz,
                    canonical=self.canonical, device=device)
+
+    def __getitem__(self, key):
+        from .ops import slicing
+
+        return slicing.getitem(self, key)
 
     def todense(self):
         from .ops import construct
@@ -169,7 +191,7 @@ class CSR(_SparseBase):
         arrays of A^T."""
         ip, ix, dt = self.np_arrays()
         return CSC(self.n, self.m, ip, ix, dt, canonical=self.canonical,
-                   device=self.device)
+                   device=self._device)
 
     @property
     def T(self) -> CSC:
@@ -228,3 +250,68 @@ class COO(_SparseBase):
         a = a.tocoo()
         return cls(a.shape[0], a.shape[1], a.row, a.col, a.data,
                    device=device)
+
+
+class DIA:
+    """Diagonal-offset sparse matrix: ``offsets`` (k,) int32 and ``data``
+    (k, n), where data[i, j] is the value at (j - offsets[i], j) (scipy's
+    dia_matrix layout).  The format of banded matrices: an SpMV is k
+    shifted dense multiply-adds, no gather and no scatter.  Host cache and
+    device as for the other containers."""
+
+    def __init__(self, m, n, offsets, data, device=None):
+        self.m = int(m)
+        self.n = int(n)
+        self._np = _host_cache(offsets, data)
+        self._arrays = [offsets, data]
+        if device is None:
+            device = next((a.device for a in self._arrays
+                           if isinstance(a, torch.Tensor)), None)
+        self._device = None if device is None else torch.device(device)
+
+    device = _SparseBase.device
+    _field = _SparseBase._field
+    offsets = property(lambda self: self._field(0))
+    data = property(lambda self: self._field(1))
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.m, self.n)
+
+    def np_arrays(self):
+        """(offsets, data) as host numpy, without a device round trip when
+        the container was built from host data."""
+        if self._np is not None:
+            return self._np
+        return tuple(self._field(i).cpu().numpy() for i in range(2))
+
+    @property
+    def nnz(self) -> int:
+        """Stored count (explicit zeros inside the diagonals included)."""
+        return sum(max(0, min(self.n, self.m + int(off)) - max(0, int(off)))
+                   for off in self.np_arrays()[0])
+
+    def to(self, device) -> "DIA":
+        arrays = self._np if self._np is not None else self._arrays
+        return DIA(self.m, self.n, *arrays, device=device)
+
+    def __repr__(self):
+        offs, dat = self.np_arrays()
+        return (f"DIA(m={self.m}, n={self.n}, ndiag={len(offs)}, "
+                f"dtype={dat.dtype})")
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        offs, dat = self.np_arrays()
+        return sp.dia_matrix((dat, offs), shape=self.shape)
+
+    @classmethod
+    def from_scipy(cls, a, device=None) -> "DIA":
+        a = a.todia()
+        return cls(a.shape[0], a.shape[1], a.offsets, a.data, device=device)
+
+    def to_csc(self) -> CSC:
+        from .ops import construct
+
+        return construct.dia_to_csc(self)

@@ -3,7 +3,7 @@
 Both libraries are compiled from sources in this repository into
 ``csparse3_tpu_torch/_build/`` (git-ignored): the host C++ kernels of
 ``native/`` with ``g++`` (``native/host_ext.py``) and the CUDA kernels of
-``csrc/`` with ``nvcc`` (``kernels/bandpoints.py``).  The output name
+``csrc/`` with ``nvcc``, one library per source (``build_cuda_library``).  The output name
 carries a hash of the command line, of every source byte and of the
 target the host compiler resolves ``-march=native`` to, so an edited
 source or flag, or a build directory copied from another machine, never
@@ -21,13 +21,17 @@ from __future__ import annotations
 import fcntl
 import hashlib
 import os
+import shutil
 import subprocess
 
-__all__ = ["BUILD_DIR", "BuildError", "build_shared_library"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "BuildError", "build_shared_library",
+           "build_cuda_library"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: directory the libraries are built into (listed in .gitignore)
 BUILD_DIR = os.path.join(_PKG, "_build")
+#: the CUDA sources
+CSRC_DIR = os.path.join(_PKG, "csrc")
 #: repository root: the ``native/`` C++ sources live there
 REPO_ROOT = os.path.dirname(_PKG)
 
@@ -73,3 +77,20 @@ def build_shared_library(name, sources, command, key="", timeout=600):
             return path
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def build_cuda_library(name):
+    """Build ``csrc/<name>.cu`` with nvcc for sm_90a (first use) and return
+    the library's path.  Raises BuildError when nvcc is missing or refuses
+    the source."""
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    nvcc = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise BuildError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                         "/usr/local/cuda/bin): cannot build the CUDA kernels")
+    return build_shared_library(
+        name, [src],
+        lambda out: [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                     "-o", out, src])

@@ -11,16 +11,23 @@ from __future__ import annotations
 import numpy as np
 
 from ..models.grids import Grid
-from ..types import CSC
+from ..types import CSC, DIA
 
-__all__ = ["csc_from_arrays", "grid_from_arrays"]
+__all__ = ["csc_from_arrays", "dia_from_arrays", "grid_from_arrays"]
 
 
 def csc_from_arrays(m, n, indptr, indices, data, device=None) -> CSC:
     """CSC from host (indptr, indices, data) arrays, placed on ``device``
-    (CPU when None); the arrays stay as its host cache."""
+    (None: ``config.default_device()``, resolved when a tensor of it is
+    first read); the arrays stay as its host cache."""
     return CSC(m, n, np.asarray(indptr), np.asarray(indices),
                np.asarray(data), device=device)
+
+
+def dia_from_arrays(m, n, offsets, data, device=None) -> DIA:
+    """DIA from host (offsets, data) arrays, placed like
+    ``csc_from_arrays``."""
+    return DIA(m, n, np.asarray(offsets), np.asarray(data), device=device)
 
 
 def grid_from_arrays(**fields) -> Grid:

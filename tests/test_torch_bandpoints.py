@@ -54,7 +54,7 @@ def test_plain_matches_jax(case):
     Yj = make()
     jplan = jbp.SplitBandPoints(Yj, **kw)
     pplan = pbp.SplitBandPoints(csc_from_arrays(Yj.m, Yj.n, *Yj.np_arrays()),
-                                **kw)
+                                device="cpu", **kw)
     assert pplan.offs == jplan.offs and pplan.n_groups == jplan.n_groups
     if "group_span" in kw:
         assert pplan.n_groups >= 2
@@ -72,7 +72,8 @@ def test_plain_matches_jax(case):
 
 def test_cpu_input_runs_plain_version_without_launching():
     Yj = _ybus(300, 1)
-    plan = pt.SplitBandPoints(csc_from_arrays(Yj.m, Yj.n, *Yj.np_arrays()))
+    plan = pt.SplitBandPoints(csc_from_arrays(Yj.m, Yj.n, *Yj.np_arrays()),
+                              device="cpu")
     xr, xi = _x(300, 2)
     y = plan(torch.as_tensor(xr), torch.as_tensor(xi))
     p = plan.plain(torch.as_tensor(xr), torch.as_tensor(xi))
@@ -92,7 +93,8 @@ def test_offsets_plan_matches_jax():
     assert offs == pbp.split_offsets(ix, cols, Yj.n)
     vals = dt.real
     jp = jbp.OffsetsPlan.from_entries(Yj.m, Yj.n, ix, cols, vals, offs)
-    pp = pbp.OffsetsPlan.from_entries(Yj.m, Yj.n, ix, cols, vals, offs)
+    pp = pbp.OffsetsPlan.from_entries(Yj.m, Yj.n, ix, cols, vals, offs,
+                                      device="cpu")
     x = np.random.RandomState(3).rand(Yj.n, 2).astype(np.float32)
     np.testing.assert_allclose(pp(torch.as_tensor(x)).numpy(),
                                np.asarray(jp(x)), rtol=1e-6, atol=1e-6)
@@ -104,10 +106,10 @@ def test_bad_arguments_raise():
     Y = csc_from_arrays(2, 3, np.array([0, 1, 1, 1]), np.array([0]),
                         np.array([1.0]))
     with pytest.raises(ValueError, match="square"):
-        pt.SplitBandPoints(Y)
+        pt.SplitBandPoints(Y, device="cpu")
     Yj = _ybus(100, 1)
     Yp = csc_from_arrays(Yj.m, Yj.n, *Yj.np_arrays())
     with pytest.raises(ValueError, match="tile"):
-        pt.SplitBandPoints(Yp, tile=100)
+        pt.SplitBandPoints(Yp, tile=100, device="cpu")
     with pytest.raises(ValueError, match="precision"):
-        pt.SplitBandPoints(Yp, precision="bf16")
+        pt.SplitBandPoints(Yp, precision="bf16", device="cpu")

@@ -72,7 +72,7 @@ def test_conversions_match_jax():
     np.testing.assert_array_equal(rp, rj)
     np.testing.assert_array_equal(cp, cj)
     np.testing.assert_array_equal(dp, dj)
-    dense = pt.csc_to_dense(Yp)
+    dense = pt.csc_to_dense(Yp.to("cpu"))
     assert dense.dtype == torch.complex128
     np.testing.assert_array_equal(dense.numpy(), np.asarray(Yj.todense()))
     np.testing.assert_array_equal(Yp.to_scipy().toarray(), Yj.to_scipy().toarray())
@@ -80,15 +80,22 @@ def test_conversions_match_jax():
 
 def test_dense_sums_duplicates_and_ors_bool():
     rows, cols = np.array([0, 0, 1]), np.array([1, 1, 0])
-    a = pt.COO(2, 2, rows, cols, np.array([1.5, 2.0, 3.0]))
+    a = pt.COO(2, 2, rows, cols, np.array([1.5, 2.0, 3.0]), device="cpu")
     np.testing.assert_array_equal(a.to_dense().numpy(), [[0, 3.5], [3.0, 0]])
-    b = pt.COO(2, 2, rows, cols, np.array([True, False, True]))
+    b = pt.COO(2, 2, rows, cols, np.array([True, False, True]),
+               device="cpu")
     np.testing.assert_array_equal(b.to_dense().numpy(),
                                   [[False, True], [True, False]])
 
 
 def test_containers_upload_lazily_to_explicit_device():
-    Y, _, _ = pgrids.ybus(pgrids.ieee14())
+    Y0, _, _ = pgrids.ybus(pgrids.ieee14())
+    # no device named: the default (the card) is resolved at first use, and
+    # there is none here; the host arrays need no device
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Y0.device
+    assert Y0.np_arrays()[2].dtype == np.complex128
+    Y = Y0.to("cpu")
     assert Y.device == torch.device("cpu")
     assert Y._np is not None and not isinstance(Y._arrays[2], torch.Tensor)
     assert Y.data.dtype == torch.complex128 and Y.indices.dtype == torch.int32
@@ -116,7 +123,8 @@ def test_spmv_plans_match_jax(layout):
     rng = np.random.default_rng(2)
     x = rng.standard_normal(300) + 1j * rng.standard_normal(300)
     X = rng.standard_normal((300, 3))
-    pp, pj = pt.SpMVPlan(Yp, layout=layout), jt.SpMVPlan(Yj, layout=layout)
+    pp = pt.SpMVPlan(Yp, layout=layout, device="cpu")
+    pj = jt.SpMVPlan(Yj, layout=layout)
     assert pp.layout == pj.layout == layout
     for v in (x, X):
         np.testing.assert_allclose(pp(torch.as_tensor(v)).numpy(),
@@ -124,7 +132,8 @@ def test_spmv_plans_match_jax(layout):
     np.testing.assert_allclose(pt.spmv(Yp, torch.as_tensor(x)).numpy(),
                                np.asarray(jt.spmv(Yj, x)), rtol=1e-12,
                                atol=1e-12)
-    sp_, sj = pt.SplitSpMV(Yp, layout=layout), jt.SplitSpMV(Yj, layout=layout)
+    sp_ = pt.SplitSpMV(Yp, layout=layout, device="cpu")
+    sj = jt.SplitSpMV(Yj, layout=layout)
     xr, xi = np.ascontiguousarray(x.real), np.ascontiguousarray(x.imag)
     for a, b in zip(sp_(torch.as_tensor(xr), torch.as_tensor(xi)),
                     sj(xr, xi)):

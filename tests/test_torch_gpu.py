@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the band+points kernel against its plain
-PyTorch version, and the device Newton against the same solve on the CPU.
+"""The port on a CUDA card: the band+points, DIA and triad kernels against
+their plain PyTorch versions, and the device solvers against the same
+solves on the CPU.
 
 Every test here needs a card and skips without one.  The file imports
 neither jax nor the JAX package, so it runs where only torch is installed:
@@ -8,6 +9,10 @@ neither jax nor the JAX package, so it runs where only torch is installed:
 
 The kernel and the plain version both sum in float32, in different orders
 (and the kernel contracts to FMA), so they are held to 5e-6 of max|y|.
+The DIA kernel is held row by row to the rounding bound of its sums,
+(k + 2) u (|A| |x|)_i for k stored diagonals, u the unit roundoff of the
+dtype; the triad rounds like its plain version and must equal it bit for
+bit.
 """
 
 import numpy as np
@@ -15,8 +20,13 @@ import pytest
 import torch
 
 import csparse3_tpu_torch as pt
-from csparse3_tpu_torch.models.grids import ieee14, synthetic_grid, ybus
-from csparse3_tpu_torch.models.powerflow import NewtonPowerFlow
+from csparse3_tpu_torch.kernels import dia as kdia
+from csparse3_tpu_torch.models.grids import (ieee14, rcm_grid, synthetic_grid,
+                                             ybus)
+from csparse3_tpu_torch.models.powerflow import (FastDecoupled,
+                                                 NewtonPowerFlow,
+                                                 dc_power_flow)
+from csparse3_tpu_torch.utils import roofline
 
 REL = 5e-6
 
@@ -87,11 +97,190 @@ def test_newton_on_cuda_matches_cpu(cuda, spmv):
         tol = 5e-5 if spmv == "bandpoints" else 1e-10
         pf = NewtonPowerFlow(g, spmv=spmv, tol=tol, device=cuda)
         vm, va, it, res = pf.solve()
-        vm_c, va_c, it_c, res_c = NewtonPowerFlow(g, spmv=spmv,
-                                                  tol=tol).solve()
+        vm_c, va_c, it_c, res_c = NewtonPowerFlow(g, spmv=spmv, tol=tol,
+                                                  device="cpu").solve()
         assert res <= tol and res_c <= tol
         atol = 1e-5 if spmv == "bandpoints" else 1e-10
         np.testing.assert_allclose(vm, vm_c, rtol=0, atol=atol)
         np.testing.assert_allclose(va, va_c, rtol=0, atol=atol)
         if spmv == "bandpoints":
             assert pf._yplan.kernel_launches == it + 1
+
+
+# -- K4: the DIA kernel ----------------------------------------------------------
+
+def _offset_band(m, n, offs, seed):
+    rng = np.random.RandomState(seed)
+    rows, cols = [], []
+    for o in offs:
+        i = np.arange(max(0, -o), min(m, n - o))
+        rows.append(i), cols.append(i + o)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    return pt.from_triplets(rows, cols, rng.rand(len(rows)) - 0.5, (m, n))
+
+
+def _rcm_ybus_real(n, seed, part):
+    Y = ybus(rcm_grid(synthetic_grid(n, seed=seed))[0])[0]
+    ip, ix, dt = Y.np_arrays()
+    return pt.CSC(Y.m, Y.n, ip, ix, np.ascontiguousarray(getattr(dt, part)))
+
+
+DIA_CASES = {
+    "rcm_ybus_re": lambda: _rcm_ybus_real(3001, 2, "real"),
+    "rcm_ybus_im": lambda: _rcm_ybus_real(1037, 3, "imag"),
+    "above_diagonal": lambda: _offset_band(700, 900, [3, 4, 40], 5),  # omin>0
+    "below_diagonal": lambda: _offset_band(900, 700, [-40, -4, -3], 6),
+    "one_diagonal": lambda: _offset_band(257, 257, [0], 7),
+}
+
+
+def _dia_bound(plan, x2):
+    """Row-wise bound on |kernel - plain|: each is a float sum of the same
+    <= D products (plus the mirror's for the symmetric form)."""
+    u = torch.finfo(plan.slabs.dtype).eps / 2
+    ax = kdia.dia_spmv_plain(plan.slabs.abs().double(), x2.abs().double(),
+                             plan.omin, plan.symmetric)
+    terms = plan.ndiag * (2 if plan.symmetric else 1)
+    return 2 * (terms + 2) * u * ax + torch.finfo(plan.slabs.dtype).tiny
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", sorted(DIA_CASES))
+def test_dia_kernel_matches_plain(cuda, case, dtype, B):
+    a = DIA_CASES[case]()
+    ip, ix, dt = a.np_arrays()
+    plan = pt.DIAPlan(pt.CSC(a.m, a.n, ip, ix, dt.astype(dtype)), device=cuda)
+    x = torch.as_tensor(np.random.RandomState(8).rand(a.n, B).astype(dtype),
+                        device=cuda)
+    before = kdia.LAUNCHES["dia_spmv"]
+    yk = plan(x)
+    torch.cuda.synchronize()
+    assert kdia.LAUNCHES["dia_spmv"] - before == (B + 1) // 2
+    yp = plan.plain(x)
+    assert kdia.LAUNCHES["dia_spmv"] - before == (B + 1) // 2
+    assert yk.shape == yp.shape == (a.m, B) and yk.dtype == yp.dtype
+    assert ((yk - yp).abs().T <= _dia_bound(plan, x.T)).all()
+    # and against scipy in float64 on the host, relative to max|y|
+    ref = a.to_scipy() @ x.double().cpu().numpy()
+    rel = 1e-12 if dtype == np.float64 else REL
+    assert np.abs(yk.cpu().numpy() - ref).max() <= rel * np.abs(ref).max()
+    # the (n,) form
+    y1 = plan(x[:, 0].contiguous())
+    assert torch.equal(y1, yk[:, 0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["rcm_ybus_re", "rcm_ybus_im",
+                                  "one_diagonal"])
+def test_symmetric_dia_kernel_matches_plain_and_general(cuda, case, dtype, B):
+    a = DIA_CASES[case]()
+    ip, ix, dt = a.np_arrays()
+    a = pt.CSC(a.m, a.n, ip, ix, dt.astype(dtype))
+    tol = 1e-12 if dtype == np.float64 else 1e-6
+    sym = pt.SymDIAPlan(a, tol=tol, device=cuda)
+    gen = pt.DIAPlan(a, device=cuda)
+    assert sym.ndiag == (gen.ndiag + 1) // 2
+    x = torch.as_tensor(np.random.RandomState(9).rand(a.n, B).astype(dtype),
+                        device=cuda)
+    before = kdia.LAUNCHES["dia_spmv"]
+    ys = sym(x)
+    torch.cuda.synchronize()
+    assert kdia.LAUNCHES["dia_spmv"] - before == 1
+    bound = _dia_bound(sym, x.T)
+    assert ((ys - sym.plain(x)).abs().T <= bound).all()
+    assert ((ys - gen(x)).abs().T <= 2 * bound).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", ["SplitDIA", "SplitSymDIA", "SplitCudaDIA"])
+def test_split_dia_on_cuda_matches_scipy(cuda, plan):
+    Y = ybus(rcm_grid(synthetic_grid(3001, seed=2))[0])[0]
+    kw = dict(tol=1e-12) if plan == "SplitSymDIA" else {}
+    p = getattr(pt, plan)(Y, device=cuda, **kw)
+    rng = np.random.RandomState(10)
+    xr, xi = rng.rand(Y.n), rng.rand(Y.n)
+    before = kdia.LAUNCHES["dia_spmv"]
+    yr, yi = p(torch.as_tensor(xr, device=cuda),
+               torch.as_tensor(xi, device=cuda))
+    torch.cuda.synchronize()
+    assert kdia.LAUNCHES["dia_spmv"] - before == 2  # one per real slab set
+    z = Y.to_scipy() @ (xr + 1j * xi)
+    f32 = plan == "SplitCudaDIA"
+    assert yr.dtype == (torch.float32 if f32 else torch.float64)
+    rel = REL if f32 else 1e-12
+    got = yr.double().cpu().numpy() + 1j * yi.double().cpu().numpy()
+    assert np.abs(got - z).max() <= rel * np.abs(z).max()
+
+
+@pytest.mark.gpu
+def test_dia_cuda_input_never_reaches_plain_version(cuda, monkeypatch):
+    plan = pt.DIAPlan(_rcm_ybus_real(1037, 3, "real"), device=cuda)
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version ran on a CUDA input")
+
+    monkeypatch.setattr(kdia, "dia_spmv_plain", refuse)
+    x = torch.rand(1037, device=cuda, dtype=torch.float64)
+    before = kdia.LAUNCHES["dia_spmv"]
+    plan(x)
+    assert kdia.LAUNCHES["dia_spmv"] == before + 1
+    with pytest.raises(ValueError, match="CUDA device"):
+        plan(x.cpu())  # slabs on the card, x on the CPU: no fallback
+    with pytest.raises(TypeError, match="float64"):
+        pt.DIAPlan(_offset_band(64, 64, [0, 1], 1).to(cuda),
+                   device=cuda).float()(x[:64])
+
+
+# -- K7: the triad -----------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 4, 1023, 256 * 512, 4 * 132 * 16 * 256 * 5 + 7])
+def test_triad_kernel_equals_plain(cuda, n):
+    a = torch.as_tensor(np.random.RandomState(11).rand(n).astype(np.float32),
+                        device=cuda)
+    s = torch.full((1,), 1.2345678, dtype=torch.float32, device=cuda)
+    before = roofline.LAUNCHES["triad"]
+    o = roofline.triad(a, s)
+    torch.cuda.synchronize()
+    assert roofline.LAUNCHES["triad"] == before + 1
+    assert torch.equal(o, roofline.triad_plain(a, s))
+    with pytest.raises(TypeError, match="float32"):
+        roofline.triad(a.double(), s)
+    with pytest.raises(ValueError, match="CUDA device"):
+        roofline.triad(a, s.cpu())
+
+
+@pytest.mark.gpu
+def test_measure_hbm_bw_is_a_plausible_device_rate(cuda):
+    bw = roofline.measure_hbm_bw(mb=256, reps=5, trials=2)
+    assert 0.2e12 < bw < 5e12
+
+
+# -- the banded solvers on the card ----------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spmv", ["dia", "symdia"])
+def test_banded_solvers_on_cuda_match_cpu(cuda, spmv):
+    g = rcm_grid(synthetic_grid(2000, seed=3))[0]
+    before = kdia.LAUNCHES["dia_spmv"]
+    vm, va, it, res = FastDecoupled(g, spmv=spmv).solve()  # device=None
+    # two mismatches per iteration, one residual per check, one final
+    assert kdia.LAUNCHES["dia_spmv"] - before == 2 * (2 * it + it + 1 + 1)
+    vm_c, va_c, it_c, res_c = FastDecoupled(g, spmv=spmv,
+                                            device="cpu").solve()
+    assert it == it_c and res <= 1e-8
+    np.testing.assert_allclose(vm, vm_c, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(va, va_c, rtol=0, atol=1e-8)
+    before = kdia.LAUNCHES["dia_spmv"]
+    vm_n, va_n, it_n, res_n = NewtonPowerFlow(g, spmv=spmv,
+                                              device=cuda).solve()
+    assert kdia.LAUNCHES["dia_spmv"] - before == 2 * (it_n + 1)
+    assert res_n <= 1e-10
+    np.testing.assert_allclose(vm, vm_n, rtol=0, atol=1e-7)
+    np.testing.assert_allclose(dc_power_flow(g),
+                               dc_power_flow(g, device="cpu"), rtol=0,
+                               atol=1e-10)

@@ -75,7 +75,7 @@ def test_trisolve_plan_matches_jax(lower):
     F = (h.Lp, h.Li, h.Lx) if lower else (h.Up, h.Ui, h.Ux)
     rng = np.random.default_rng(5)
     b = rng.standard_normal((h.n, 3))
-    pp = plin.TriSolvePlan(h.n, *F, lower=lower)
+    pp = plin.TriSolvePlan(h.n, *F, lower=lower, device="cpu")
     pj = jtri.TriSolvePlan(h.n, *F, lower=lower)
     assert pp.nlevels == pj.nlevels
     for rhs in (b[:, 0], b):
@@ -91,7 +91,7 @@ def test_trisolve_plan_matches_jax(lower):
 def test_refactor_matches_jax(name):
     Jp0, Jj0 = _jacobians(name)
     Jp1, Jj1 = _jacobians(name, va_scale=0.05, seed=7)
-    rp = plin.splu(Jp0).refactor_plan(Jp0)
+    rp = plin.splu(Jp0).refactor_plan(Jp0, device="cpu")
     rj = jlin.splu(Jj0).refactor_plan(Jj0)
     data = Jp1.np_arrays()[2]
     np.testing.assert_array_equal(data, Jj1.np_arrays()[2])
@@ -117,7 +117,7 @@ def test_refactor_sums_duplicate_update_targets():
     A = np.array([[4.0, 0.0, 1.0], [0.0, 4.0, 1.0], [1.0, 1.0, 4.0]])
     a = csc_from_arrays(3, 3, *_csc(A))
     lu = plin.splu(a, ordering="natural", mode="gp")
-    rp = lu.refactor_plan(a)
+    rp = lu.refactor_plan(a, device="cpu")
     lv0 = rp.upd_dst[rp.upd_ptr[0]:rp.upd_ptr[1]].tolist()
     assert len(lv0) == 2 and lv0[0] == lv0[1]
     A2 = A + np.diag([1.0, 2.0, 3.0])
@@ -138,7 +138,7 @@ def test_spsolve_and_solve_match_scipy():
     Jp, _ = _jacobians("synthetic600", va_scale=0.02)
     b = np.random.default_rng(9).standard_normal((Jp.n, 2))
     ref = spla.spsolve(Jp.to_scipy(), b)
-    np.testing.assert_allclose(plin.spsolve(Jp, b).numpy(), ref, rtol=1e-9,
+    np.testing.assert_allclose(plin.spsolve(Jp, b, device="cpu").numpy(), ref, rtol=1e-9,
                                atol=1e-11)
     lu = plin.splu(Jp, ordering="amd", mode="gp")
     np.testing.assert_allclose(lu.solve_host(b), ref, rtol=1e-9, atol=1e-11)
@@ -149,5 +149,99 @@ def test_spsolve_and_solve_match_scipy():
 def test_complex_ybus_solve_matches_scipy():
     Y, _, _ = pgrids.ybus(pgrids.synthetic_grid(300, seed=5))
     b = np.random.default_rng(10).standard_normal(300) * (1 + 0.5j)
-    x = plin.spsolve(Y, b).numpy()
+    x = plin.spsolve(Y, b, device="cpu").numpy()
     np.testing.assert_allclose(x, spla.spsolve(Y.to_scipy(), b), rtol=1e-9)
+
+
+# -- dense-tail solves ---------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [{}, dict(min_tail=32, block=16),
+                                dict(min_tail=32, block=16, max_tail=200),
+                                dict(min_density=0.9),
+                                dict(min_tail=100, block=48, min_density=0.5)])
+def test_choose_dense_tail_matches_jax(kw):
+    Jp, _ = _jacobians("synthetic600")
+    h = plin.splu(Jp)._h
+    for Fp, Fi in ((h.Lp, h.Li), (h.Up, h.Ui)):
+        assert plin.choose_dense_tail(h.n, Fp, Fi, **kw) \
+            == jtri.choose_dense_tail(h.n, Fp, Fi, **kw)
+    # the default finds the separator clique of this matrix; a demand no
+    # corner meets finds none
+    assert plin.choose_dense_tail(h.n, h.Lp, h.Li) == 512
+    assert plin.choose_dense_tail(h.n, h.Lp, h.Li, min_density=2.1) == 0
+
+
+@pytest.mark.parametrize("tail,block", [(512, 256), (200, 48), (37, 16)])
+@pytest.mark.parametrize("lower", [True, False])
+def test_dense_tail_plan_matches_jax(lower, tail, block):
+    """A tail that is a whole number of blocks, one with a short last
+    block, and a small one; rtol 1e-9: the dense tail multiplies by block
+    inverses, so it differs from substitution by more than sum order."""
+    Jp, _ = _jacobians("synthetic600", va_scale=0.02)
+    h = plin.splu(Jp)._h
+    F = (h.Lp, h.Li, h.Lx) if lower else (h.Up, h.Ui, h.Ux)
+    pp = plin.DenseTailTriSolvePlan(h.n, *F, lower=lower, tail=tail,
+                                    block=block, device="cpu")
+    pj = jtri.DenseTailTriSolvePlan(h.n, *F, lower=lower, tail=tail,
+                                    block=block)
+    level = plin.TriSolvePlan(h.n, *F, lower=lower, device="cpu")
+    assert pp.nlevels == pj.nlevels < level.nlevels
+    b = np.random.default_rng(11).standard_normal((h.n, 3))
+    host = (jtri.lsolve if lower else jtri.usolve)(*F, b)
+    for rhs, ref in ((b[:, 0], host[:, 0]), (b, host)):
+        xp = pp(torch.as_tensor(rhs)).numpy()
+        assert xp.shape == rhs.shape
+        np.testing.assert_allclose(xp, np.asarray(pj.solve(rhs)), rtol=1e-9,
+                                   atol=1e-11)
+        np.testing.assert_allclose(xp, ref, rtol=1e-9, atol=1e-11)
+    # the right-hand side is not written to
+    b0 = torch.as_tensor(b.copy())
+    pp(b0)
+    assert torch.equal(b0, torch.as_tensor(b))
+
+
+@pytest.mark.parametrize("style", ["auto", "level"])
+def test_solve_plan_styles_match_jax_and_scipy(style):
+    Jp, Jj = _jacobians("synthetic600", va_scale=0.02)
+    lp, lj = plin.splu(Jp), jlin.splu(Jj)
+    pp, pj = lp.solve_plan(style=style, device="cpu"), lj.solve_plan(style)
+    for fp, fj in ((pp.lplan, pj.lplan), (pp.uplan, pj.uplan)):
+        assert type(fp).__name__ == type(fj).__name__
+        assert fp.nlevels == fj.nlevels
+        assert isinstance(fp, plin.DenseTailTriSolvePlan) == (style == "auto")
+    b = np.random.default_rng(12).standard_normal((Jp.n, 2))
+    x = pp(torch.as_tensor(b)).numpy()
+    np.testing.assert_allclose(x, np.asarray(pj(b)), rtol=1e-9, atol=1e-11)
+    np.testing.assert_allclose(x, spla.spsolve(Jp.to_scipy(), b), rtol=1e-9,
+                               atol=1e-11)
+    # cached per (style, device)
+    assert lp.solve_plan(style=style, device="cpu") is pp
+    other = "level" if style == "auto" else "auto"
+    assert lp.solve_plan(style=other, device="cpu") is not pp
+    with pytest.raises(ValueError, match="style"):
+        lp.solve_plan(style="dense", device="cpu")
+
+
+def test_singular_factor_keeps_the_level_plan():
+    A = np.array([[1.0, 2.0], [2.0, 4.0]])
+    lu = plin.splu(csc_from_arrays(2, 2, *_csc(A)), mode="gp")
+    assert lu.is_singular
+    plan = lu.solve_plan(device="cpu")
+    assert isinstance(plan.lplan, plin.TriSolvePlan)
+    with pytest.warns(UserWarning, match="singular"):
+        x = lu.solve(np.ones(2), device="cpu")
+    assert not np.isfinite(x.numpy()).all()
+
+
+def test_refactor_templates_stay_level_plans():
+    """``refactor`` retargets the level layout whatever ``solve_plan``
+    would pick for the factors (as the JAX package does)."""
+    Jp, Jj = _jacobians("synthetic600")
+    lu = plin.splu(Jp)
+    assert isinstance(lu.solve_plan(device="cpu").lplan,
+                      plin.DenseTailTriSolvePlan)
+    plan = lu.refactor_plan(Jp, device="cpu").refactor(
+        torch.as_tensor(Jp.np_arrays()[2]))
+    jplan = jlin.splu(Jj).refactor_plan(Jj).refactor(Jj.np_arrays()[2])
+    for fp, fj in ((plan.lplan, jplan.lplan), (plan.uplan, jplan.uplan)):
+        assert type(fp).__name__ == type(fj).__name__ == "TriSolvePlan"

@@ -19,7 +19,8 @@ from csparse3_tpu_torch.models import powerflow as ppf
 
 
 def test_newton_ell_matches_jax_ieee14():
-    vm_p, va_p, it_p, res_p = ppf.NewtonPowerFlow(pgrids.ieee14()).solve()
+    vm_p, va_p, it_p, res_p = ppf.NewtonPowerFlow(
+        pgrids.ieee14(), device="cpu").solve()
     vm_j, va_j, it_j, res_j = jpf.NewtonPowerFlow(jgrids.ieee14()).solve()
     assert it_p == it_j and res_p < 1e-10
     np.testing.assert_allclose(vm_p, vm_j, rtol=0, atol=1e-10)
@@ -29,7 +30,7 @@ def test_newton_ell_matches_jax_ieee14():
 def test_newton_bandpoints_matches_jax_synthetic200():
     gp, gj = pgrids.synthetic_grid(200, seed=7), jgrids.synthetic_grid(
         200, seed=7)
-    pf = ppf.NewtonPowerFlow(gp, spmv="bandpoints")
+    pf = ppf.NewtonPowerFlow(gp, spmv="bandpoints", device="cpu")
     vm_p, va_p, it_p, res_p = pf.solve()
     vm_j, va_j, it_j, res_j = jpf.NewtonPowerFlow(gj, spmv="bandpoints").solve()
     assert res_p < 1e-4 and res_j < 1e-4
@@ -40,7 +41,8 @@ def test_newton_bandpoints_matches_jax_synthetic200():
 
 
 def test_newton_raphson_matches_jax():
-    vm_p, va_p, it_p, res_p = ppf.newton_raphson(pgrids.ieee14())
+    vm_p, va_p, it_p, res_p = ppf.newton_raphson(pgrids.ieee14(),
+                                                    device="cpu")
     vm_j, va_j, it_j, res_j = jpf.newton_raphson(jgrids.ieee14())
     assert it_p == it_j and res_p < 1e-10
     np.testing.assert_allclose(vm_p, vm_j, rtol=0, atol=1e-10)
@@ -49,7 +51,7 @@ def test_newton_raphson_matches_jax():
 
 def test_device_jacobian_values_match_host_jacobian():
     g = pgrids.synthetic_grid(300, seed=4)
-    pf = ppf.NewtonPowerFlow(g)
+    pf = ppf.NewtonPowerFlow(g, device="cpu")
     rng = np.random.default_rng(1)
     vm = g.vm0 * (1 + 0.01 * rng.standard_normal(g.n_bus))
     va = 0.05 * rng.standard_normal(g.n_bus)
@@ -63,9 +65,15 @@ def test_device_jacobian_values_match_host_jacobian():
                                atol=1e-12)
 
 
-@pytest.mark.parametrize("kw", [dict(spmv="dia"), dict(spmv="symdia"),
+@pytest.mark.parametrize("kw", [dict(cls="FastDecoupled", solver="banded"),
+                                dict(cls="FastDecoupled", solver="blocklu"),
                                 dict(solver="blocklu"),
                                 dict(solver="multifrontal")])
 def test_options_of_later_slices_are_refused(kw):
+    """spmv='dia' / 'symdia' are ported now (tests/test_torch_fdpf.py); the
+    solvers that need BandedLU or the multifrontal refactorization are
+    still refused, for both solver classes."""
+    kw = dict(kw)
+    cls = getattr(ppf, kw.pop("cls", "NewtonPowerFlow"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        ppf.NewtonPowerFlow(pgrids.ieee14(), **kw)
+        cls(pgrids.ieee14(), device="cpu", **kw)
