@@ -9,7 +9,8 @@ seconds):
 1. device: needs torch.cuda; prints the card's name and power limit.
 2. build:  compiles every library from this checkout into
            csparse3_tpu_torch/_build/, all at once (nvcc for sm_90a:
-           csrc/bandpoints.cu, csrc/dia_spmv.cu, csrc/triad.cu; g++:
+           csrc/bandpoints.cu, csrc/dia_spmv.cu, csrc/triad.cu,
+           csrc/spgemm_numeric.cu, csrc/bsr_spmm.cu; g++:
            native/host_ext.cpp + native/lu_sn.cpp) and prints the seconds
            each took.
 3. triad:  the triad kernel against its plain version (bit for bit), then
@@ -31,7 +32,9 @@ seconds):
            converge, its state must give a host float64 scipy mismatch
            <= 1e-4, the kernel must have launched once per mismatch
            evaluation, and the state must agree with the port's own
-           float64 spmv='ell' solve.
+           float64 spmv='ell' solve (the same solver with the 'ell' plan in
+           place of the kernel's: the Jacobian pattern and so the host
+           factorization and refactor plan are the same, built once).
 7. banded: the same grid in RCM order (``rcm_grid``):
            NewtonPowerFlow(spmv='dia') in float64 must converge to 1e-10,
            give a host float64 mismatch <= 1e-8, launch the DIA kernel once
@@ -46,11 +49,34 @@ seconds):
            row by row within the rounding bound, with its times, the plain
            version's and the library call's.
 8. ieee14: phase 6 on ieee14().
+9. spgemm: the sparse-product path on three matrices: C = Cf - Ct of
+           synthetic_grid(3000, seed=1) (the GridCal flow), the random
+           10k x 10k matrix at 0.1% density of BASELINE config 2, and C of
+           the 200k-bus grid.  Host: ``Cf - Ct``, ``C @ C.T``, ``gram``,
+           ``add(gram(A), A).t()`` against scipy; ``spgemm_symbolic`` and
+           ``gram_symbolic`` (seconds printed: paid once per pattern).
+           Card: ``plan.numeric`` in float32 (the SpGEMM numeric kernel,
+           one launch per call) against its plain version and against scipy
+           float64 output by output within the rounding bound of its sum,
+           the pattern equal to scipy's exactly; ``GramPlan.numeric``,
+           ``spgemm_device`` and the host products agree; times of kernel,
+           plain version and the library call (torch.sparse.mm of two CSR
+           tensors, symbolic and numeric together).
+10. bsr:   the block product ``Y = A @ X``: the 16384^2 matrix of 32 x 32
+           blocks (6 per block row) with X (16384, 1024), and
+           ``spmm(B, X, block=(8, 128))`` for B = imag(Ybus) of the 200k-bus
+           grid in float32 with X (200000, 1024); the BSR SpMM kernel
+           against its plain version and scipy float64 row by row within
+           the rounding bound, k = 1 and k = 130 and empty block rows at a
+           small shape, ``BSRMatMatPlan(A, A).numeric`` against scipy's
+           ``A @ A``; times of kernel, plain version, the library call
+           (torch.sparse BSR ``@ X``) and the entry-stream ``spmm``.
 
 Prints one JSON line of kernel records, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
+import copy
 import json
 import subprocess
 import sys
@@ -108,6 +134,52 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps):
+    """Device ms per call of ``reps`` back-to-back calls, without the host
+    in the way: the calls are enqueued while a spin kernel keeps the card
+    busy, so they run one behind the other, and CUDA events on the stream
+    bracket them.  For a call of one short kernel this is its device time
+    plus the gap between two launches.  Only for calls that do not wait for
+    the device themselves: such a call would sit out the spin kernel."""
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(40e6))  # ~20 ms: the host gets ahead meanwhile
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps):
+    """Host ms per call of ``reps`` calls, the device drained at the end."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def profiler_note(fn, reps, pattern):
+    """What torch.profiler recorded of ``reps`` calls, as text.  Late in a
+    long process it drops records (after the 86k-launch Newton profile it
+    kept 27 of 50 launches, then none), so nothing is decided by it here."""
+    _, busy, n, by = device_profile(fn, reps)
+    recs = [v for k, v in by.items() if pattern in k]
+    count = sum(c for c, _ in recs)
+    if count == 0:
+        return f"torch.profiler recorded none of the {reps} launches"
+    return (f"torch.profiler: {sum(t for _, t in recs) / count * 1e3:.6f} ms "
+            f"per launch over {count} of {reps} launches recorded, {n} "
+            f"kernels in all")
 
 
 def device_profile(fn, reps):
@@ -276,7 +348,7 @@ def build_phase():
     """Every library at once: one compiler process per source."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from csparse3_tpu_torch.kernels import bandpoints, dia
+    from csparse3_tpu_torch.kernels import bandpoints, bsr_spmm, dia, spgemm
     from csparse3_tpu_torch.native import host_ext
     from csparse3_tpu_torch.utils import roofline
 
@@ -288,6 +360,8 @@ def build_phase():
     loads = dict(nvcc_bandpoints_s=bandpoints.load_cuda_library,
                  nvcc_dia_spmv_s=dia.load_cuda_library,
                  nvcc_triad_s=roofline.load_cuda_library,
+                 nvcc_spgemm_numeric_s=spgemm.load_cuda_library,
+                 nvcc_bsr_spmm_s=bsr_spmm.load_cuda_library,
                  gxx_host_ext_s=host_ext.load)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loads)) as pool:
@@ -681,10 +755,469 @@ def banded_phase(dev, ell_state):
     return launches, recs
 
 
+def _csr_tensor(S, dev, dtype):
+    """A scipy matrix as a torch.sparse CSR tensor on the card (for the
+    library calls timed beside the kernels; used nowhere in the port)."""
+    import torch
+
+    S = S.tocsr()
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(S.indptr.astype(np.int64), device=dev),
+        torch.as_tensor(S.indices.astype(np.int64), device=dev),
+        torch.as_tensor(S.data.astype(dtype), device=dev), size=S.shape)
+
+
+def spgemm_phase(dev):
+    """K6 and the sparse-product path around it.  Returns (launches on the
+    main path, {case: record})."""
+    import scipy.sparse as sp
+    import torch
+
+    import csparse3_tpu_torch as pt
+    from csparse3_tpu_torch.kernels import spgemm as kspg
+    from csparse3_tpu_torch.models.grids import connectivity, synthetic_grid
+
+    t_phase = time.perf_counter()
+    u32 = 2.0 ** -24
+
+    def conn(n, seed):
+        Cf, Ct = connectivity(synthetic_grid(n, seed=seed))
+        return Cf - Ct
+
+    def rand10k():
+        return pt.CSC.from_scipy(sp.random(
+            10_000, 10_000, density=1e-3, format="csc",
+            random_state=np.random.RandomState(0)))
+
+    # ---- host: the eager products against scipy, the symbolic phases
+    cases = {}
+    for label, make in (("conn3000", lambda: conn(3000, 1)),
+                        ("rand10k", rand10k),
+                        ("conn200k", lambda: conn(N_KERNEL, 0))):
+        t0 = time.perf_counter()
+        A = make()
+        B = A.T
+        S = A.to_scipy()
+        ref = (S @ S.T).tocsc()
+        ref.sort_indices()
+        t1 = time.perf_counter()
+        G = pt.gram(A)               # fused native kernel, symbolic cached
+        t_gram = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        G2 = pt.gram(A)              # numeric pass alone
+        t_regram = time.perf_counter() - t1
+        H = A @ B                    # general native SpGEMM
+        scale = np.abs(ref.data).max()
+        for name, got in (("gram", G), ("gram revalue", G2), ("A @ A.T", H)):
+            ip, ix, dt = got.np_arrays()
+            if not (np.array_equal(ip, ref.indptr)
+                    and np.array_equal(ix, ref.indices)):
+                raise AssertionError(f"spgemm[{label}]: pattern of {name} "
+                                     "differs from scipy's")
+            if np.abs(dt - ref.data).max() > 1e-12 * scale:
+                raise AssertionError(f"spgemm[{label}]: {name} disagrees "
+                                     "with scipy")
+        if label == "rand10k":  # the add and transpose config 2 bundles
+            got = pt.add(G, A).t().to_scipy()
+            want = ((S @ S.T) + S).T.tocsc()
+            if abs(got - want).max() > 1e-12 * scale:
+                raise AssertionError("spgemm[rand10k]: add(gram(A), A).t() "
+                                     "disagrees with scipy")
+        t1 = time.perf_counter()
+        plan = pt.spgemm_symbolic(A, B, device=dev)
+        t_sym = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        gplan = pt.gram_symbolic(A, device=dev)
+        t_gsym = time.perf_counter() - t1
+        a32 = A.np_arrays()[2].astype(np.float32)
+        b32 = B.np_arrays()[2].astype(np.float32)
+        cases[label] = dict(
+            A=A, B=B, ref=ref, plan=plan, gplan=gplan,
+            a32=torch.as_tensor(a32, device=dev),
+            b32=torch.as_tensor(b32, device=dev))
+        log(f"spgemm[{label}]: A {A.shape} nnz={A.nnz} products="
+            f"{plan.n_products} outputs={plan.out_nnz} longest_segment="
+            f"{int(plan.seg_ptr.diff().max())} gram_plan_products="
+            f"{gplan.n_products} host seconds: gram={t_gram:.3f} "
+            f"gram_revalue={t_regram:.3f} spgemm_symbolic={t_sym:.3f} "
+            f"gram_symbolic={t_gsym:.3f} (symbolic: once per pattern, upload "
+            f"included) setup_and_scipy={time.perf_counter() - t0:.1f}")
+        if not (np.array_equal(plan.template.np_arrays()[0], ref.indptr)
+                and np.array_equal(plan.template.np_arrays()[1], ref.indices)
+                and np.array_equal(gplan.template.np_arrays()[1],
+                                   ref.indices)):
+            raise AssertionError(f"spgemm[{label}]: symbolic pattern differs "
+                                 "from scipy's")
+
+    # ---- the main path: counts to 0, the numeric passes, counts read
+    kspg.LAUNCHES["spgemm_numeric"] = 0
+    for c in cases.values():
+        c["C"] = c["plan"].numeric(c["a32"], c["b32"])
+        c["Cg"] = c["gplan"].numeric(c["a32"])
+    torch.cuda.synchronize()
+    launches = kspg.LAUNCHES["spgemm_numeric"]
+    if launches != 2 * len(cases):
+        raise AssertionError(f"spgemm: {launches} launches for "
+                             f"{2 * len(cases)} numeric calls")
+
+    # ---- checks and times
+    out = {}
+    for label, c in cases.items():
+        plan, a32, b32, ref = c["plan"], c["a32"], c["b32"], c["ref"]
+        n_out = plan.out_nnz
+        before = kspg.LAUNCHES["spgemm_numeric"]
+        plain = kspg.spgemm_numeric_plain(plan.gid, plan.pa_s, plan.pb_s,
+                                          a32, b32, n_out)
+        if kspg.LAUNCHES["spgemm_numeric"] != before:
+            raise AssertionError("spgemm: the plain version launched")
+        # Rounding bound per output.  The values are float32 on every side
+        # and scipy sums their exact products in float64.  The kernel and
+        # the plain version round each of the L products of an output and
+        # each partial sum once: within (L + 1) u sum|a||b| of the exact
+        # sum whatever the order, two float32 versions within twice that.
+        # sum|a||b| is |A| @ |A|.T, which has the pattern of A @ A.T.
+        S32 = abs(c["A"].to_scipy().astype(np.float32).astype(np.float64))
+        absum = (S32 @ S32.T).tocsc()
+        absum.sort_indices()
+        Sv = c["A"].to_scipy().astype(np.float32).astype(np.float64)
+        ref32 = (Sv @ Sv.T).tocsc()
+        ref32.sort_indices()
+        L = plan.seg_ptr.diff().double()
+        bound = (L + 1) * u32 * 1.01 * torch.as_tensor(absum.data, device=dev)
+        tiny = torch.finfo(torch.float64).tiny
+        data = c["C"].data
+        d_plain = (data - plain).abs().double()
+        d_scipy = (data.double() - torch.as_tensor(ref32.data,
+                                                   device=dev)).abs()
+        r_plain = float((d_plain / (2 * bound + tiny)).max())
+        r_scipy = float((d_scipy / (bound + tiny)).max())
+        abs_plain = float(d_plain.max())
+        # the symmetric plan, the device ESC product, float64 through the
+        # same kernel: all on scipy's pattern
+        d_gram = float((c["Cg"].data.double() - torch.as_tensor(
+            ref32.data, device=dev)).abs().div(bound + tiny).max())
+        D = pt.spgemm_device(c["A"], c["B"], device=dev)
+        C64 = plan.numeric(c["A"].np_arrays()[2], c["B"].np_arrays()[2])
+        scale = np.abs(ref.data).max()
+        for name, got in (("spgemm_device", D), ("float64 numeric", C64)):
+            ip, ix, dt = got.np_arrays()
+            if not (np.array_equal(ix, ref.indices)
+                    and np.abs(dt - ref.data).max() <= 1e-12 * scale):
+                raise AssertionError(f"spgemm[{label}]: {name} disagrees "
+                                     "with scipy")
+        log(f"spgemm[{label}]: max_abs_err_vs_plain={abs_plain:.3e} "
+            f"worst_output_err_over_bound: vs_plain={r_plain:.4f} "
+            f"vs_scipy_f64={r_scipy:.4f} gram_plan_vs_scipy_f64={d_gram:.4f} "
+            f"(bound: (L+1) 2^-24 sum|a||b| per output, twice that between "
+            f"two float32 versions; must be <= 1) spgemm_device and the "
+            f"float64 numeric pass agree with scipy to 1e-12")
+        if not (r_plain <= 1 and r_scipy <= 1 and d_gram <= 1):
+            raise AssertionError(f"spgemm[{label}]: kernel disagrees")
+
+        def kernel():
+            return kspg.spgemm_numeric_cuda(plan.seg_ptr, plan.pa_s,
+                                            plan.pb_s, a32, b32)
+
+        def plain_fn():
+            return kspg.spgemm_numeric_plain(plan.gid, plan.pa_s, plan.pb_s,
+                                             a32, b32, n_out)
+
+        for _ in range(10):
+            kernel()
+            plain_fn()
+        # plain, kernel, kernel, plain: one card, one call
+        t = [queued_ms(plain_fn, 50), queued_ms(kernel, 200),
+             queued_ms(kernel, 200), queued_ms(plain_fn, 50)]
+        ms, plain_ms = min(t[1], t[2]), min(t[0], t[3])
+        ev = [cuda_ms(plain_fn, 50), cuda_ms(kernel, 200)]
+        note = profiler_note(kernel, 50, "spgemm_numeric_kernel")
+        # what the kernel reads (the three maps, both value arrays) and
+        # writes (data), each once; one multiply-add per product
+        nbytes = sum(x.numel() * x.element_size() for x in (
+            plan.seg_ptr, plan.pa_s, plan.pb_s, a32, b32, data))
+        rec = dict(abs_err=abs_plain, ms=ms, plain_ms=plain_ms,
+                   products=plan.n_products, outputs=n_out,
+                   **bound_record(nbytes, 2 * plan.n_products))
+        # the library call: symbolic and numeric phase together
+        try:
+            La = _csr_tensor(c["A"].to_scipy(), dev, np.float32)
+            Lb = _csr_tensor(c["B"].to_scipy(), dev, np.float32)
+            Lc = torch.sparse.mm(La, Lb)
+            lib_sum = float(Lc.values().double().sum())
+            if Lc._nnz() != n_out or abs(
+                    lib_sum - ref32.data.sum()) > 1e-5 * absum.data.sum():
+                raise AssertionError(f"spgemm[{label}]: library product "
+                                     f"disagrees ({Lc._nnz()} nonzeros)")
+            for _ in range(3):
+                torch.sparse.mm(La, Lb)
+            # it waits for the device inside (the output size), so plain
+            # events around back-to-back calls time it whole
+            rec["library_ms"] = cuda_ms(lambda: torch.sparse.mm(La, Lb), 10)
+            lib_note = (f"library_torch_sparse_mm_csr_f32_ms_per_call="
+                        f"{rec['library_ms']:.6f} (symbolic and numeric "
+                        f"together, cuda events over 10 calls)")
+            del La, Lb, Lc
+        except RuntimeError as e:
+            rec["library_ms"] = None
+            lib_note = ("library: this torch build refuses torch.sparse.mm "
+                        f"of two CSR tensors ({str(e)[:80]})")
+        log(f"spgemm[{label}]: kernel_device_ms_per_launch={ms:.6f} "
+            f"plain_device_ms_per_call={plain_ms:.6f} (cuda events around "
+            f"launches queued behind a spin kernel; runs plain,kernel,"
+            f"kernel,plain = {t}); with the host in the way: plain "
+            f"{ev[0]:.6f} kernel {ev[1]:.6f} ms per call; {note}; "
+            f"bytes_per_launch={nbytes} bound_ms={rec['bound_ms']:.6f} "
+            f"({rec['bound_by']}) {lib_note}")
+        out[label] = rec
+    # where the time goes on this path: the entry point, host included
+    big = cases["conn200k"]
+
+    def numeric():
+        return big["plan"].numeric(big["a32"], big["b32"])
+
+    wall, busy = wall_ms(numeric, 200), queued_ms(numeric, 200)
+    log(f"spgemm[conn200k]: plan.numeric wall_ms_per_call={wall:.6f} "
+        f"device_ms_per_call={busy:.6f} idle_share={1 - busy / wall:.4f} "
+        f"(200 calls, host clock against queued device time)")
+    del cases
+    torch.cuda.empty_cache()
+    log(f"spgemm: phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, out
+
+
+def _bsr_row_check(label, Y, Yp, S, X, dev):
+    """Hold Y (kernel) and Yp (plain) against scipy float64 row by row.
+    Row i sums its K_i <= K stored nonzeros in float32 (the blocks' zeros
+    add exactly): every version lies within (K + 2) u (|A| |X|)_i of the
+    exact product, two float32 versions within twice that.  Returns
+    max|Y - Yp|."""
+    import torch
+
+    K = int(np.diff(S.tocsr().indptr).max())
+    X64 = X.astype(np.float64)
+    ref = torch.as_tensor(S @ X64, device=dev)
+    bound = torch.as_tensor(
+        (K + 2) * 2.0 ** -24 * 1.01 * (abs(S) @ np.abs(X64)), device=dev)
+    tiny = torch.finfo(torch.float64).tiny
+    d_plain = (Y - Yp).abs().double()
+    r_plain = float((d_plain / (2 * bound + tiny)).max())
+    r_scipy = float(((Y.double() - ref).abs() / (bound + tiny)).max())
+    err = float(d_plain.max())
+    log(f"bsr[{label}]: max_abs_err_vs_plain={err:.3e} (max|Y| "
+        f"{float(Y.abs().max()):.3e}) worst_row_err_over_bound: vs_plain="
+        f"{r_plain:.4f} vs_scipy_f64={r_scipy:.4f} (bound: (K+2) 2^-24 "
+        f"|A||X| per row, K={K}, twice that between two float32 versions; "
+        f"must be <= 1)")
+    if not (r_plain <= 1 and r_scipy <= 1):
+        raise AssertionError(f"bsr[{label}]: kernel disagrees")
+    return err
+
+
+def bsr_phase(dev):
+    """K5 and the BSR path around it.  Returns (launches on the main path,
+    {case: record})."""
+    import scipy.sparse as sp
+    import torch
+
+    import csparse3_tpu_torch as pt
+    from csparse3_tpu_torch.kernels import bsr_spmm as kbsr
+    from csparse3_tpu_torch.models.grids import synthetic_grid, ybus
+
+    t_phase = time.perf_counter()
+    K_RHS = 1024  # right-hand sides, as BASELINE configs 3-4
+
+    # ---- host set-up.  (a) the block matrix of the JAX bench
+    Rb, nb_rows, bpr = 32, 512, 6
+    n_a = nb_rows * Rb
+    rng = np.random.RandomState(0)
+    rowsb = np.repeat(np.arange(nb_rows), bpr)
+    colsb = rng.randint(0, nb_rows, nb_rows * bpr)
+    key = np.unique(rowsb * nb_rows + colsb)
+    rowsb, colsb = key // nb_rows, key % nb_rows
+    data_a = rng.rand(len(rowsb), Rb, Rb).astype(np.float32)
+    indptr_a = np.searchsorted(rowsb, np.arange(nb_rows + 1))
+    S_a = sp.bsr_matrix((data_a.astype(np.float64), colsb, indptr_a),
+                        shape=(n_a, n_a))
+    A = pt.BSR(n_a, n_a, Rb, Rb, indptr_a, colsb, data_a, device=dev)
+    X_a = rng.rand(n_a, K_RHS).astype(np.float32)
+    # (b) the susceptance matrix of the 200k-bus grid, float32, natural
+    # bus order: 145,581 blocks of (8, 128), 0.6 GB (RCM order would give
+    # 207,169), so no reordering is needed to stay under 10 GB
+    t0 = time.perf_counter()
+    Yb, _, _ = ybus(synthetic_grid(N_KERNEL, seed=0))
+    ip, ix, dt = Yb.np_arrays()
+    Bm = pt.CSC(Yb.m, Yb.n, ip, ix,
+                np.ascontiguousarray(dt.imag).astype(np.float32), device=dev)
+    S_b = Bm.to_scipy().astype(np.float64).tocsr()
+    X_b = np.random.RandomState(1).rand(Bm.n, K_RHS).astype(np.float32)
+    t1 = time.perf_counter()
+    bsr_b = Bm.to_bsr(block=(8, 128))
+    t_pack = time.perf_counter() - t1
+    nblk_b = bsr_b.nnz_blocks
+    log(f"bsr: (a) {n_a}^2, {len(rowsb)} blocks of {Rb}x{Rb}, X ({n_a}, "
+        f"{K_RHS}); (b) imag(Ybus) {Bm.shape} nnz={Bm.nnz} float32, block "
+        f"(8, 128): {nblk_b} blocks = {nblk_b * 8 * 128 * 4 / 1e9:.3f} GB "
+        f"(natural order), X ({Bm.n}, {K_RHS}); host csc_to_bsr seconds "
+        f"{t_pack:.2f}, set-up seconds {time.perf_counter() - t0:.1f}")
+    Bm._bsr_cache = bsr_b  # what spmm would pack at its first call
+    Xa_t = torch.as_tensor(X_a, device=dev)
+    Xb_t = torch.as_tensor(X_b, device=dev)
+    # warm: the block stacks are uploaded here, not in the main path
+    A @ Xa_t
+    pt.spmm(Bm, Xb_t, block=(8, 128))
+
+    # ---- the main path: counts to 0, the two products, counts read
+    kbsr.LAUNCHES["bsr_spmm"] = 0
+    Y_a = A @ Xa_t
+    Y_b = pt.spmm(Bm, Xb_t, block=(8, 128))
+    torch.cuda.synchronize()
+    launches = kbsr.LAUNCHES["bsr_spmm"]
+    if launches != 2:
+        raise AssertionError(f"bsr: {launches} launches for 2 products")
+
+    out = {}
+    placed = Bm._bsr_cache
+    for label, M, S, X, Xt, Y, reps in (
+            ("block32", A, S_a, X_a, Xa_t, Y_a, 50),
+            ("ybus200k", placed, S_b, X_b, Xb_t, Y_b, 5)):
+        nblk = M.nnz_blocks
+        args = (M.m, M.n, M.indptr, M.indices[:nblk], M.data[:nblk], Xt)
+        before = kbsr.LAUNCHES["bsr_spmm"]
+        Yp = kbsr.bsr_spmm_plain(*args)
+        if kbsr.LAUNCHES["bsr_spmm"] != before:
+            raise AssertionError("bsr: the plain version launched")
+        err = _bsr_row_check(label, Y, Yp, S, X, dev)
+        del Yp
+        for _ in range(2):
+            kbsr.bsr_spmm_cuda(*args)
+        # plain, kernel, kernel, plain: one card, one call
+        t = [queued_ms(lambda: kbsr.bsr_spmm_plain(*args), 2),
+             queued_ms(lambda: kbsr.bsr_spmm_cuda(*args), reps),
+             queued_ms(lambda: kbsr.bsr_spmm_cuda(*args), reps),
+             queued_ms(lambda: kbsr.bsr_spmm_plain(*args), 2)]
+        ms, plain_ms = min(t[1], t[2]), min(t[0], t[3])
+        note = profiler_note(lambda: kbsr.bsr_spmm_cuda(*args),
+                             min(reps, 10), "bsr_spmm_kernel")
+        # every stored block, the pattern, X and Y, each once; 2 R C k
+        # operations per stored block (its zeros included: the function is
+        # the block product)
+        nbytes = sum(x.numel() * x.element_size() for x in (
+            M.data[:nblk], M.indptr, M.indices[:nblk], Xt, Y))
+        flops = 2 * nblk * M.R * M.C * Xt.shape[1]
+        rec = dict(abs_err=err, ms=ms, plain_ms=plain_ms, blocks=nblk,
+                   **bound_record(nbytes, flops))
+        # the library call: torch.sparse BSR @ X, else the CSR product
+        try:
+            lib = torch.sparse_bsr_tensor(
+                M.indptr.long(), M.indices[:nblk].long(), M.data[:nblk],
+                size=(M.mb * M.R, M.nb * M.C))
+            Xl = Xt if M.nb * M.C == M.n else torch.cat([Xt, torch.zeros(
+                (M.nb * M.C - M.n, Xt.shape[1]), dtype=Xt.dtype, device=dev)])
+            Yl = (lib @ Xl)[: M.m]
+            which = "torch.sparse BSR"
+        except (RuntimeError, ValueError) as e:
+            log(f"bsr[{label}]: torch.sparse BSR @ X refused "
+                f"({str(e)[:80]}); timing the CSR product instead")
+            lib, Xl = _csr_tensor(S, dev, np.float32), Xt
+            Yl = lib @ Xl
+            which = "torch.sparse CSR"
+        if float((Yl - Y).abs().max()) > 1e-4 * float(Y.abs().max()):
+            raise AssertionError(f"bsr[{label}]: library product disagrees")
+        del Yl
+        for _ in range(2):
+            lib @ Xl
+        rec["library_ms"] = cuda_ms(lambda: lib @ Xl, 5)
+        del lib, Xl
+        log(f"bsr[{label}]: blocks={nblk} flops={flops} bytes={nbytes} "
+            f"kernel_device_ms_per_launch={ms:.6f} plain_device_ms_per_call="
+            f"{plain_ms:.6f} (cuda events around queued launches; runs "
+            f"plain,kernel,kernel,plain = {t}); {note}; "
+            f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}) "
+            f"library_{which.replace(' ', '_').replace('.', '_')}_f32_"
+            f"device_ms={rec['library_ms']:.6f}")
+        out[label] = rec
+        torch.cuda.empty_cache()
+
+    # the same product from the 1.1M entries (spmm without a block shape)
+    Ys = pt.spmm(Bm, Xb_t)
+    if float((Ys - Y_b).abs().max()) > 1e-4 * float(Y_b.abs().max()):
+        raise AssertionError("bsr: entry-stream spmm disagrees")
+    del Ys
+    stream_ms = cuda_ms(lambda: pt.spmm(Bm, Xb_t), 2)
+    log(f"bsr[ybus200k]: entry-stream spmm(block=None) device_ms_per_call="
+        f"{stream_ms:.6f} (index_select + index_add_ over {Bm.nnz} entries "
+        f"x {K_RHS}; the matrix is uploaded anew at every call)")
+
+    def blocked():
+        return pt.spmm(Bm, Xb_t, block=(8, 128))
+
+    wall, busy = wall_ms(blocked, 5), queued_ms(blocked, 5)
+    log(f"bsr[ybus200k]: spmm(block=(8, 128)) wall_ms_per_call={wall:.6f} "
+        f"device_ms_per_call={busy:.6f} idle_share="
+        f"{max(0.0, 1 - busy / wall):.4f} (5 calls, host clock against "
+        f"queued device time)")
+    del Xb_t, Y_b, placed, bsr_b
+    Bm._bsr_cache = None
+    torch.cuda.empty_cache()
+
+    # ---- BSRMatMatPlan(A, A).numeric against scipy's A @ A
+    t0 = time.perf_counter()
+    mm = pt.BSRMatMatPlan(A, A)  # device=None: the card
+    C = mm.numeric(A.data, A.data)
+    torch.cuda.synchronize()
+    t_mm = time.perf_counter() - t0
+    ref = (S_a @ S_a).tobsr(blocksize=(Rb, Rb))
+    ref.sort_indices()
+    cip, cix, cdt = C.np_arrays()
+    if not (np.array_equal(cip, ref.indptr)
+            and np.array_equal(cix, ref.indices)):
+        raise AssertionError("bsr: block pattern of A @ A differs from scipy's")
+    # positive values: |A||A| = A A; a row of a block pair sums 32 products
+    # and an output block up to bpr pairs of them
+    kk = bpr * Rb
+    r_mm = float((np.abs(cdt - ref.data) / ((kk + 2) * 2.0 ** -24 * 1.01
+                                            * ref.data + 1e-300)).max())
+    log(f"bsr[block32]: BSRMatMatPlan(A, A).numeric: {mm.pa.numel()} block "
+        f"pairs -> {mm.out_nblocks} output blocks, pattern equal to scipy's, "
+        f"worst_entry_err_over_bound={r_mm:.4f} (bound: ({kk}+2) 2^-24 "
+        f"(A A) per entry; must be <= 1) seconds={t_mm:.3f} (host symbolic "
+        f"included)")
+    if not r_mm <= 1:
+        raise AssertionError("bsr: BSRMatMatPlan disagrees with scipy")
+    del C, mm
+
+    # ---- ragged k and empty block rows at a small shape
+    i = np.arange(100)
+    Sd = sp.csr_matrix((np.random.RandomState(2).rand(100) + 0.5, (i, i)),
+                       shape=(300, 300)) + sp.random(
+        300, 300, density=0.02, format="csr",
+        random_state=np.random.RandomState(3))
+    Sd = Sd.tolil()
+    Sd[160:200] = 0  # block rows 20..24 of (8, 128) hold nothing
+    Sd = Sd.tocsr().astype(np.float32)
+    Sd.eliminate_zeros()
+    small = pt.CSC.from_scipy(Sd.tocsc(), device=dev).to_bsr(block=(8, 128))
+    for k in (None, 1, 130):
+        Xs = np.random.RandomState(4).rand(*((300,) if k is None
+                                             else (300, k))).astype(np.float32)
+        Xs_t = torch.as_tensor(Xs, device=dev)
+        Ys = small @ Xs_t
+        nb_ = small.nnz_blocks
+        Ysp = kbsr.bsr_spmm_plain(300, 300, small.indptr, small.indices[:nb_],
+                                  small.data[:nb_], Xs_t)
+        _bsr_row_check(f"small k={k}", Ys, Ysp, Sd.astype(np.float64), Xs,
+                       dev)
+        if Ys.shape != Xs.shape or float(Ys[160:200].abs().max()) != 0.0:
+            raise AssertionError("bsr: empty block rows are not exact zeros")
+    log(f"bsr: phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, out
+
+
 def newton_case(name, grid, dev, solves=1, profile_solve=False):
     import torch
 
-    from csparse3_tpu_torch.models.powerflow import NewtonPowerFlow
+    from csparse3_tpu_torch.models.powerflow import (NewtonPowerFlow,
+                                                     _make_yplan)
 
     t0 = time.perf_counter()
     pf = NewtonPowerFlow(grid, spmv="bandpoints", solver="level", tol=5e-5,
@@ -724,9 +1257,16 @@ def newton_case(name, grid, dev, solves=1, profile_solve=False):
     if launches == 0 or launches != (it + 1) * plan.n_groups:
         raise AssertionError(f"{name}: {launches} launches for {it + 1} "
                              f"mismatch evaluations")
+    # the float64 'ell' solve: the same solver with the gather plan in place
+    # of the kernel's.  The Jacobian pattern does not depend on the SpMV
+    # plan, so the host factorization and the refactor plan are shared
+    # instead of built a second time (about a minute of host work at 10k
+    # buses)
     t0 = time.perf_counter()
-    vm_e, va_e, it_e, res_e = NewtonPowerFlow(
-        grid, spmv="ell", solver="level", device=dev).solve()
+    pf_ell = copy.copy(pf)
+    pf_ell._yplan = _make_yplan(pf.Y, "ell", dev)
+    pf_ell.tol = 1e-10
+    vm_e, va_e, it_e, res_e = pf_ell.solve()
     diff = max(np.abs(vm - vm_e).max(), np.abs(va - va_e).max())
     log(f"newton[{name}]: ell_f64 iterations={it_e} residual={res_e:.3e} "
         f"max_state_diff_vs_bandpoints={diff:.3e} bound={STATE_ATOL:.0e} "
@@ -769,6 +1309,10 @@ def main():
             f"{time.perf_counter() - t0:.1f}")
         dia_launches, band = banded_phase(dev, ell_state)
         newton_case("ieee14", ieee14(), dev)
+        # last: these phases time with CUDA events alone, so torch.profiler
+        # dropping records late in a long process costs them nothing
+        spg_launches, spg = spgemm_phase(dev)
+        bsr_launches, bsr = bsr_phase(dev)
 
     def record(name, src, replaces, launches, r):
         return {"name": name, "route": "cuda",
@@ -800,6 +1344,25 @@ def main():
                  symmetric_form=dia["symdia"])),
         record("triad", "triad", "probes/_probe_pallas.py:38",
                tri["launches"], tri),
+        # the top-level numbers are one launch on the 200k-bus grid's
+        # connectivity product (float32): of the launches counted, one per
+        # numeric call of the three SpGEMMPlans and the three GramPlans
+        dict(record("spgemm_numeric", "spgemm_numeric",
+                    "csparse3_tpu/kernels/spgemm_pallas.py:109", spg_launches,
+                    spg["conn200k"]),
+             shape=f"float32, C @ C.T of the {N_KERNEL}-bus grid's "
+                   "connectivity matrix, per launch; library_ms is "
+                   "torch.sparse.mm (symbolic and numeric together)",
+             conn3000=spg["conn3000"], rand10k=spg["rand10k"]),
+        # the top-level numbers are spmm(B, X, block=(8, 128)) on the
+        # 200k-bus susceptance matrix; the launches counted are that product
+        # and the 32x32 block matrix's
+        dict(record("bsr_spmm", "bsr_spmm",
+                    "csparse3_tpu/kernels/bsr_spmm_pallas.py:71",
+                    bsr_launches, bsr["ybus200k"]),
+             shape=f"float32, imag(Ybus) of the {N_KERNEL}-bus grid in "
+                   "(8, 128) blocks times X (n, 1024), per launch",
+             block_matrix_32x32=bsr["block32"]),
     ]}))
     log(f"total seconds {time.perf_counter() - t_all:.1f}")
     log(smi_line())

@@ -10,7 +10,11 @@ a Pallas kernel on the path.
 Ported so far: the Newton power flow (``NewtonPowerFlow(spmv='ell' |
 'bandpoints' | 'dia' | 'symdia', solver='level')``), and the banded path:
 ``rcm_grid``, the DIA SpMV family with its CUDA kernel, ``FastDecoupled``,
-``dc_power_flow`` and the dense-tail triangular solves.
+``dc_power_flow`` and the dense-tail triangular solves; and the sparse-
+product path: CSC ``+ - *`` and ``@``, ``spgemm`` / ``gram`` with their
+symbolic plans and the CUDA numeric kernel, the device ESC product, the
+``BSR`` container with its block operations, and ``spmm`` / ``bsr_spmm``
+with the CUDA block kernel.
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (``config.default_device``).
@@ -20,9 +24,11 @@ __version__ = "0.1.0"
 
 from . import config  # noqa: F401
 from .config import default_device  # noqa: F401
-from .types import COO, CSC, CSR, DIA  # noqa: F401
+from .types import BSR, COO, CSC, CSR, DIA  # noqa: F401
 from .ops.construct import (  # noqa: F401
+    bsr_to_dense,
     canonicalize,
+    csc_to_bsr,
     csc_to_coo,
     csc_to_csr,
     csc_to_dense,
@@ -40,8 +46,41 @@ from .ops.matvec import (  # noqa: F401
     SplitSymDIA,
     SpMVPlan,
     SymDIAPlan,
+    bsr_spmm,
     dia_spmv,
+    spmm,
     spmv,
+)
+from .ops.arithmetic import (  # noqa: F401
+    add,
+    axpby,
+    compare,
+    eldiv,
+    eliminate_zeros,
+    elmul,
+    equal,
+    maximum,
+    minimum,
+    scale,
+    scale_columns,
+    scale_rows,
+    sub,
+)
+from .ops.spgemm import (  # noqa: F401
+    GramPlan,
+    SpGEMMPlan,
+    gram,
+    gram_symbolic,
+    spgemm,
+    spgemm_symbolic,
+)
+from .ops.spgemm_device import ESCSpGEMM, gram_device, spgemm_device  # noqa: F401
+from .ops.bsr_ops import (  # noqa: F401
+    BSRMatMatPlan,
+    bsr_add,
+    bsr_binop,
+    bsr_matmat,
+    bsr_transpose,
 )
 from .ops.slicing import sample_offsets, sample_values, submatrix  # noqa: F401
 from .kernels.bandpoints import (  # noqa: F401
@@ -74,6 +113,7 @@ from .models import (  # noqa: F401
     reorder_grid,
 )
 from .utils.interop import (  # noqa: F401
+    bsr_from_arrays,
     csc_from_arrays,
     dia_from_arrays,
     grid_from_arrays,

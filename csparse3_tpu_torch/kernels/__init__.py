@@ -9,3 +9,5 @@ from .dia import (  # noqa: F401
     dia_spmv_cuda,
     dia_spmv_plain,
 )
+from .bsr_spmm import bsr_spmm_cuda, bsr_spmm_plain  # noqa: F401
+from .spgemm import spgemm_numeric_cuda, spgemm_numeric_plain  # noqa: F401

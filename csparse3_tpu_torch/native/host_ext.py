@@ -7,9 +7,13 @@ library is built on the machine that loads it, so ``-march=native`` names
 that machine's CPU.  A failed build raises: at 10k buses the pure-numpy LU
 would turn a broken build into a run hours long, so nothing falls back.
 
-Only the entry points the port's slice calls are bound: sparse LU
-(scalar Gilbert-Peierls and supernodal), the AMD / RCM / nested-dissection
-orderings, and the symbolic build of the device refactorization.
+Only the entry points the port calls are bound: sparse LU (scalar
+Gilbert-Peierls and supernodal), the AMD / RCM / nested-dissection
+orderings, the symbolic build of the device refactorization, and the CSC
+products and merges of the sparse-product path (SpGEMM, gram with its
+cached symbolic phase, axpby, transpose).  Those take int32 index arrays
+as they are (half the index traffic, no conversion copies) and anything
+else as int64.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from ..linalg.lu_host import HostLU
 from ..utils.build import REPO_ROOT, BuildError, build_shared_library
 
 __all__ = ["load", "lu_factor", "lu_factor_sn", "amd", "rcm", "nd",
-           "refactor_build"]
+           "refactor_build", "csc_spgemm", "csc_axpby", "csc_gram",
+           "csc_gram_cached", "csc_gram_revalue", "csc_transpose"]
 
 _SOURCES = [os.path.join(REPO_ROOT, "native", f)
             for f in ("host_ext.cpp", "lu_sn.cpp", "host_common.h")]
@@ -36,6 +41,7 @@ _CXXFLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-std=c++17",
              "-fPIC", "-pthread", "-Wall", "-Wextra"]
 
 _i64p = ctypes.POINTER(ctypes.c_int64)
+_i32p = ctypes.POINTER(ctypes.c_int32)
 
 
 class _LUResult(ctypes.Structure):
@@ -104,8 +110,41 @@ class _Lib:
         ]
         lib.refactor_free.restype = None
         lib.refactor_free.argtypes = [ctypes.POINTER(_RefactorBuild)]
+        self._declare_csc_ops(lib)
         self.lib = lib
         self.have_blas = self._load_blas()
+
+    @staticmethod
+    def _declare_csc_ops(lib):
+        """The CSC products and merges, once per index width (suffix ''
+        for int64, '32' for int32) and value type (d, s, z)."""
+        i64, vp, dbl = ctypes.c_int64, ctypes.c_void_p, ctypes.c_double
+
+        def reg(name, argtypes, restype=None):
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+
+        for ip, sfx in ((_i64p, ""), (_i32p, "32")):
+            reg("csc_spgemm_size" + sfx, [i64, ip, ip, i64, ip, ip, ip], i64)
+            reg("csc_gram_size" + sfx, [i64, i64, ip, ip, ip], i64)
+            for v in "dsz":
+                reg(f"csc_spgemm_numeric_{v}{sfx}",
+                    [i64, ip, ip, vp, i64, ip, ip, vp, ip, ip, vp,
+                     ctypes.c_int])
+                reg(f"csc_transpose_{v}{sfx}",
+                    [i64, i64, ip, ip, vp, ip, ip, vp])
+                reg(f"csc_gram_numeric_{v}{sfx}",
+                    [i64, i64, ip, ip, vp, ip, ip, vp], ctypes.c_int)
+                reg(f"csc_gram_revalue_{v}{sfx}",
+                    [i64, ip, ip, vp, _i64p, _i64p, _i64p, _i64p, ip, ip,
+                     vp])
+                scal = [dbl, dbl] if v == "z" else [dbl]
+                reg(f"csc_axpby_{v}{sfx}",
+                    [i64, ip, ip, vp, *scal, ip, ip, vp, *scal, ip, ip, vp],
+                    i64)
+        lib.csc_gram_symbolic_take.restype = i64
+        lib.csc_gram_symbolic_take.argtypes = [_i64p] * 4
 
     def _load_blas(self) -> bool:
         """Point the dense-tail LU at scipy's bundled OpenBLAS (getrf)."""
@@ -274,3 +313,188 @@ def refactor_build(n, Lp, Li, Up, Ui, Ap, Ai, perm_r, q):
         )
     finally:
         L.lib.refactor_free(res)
+
+
+# -- CSC products and merges (the sparse-product path) -------------------------
+
+_ENV64 = (np.dtype(np.int64), "", lambda a: _ptr(_as_i64(a)))
+
+
+def _index_env(*arrays):
+    """(numpy index dtype, function-name suffix, pointer caster) of a call:
+    int32 when every index array already is, else int64."""
+    if all(np.asarray(a).dtype == np.int32 for a in arrays):
+        return (np.dtype(np.int32), "32",
+                lambda a: np.ascontiguousarray(a).ctypes.data_as(_i32p))
+    return _ENV64
+
+
+def _host_vdt(cx, *vals):
+    """Value dtype of a native call: complex128 when any operand is
+    complex, float32 when every operand already is, float64 otherwise."""
+    if cx:
+        return np.complex128
+    if all(np.asarray(v).dtype == np.float32 for v in vals):
+        return np.float32
+    return np.float64
+
+
+def _vsfx(vdt):
+    return {np.complex128: "z", np.float32: "s", np.float64: "d"}[vdt]
+
+
+def _vptr(a):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _cast(vdt, *vals):
+    return [np.ascontiguousarray(np.asarray(v), dtype=vdt) for v in vals]
+
+
+def _spgemm_raw(m, Ap, Ai, Ax, nB, Bp, Bi, Bx, vdt, env):
+    """Both Gustavson passes, canonical emit; the index arrays are
+    contiguous in the env's index dtype."""
+    lib = load().lib
+    idt, sfx, ptr = env
+    Cp = np.empty(nB + 1, dtype=idt)  # pass 1 writes every entry
+    nnz = getattr(lib, "csc_spgemm_size" + sfx)(
+        m, ptr(Ap), ptr(Ai), nB, ptr(Bp), ptr(Bi), ptr(Cp))
+    if nnz < 0:  # int32 overflow in the symbolic pass: redo in int64
+        return _spgemm_raw(m, _as_i64(Ap), _as_i64(Ai), Ax, nB, _as_i64(Bp),
+                           _as_i64(Bi), Bx, vdt, _ENV64)
+    Ci = np.empty(max(nnz, 1), dtype=idt)
+    Cx = np.empty(max(nnz, 1), dtype=vdt)
+    getattr(lib, f"csc_spgemm_numeric_{_vsfx(vdt)}{sfx}")(
+        m, ptr(Ap), ptr(Ai), _vptr(Ax), nB, ptr(Bp), ptr(Bi), _vptr(Bx),
+        ptr(Cp), ptr(Ci), _vptr(Cx), 1)
+    return Cp, Ci[:nnz], Cx[:nnz]
+
+
+def csc_spgemm(m, Ap, Ai, Ax, nB, Bp, Bi, Bx):
+    """C = A @ B for CSC operands (A has m rows, B has nB columns); returns
+    canonical (indptr, indices, data).  Direct Gustavson, both passes
+    balanced across threads by operation count, columns sorted on emit."""
+    env = _index_env(Ap, Ai, Bp, Bi)
+    Ap, Ai, Bp, Bi = (np.ascontiguousarray(a, dtype=env[0])
+                      for a in (Ap, Ai, Bp, Bi))
+    vdt = _host_vdt(np.iscomplexobj(Ax) or np.iscomplexobj(Bx), Ax, Bx)
+    Ax, Bx = _cast(vdt, Ax, Bx)
+    return _spgemm_raw(m, Ap, Ai, Ax, nB, Bp, Bi, Bx, vdt, env)
+
+
+def csc_axpby(n, Ap, Ai, Ax, alpha, Bp, Bi, Bx, beta, res_dt=None):
+    """C = alpha*A + beta*B for canonical CSC operands of n columns;
+    returns canonical (indptr, indices, data).  ``res_dt`` is the caller's
+    result dtype: float32 operands under a float64 result (numpy promotion
+    with the scalars) are summed in float64, not rounded in float32."""
+    env = _index_env(Ap, Ai, Bp, Bi)
+    cap = len(Ai) + len(Bi)
+    if env[1] == "32" and cap > np.iinfo(np.int32).max:
+        env = _ENV64
+    idt, sfx, ptr = env
+    Ap, Ai, Bp, Bi = (np.ascontiguousarray(a, dtype=idt)
+                      for a in (Ap, Ai, Bp, Bi))
+    cx = any(np.iscomplexobj(v) for v in (Ax, Bx, alpha, beta))
+    if res_dt is not None and not cx:
+        vdt = np.float32 if np.dtype(res_dt) == np.float32 else np.float64
+    else:
+        vdt = _host_vdt(cx, Ax, Bx)
+    Ax, Bx = _cast(vdt, Ax, Bx)
+    cap = max(cap, 1)
+    Cp = np.zeros(n + 1, dtype=idt)
+    Ci = np.empty(cap, dtype=idt)
+    Cx = np.empty(cap, dtype=vdt)
+    if cx:
+        al, be = complex(alpha), complex(beta)
+        al, be = (al.real, al.imag), (be.real, be.imag)
+    else:
+        al, be = (float(alpha),), (float(beta),)
+    nnz = getattr(load().lib, f"csc_axpby_{_vsfx(vdt)}{sfx}")(
+        n, ptr(Ap), ptr(Ai), _vptr(Ax), *al, ptr(Bp), ptr(Bi), _vptr(Bx),
+        *be, ptr(Cp), ptr(Ci), _vptr(Cx))
+    return Cp, Ci[:nnz], Cx[:nnz]
+
+
+def csc_gram_cached(m, k, Ap, Ai, Ax, take=True):
+    """C = A @ A.T for A (m x k) CSC: one fused kernel, lower-half Gustavson
+    and a sorted mirror (the output is symmetric, for complex values too:
+    no conjugation).  Returns canonical (Cp, Ci, Cx, sym); ``sym`` is the
+    symbolic state (pattern of A^T, output pattern, upper counts) that
+    ``csc_gram_revalue`` takes for new values on the same pattern, or None
+    when ``take`` is False."""
+    lib = load().lib
+    idt, sfx, ptr = _index_env(Ap, Ai)
+    Ap = np.ascontiguousarray(Ap, dtype=idt)
+    Ai = np.ascontiguousarray(Ai, dtype=idt)
+    vdt = _host_vdt(np.iscomplexobj(Ax), Ax)
+    Ax, = _cast(vdt, Ax)
+    Cp = np.empty(m + 1, dtype=idt)
+    nnz = getattr(lib, "csc_gram_size" + sfx)(m, k, ptr(Ap), ptr(Ai), ptr(Cp))
+    if nnz < 0:
+        raise OverflowError("gram output nnz exceeds the index dtype; use "
+                            "int64 indices")
+    sym = None
+    if take:
+        annz = int(Ap[k])
+        Tp = np.empty(m + 1, dtype=np.int64)
+        Ti, Tpos = (np.empty(max(annz, 1), dtype=np.int64) for _ in range(2))
+        up_cnt = np.empty(max(m, 1), dtype=np.int64)
+        got = lib.csc_gram_symbolic_take(_ptr(Tp), _ptr(Ti), _ptr(Tpos),
+                                         _ptr(up_cnt))
+        if got != annz:
+            raise RuntimeError("gram symbolic context unavailable")
+    Ci = np.empty(max(nnz, 1), dtype=idt)
+    Cx = np.empty(max(nnz, 1), dtype=vdt)
+    ok = getattr(lib, f"csc_gram_numeric_{_vsfx(vdt)}{sfx}")(
+        m, k, ptr(Ap), ptr(Ai), _vptr(Ax), ptr(Cp), ptr(Ci), _vptr(Cx))
+    if not ok:
+        raise RuntimeError("gram numeric pass lost its symbolic context")
+    if take:
+        sym = {"Tp": Tp, "Ti": Ti, "Tpos": Tpos, "up_cnt": up_cnt, "Cp": Cp,
+               "Ci": Ci, "nnz": int(nnz), "m": int(m), "k": int(k),
+               "annz": annz, "env": (idt, sfx), "vdt": vdt}
+    return Cp, Ci[:nnz], Cx[:nnz], sym
+
+
+def csc_gram(m, k, Ap, Ai, Ax):
+    """``csc_gram_cached`` without the symbolic state: (Cp, Ci, Cx)."""
+    return csc_gram_cached(m, k, Ap, Ai, Ax, take=False)[:3]
+
+
+def csc_gram_revalue(Ap, Ai, Ax, sym):
+    """The numeric pass of gram alone over a cached symbolic state
+    (``csc_gram_cached``): accumulate, gather, mirror; no pattern
+    discovery and no sort.  Returns the new Cx; the pattern is in ``sym``."""
+    idt, sfx = sym["env"]
+    Ap = np.ascontiguousarray(Ap, dtype=idt)
+    Ai = np.ascontiguousarray(Ai, dtype=idt)
+    vdt = _host_vdt(np.iscomplexobj(Ax), Ax)
+    if vdt != sym["vdt"]:
+        raise ValueError("value dtype changed since the symbolic pass")
+    if int(Ap[sym["k"]]) != sym["annz"]:
+        raise ValueError("pattern changed since the symbolic pass")
+    Ax, = _cast(vdt, Ax)
+    Cx = np.empty(max(sym["nnz"], 1), dtype=vdt)
+    ptr = _index_env(Ap, Ai)[2]
+    getattr(load().lib, f"csc_gram_revalue_{_vsfx(vdt)}{sfx}")(
+        sym["m"], ptr(Ap), ptr(Ai), _vptr(Ax), _ptr(sym["Tp"]),
+        _ptr(sym["Ti"]), _ptr(sym["Tpos"]), _ptr(sym["up_cnt"]),
+        ptr(sym["Cp"]), ptr(sym["Ci"]), _vptr(Cx))
+    return Cx
+
+
+def csc_transpose(m, n, Ap, Ai, Ax):
+    """A^T of an (m x n) CSC by count and scatter, O(nnz); returns the
+    canonical CSC arrays of the (n x m) transpose."""
+    idt, sfx, ptr = _index_env(Ap, Ai)
+    Ap = np.ascontiguousarray(Ap, dtype=idt)
+    Ai = np.ascontiguousarray(Ai, dtype=idt)
+    vdt = _host_vdt(np.iscomplexobj(Ax), Ax)
+    Ax, = _cast(vdt, Ax)
+    nz = len(Ai)
+    Tp = np.zeros(m + 1, dtype=idt)
+    Ti = np.empty(max(nz, 1), dtype=idt)
+    Tx = np.empty(max(nz, 1), dtype=vdt)
+    getattr(load().lib, f"csc_transpose_{_vsfx(vdt)}{sfx}")(
+        m, n, ptr(Ap), ptr(Ai), _vptr(Ax), ptr(Tp), ptr(Ti), _vptr(Tx))
+    return Tp, Ti[:nz], Tx[:nz]

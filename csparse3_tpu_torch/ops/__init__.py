@@ -1,3 +1,12 @@
-"""Construction, conversion, slicing and SpMV."""
+"""Construction, conversion, slicing, arithmetic, SpMV / SpMM, SpGEMM and
+the BSR block operations."""
 
-from . import construct, matvec, slicing  # noqa: F401
+from . import (  # noqa: F401
+    arithmetic,
+    bsr_ops,
+    construct,
+    matvec,
+    slicing,
+    spgemm,
+    spgemm_device,
+)

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..config import get_config
-from ..types import COO, CSC, CSR, DIA
+from ..types import BSR, COO, CSC, CSR, DIA
 
 __all__ = [
     "expand_indptr_np",
@@ -27,6 +27,8 @@ __all__ = [
     "canonicalize",
     "csc_to_dia",
     "dia_to_csc",
+    "csc_to_bsr",
+    "bsr_to_dense",
     "csc_to_dense",
     "coo_to_dense",
     "to_scipy",
@@ -133,10 +135,19 @@ def csr_to_csc(a: CSR) -> CSC:
 
 
 def transpose(a: CSC) -> CSC:
-    """A^T: one stable sort of the entries by old row.  (The JAX package
-    routes float values through the native count-scatter transpose; its
-    output is the same canonical CSC.)"""
+    """A^T.  Float and complex values go through the native count-and-
+    scatter transpose, the others through one stable sort of the entries by
+    old row; both give the same CSC."""
     ip, old_rows, vals = a.np_arrays()
+    if np.issubdtype(vals.dtype, np.inexact):
+        from ..native import host_ext
+
+        idx = np.dtype(get_config().index_dtype)
+        Tp, Ti, Tx = host_ext.csc_transpose(a.m, a.n, ip, old_rows, vals)
+        return CSC(a.n, a.m, Tp.astype(idx, copy=False),
+                   Ti.astype(idx, copy=False),
+                   Tx.astype(vals.dtype, copy=False), canonical=a.canonical,
+                   device=a._device)
     old_cols = expand_indptr_np(ip)
     indptr, r_s, v_s = _resort_np(
         a.m, old_rows.astype(np.int64), old_cols.astype(np.int64), vals,
@@ -183,6 +194,38 @@ def dia_to_csc(a: DIA) -> CSC:
     return from_triplets(
         np.concatenate(rows_l), np.concatenate(cols_l),
         np.concatenate(vals_l), (a.m, a.n), device=a._device)
+
+
+def csc_to_bsr(a: CSC, block=None) -> BSR:
+    """Pack into dense (R, C) blocks (host); ``block`` defaults to
+    ``config.bsr_block``.  Only blocks that hold an entry are stored."""
+    cfg = get_config()
+    R, C = block if block is not None else cfg.bsr_block
+    ip, rows, vals = a.np_arrays()
+    cols = expand_indptr_np(ip)
+    mb, nb = -(-a.m // R), -(-a.n // C)
+    key = (rows // R).astype(np.int64) * nb + cols // C
+    uniq = np.unique(key)
+    nblocks = uniq.shape[0]
+    data = np.zeros((max(nblocks, 1), R, C), dtype=vals.dtype)
+    np.add.at(data, (np.searchsorted(uniq, key), rows % R, cols % C), vals)
+    indptr = np.zeros(mb + 1, dtype=cfg.index_dtype)
+    indptr[1:] = np.cumsum(np.bincount(uniq // nb, minlength=mb))
+    return BSR(a.m, a.n, R, C, indptr, (uniq % nb).astype(cfg.index_dtype),
+               data, nnz_blocks=nblocks, device=a._device)
+
+
+def bsr_to_dense(a: BSR):
+    """Dense (m, n) tensor on the matrix's device: one scatter of the
+    block stack into a (mb, R, nb, C) view."""
+    mb, nb, R, C, k = a.mb, a.nb, a.R, a.C, a.nnz_blocks
+    ip, bcols, _ = a.np_arrays()
+    flat = (np.repeat(np.arange(mb, dtype=np.int64), np.diff(ip)) * nb
+            + bcols)
+    out = torch.zeros((mb * nb, R, C), dtype=a.dtype, device=a.device)
+    out.index_add_(0, torch.as_tensor(flat, device=a.device), a.data[:k])
+    return (out.view(mb, nb, R, C).permute(0, 2, 1, 3)
+            .reshape(mb * R, nb * C)[: a.m, : a.n])
 
 
 def _dense(m, n, rows, cols, data):

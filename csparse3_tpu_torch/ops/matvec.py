@@ -1,7 +1,11 @@
-"""SpMV.
+"""SpMV and SpMM.
 
 ``spmv`` is the entry-stream product y[row] += val * x[col] with
-``index_add_``.  ``SpMVPlan`` precomputes the layout once for repeated
+``index_add_``; ``spmm`` is the same for a dense (n, k) X, or, when the
+caller names a block shape, the BSR product: the matrix is packed to BSR
+once (cached on the CSC) and multiplied by ``bsr_spmm``, which on a CPU
+tensor runs the plain version of ``kernels.bsr_spmm`` and on a CUDA tensor
+launches that module's CUDA kernel, or raises.  ``SpMVPlan`` precomputes the layout once for repeated
 products with a fixed pattern (power-flow iterations), as the JAX package's
 plan does (``csparse3_tpu/ops/matvec.py``):
 
@@ -37,12 +41,13 @@ import torch
 from torch import nn
 
 from ..config import resolve_device
+from ..kernels import bsr_spmm as bsr_kernel
 from ..kernels import dia as dia_kernel
-from ..types import CSC, DIA
+from ..types import BSR, CSC, DIA
 from . import construct
 
-__all__ = ["spmv", "SpMVPlan", "SplitSpMV", "dia_spmv", "DIAPlan",
-           "SymDIAPlan", "SplitDIA", "SplitSymDIA"]
+__all__ = ["spmv", "spmm", "bsr_spmm", "SpMVPlan", "SplitSpMV", "dia_spmv",
+           "DIAPlan", "SymDIAPlan", "SplitDIA", "SplitSymDIA"]
 
 
 def _check(m, n, x):
@@ -69,6 +74,37 @@ def spmv(a: CSC, x):
     cols = torch.as_tensor(construct.expand_indptr_np(a.np_arrays()[0]),
                            dtype=torch.int64, device=x.device)
     return _stream_product(a.indices[:k].long(), cols, a.data[:k], a.m, x)
+
+
+@torch.inference_mode()
+def spmm(a: CSC, X, *, block=None, device=None):
+    """Y = A @ X for dense X of shape (n, k), on ``device`` (None: X's
+    device for a tensor; for numpy where ``a`` was placed, else the CUDA
+    card).  ``block=None`` is the entry-stream product.  ``block=(R, C)``
+    packs A to BSR blocks of that shape once, cached on ``a``, and calls
+    ``bsr_spmm``: the CUDA kernel on a card."""
+    if isinstance(X, torch.Tensor) and device is None:
+        device = X.device
+    device = resolve_device(device, a)
+    X = torch.as_tensor(X, device=device)
+    _check(a.m, a.n, X)
+    if block is None:
+        return spmv(a, X)
+    bsr = getattr(a, "_bsr_cache", None)
+    if bsr is None or (bsr.R, bsr.C) != tuple(block):
+        bsr = a.to_bsr(block=block)
+    bsr = a._bsr_cache = bsr.to(device)  # the placed one: uploaded once
+    return bsr_spmm(bsr, X)
+
+
+def bsr_spmm(a: BSR, X):
+    """Y = A @ X with A in BSR blocks, on X's device (A is placed there):
+    every stored (R, C) block meets the C rows of X of its block column,
+    and the products add up by block row.  X is (n, k) or (n,)."""
+    a = a.to(X.device)
+    k = a.nnz_blocks
+    return bsr_kernel.bsr_spmm(a.m, a.n, a.indptr, a.indices[:k],
+                               a.data[:k], X)
 
 
 class SpMVPlan(nn.Module):

@@ -27,7 +27,7 @@ import torch
 
 from .config import resolve_device
 
-__all__ = ["CSC", "CSR", "COO", "DIA"]
+__all__ = ["CSC", "CSR", "COO", "BSR", "DIA"]
 
 
 def _host_cache(*arrays):
@@ -137,6 +137,11 @@ class CSC(_SparseBase):
 
         return construct.csc_to_coo(self)
 
+    def to_bsr(self, block=None) -> "BSR":
+        from .ops import construct
+
+        return construct.csc_to_bsr(self, block=block)
+
     def t(self) -> "CSC":
         from .ops import construct
 
@@ -145,6 +150,54 @@ class CSC(_SparseBase):
     @property
     def T(self) -> "CSC":
         return self.t()
+
+    # -- operators, as the JAX package's CSC has them ----------------------
+    def __add__(self, other):
+        from .ops import arithmetic
+
+        return arithmetic.add(self, other)
+
+    def __sub__(self, other):
+        from .ops import arithmetic
+
+        return arithmetic.sub(self, other)
+
+    def __neg__(self):
+        from .ops import arithmetic
+
+        return arithmetic.scale(self, -1)
+
+    def __mul__(self, other):
+        """CSC * CSC is SpGEMM, CSC * vector SpMV, CSC * dense SpMM, CSC *
+        scalar a scaling.  A numpy operand is placed on the matrix's
+        device."""
+        from .ops import arithmetic, matvec, spgemm
+
+        if isinstance(other, CSC):
+            return spgemm.spgemm(self, other)
+        if np.ndim(other) == 0:
+            return arithmetic.scale(self, other)
+        if not isinstance(other, torch.Tensor):
+            other = torch.as_tensor(np.asarray(other), device=self.device)
+        if other.ndim == 1:
+            return matvec.spmv(self, other)
+        return matvec.spmm(self, other)
+
+    def __rmul__(self, other):
+        from .ops import arithmetic
+
+        if np.ndim(other) == 0:
+            return arithmetic.scale(self, other)
+        return NotImplemented
+
+    def __matmul__(self, other):
+        return self.__mul__(other)
+
+    def dot(self, other):
+        """General SpGEMM C = A @ B."""
+        from .ops import spgemm
+
+        return spgemm.spgemm(self, other)
 
     def to_scipy(self):
         import scipy.sparse as sp
@@ -249,6 +302,186 @@ class COO(_SparseBase):
     def from_scipy(cls, a, device=None) -> "COO":
         a = a.tocoo()
         return cls(a.shape[0], a.shape[1], a.row, a.col, a.data,
+                   device=device)
+
+
+class BSR:
+    """Block sparse row matrix of dense (R, C) blocks: ``data`` is
+    (nblocks, R, C), ``indptr`` (mb + 1) and ``indices`` (block columns)
+    the block-CSR pattern, mb = ceil(m / R) block rows, nb = ceil(n / C)
+    block columns; the logical matrix is zero-padded up to (mb*R, nb*C).
+    The block pattern is host work (``np_arrays``), the block values are
+    the device tensor ``data``."""
+
+    def __init__(self, m, n, R, C, indptr, indices, data, nnz_blocks=None,
+                 device=None):
+        self.m, self.n, self.R, self.C = int(m), int(n), int(R), int(C)
+        self._arrays = [indptr, indices, data]
+        # per-array host copies: an operation's result has a host pattern
+        # and device values
+        self._host = [a if isinstance(a, np.ndarray) else None
+                      for a in self._arrays]
+        self.nnz_blocks = (int(nnz_blocks) if nnz_blocks is not None
+                           else int(np.shape(indices)[0]))
+        if device is None:
+            device = next((a.device for a in self._arrays
+                           if isinstance(a, torch.Tensor)), None)
+        self._device = None if device is None else torch.device(device)
+
+    device = _SparseBase.device
+    _field = _SparseBase._field
+    dtype = _SparseBase.dtype
+    indptr = property(lambda self: self._field(0))
+    indices = property(lambda self: self._field(1))
+    data = property(lambda self: self._field(2))
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.m, self.n)
+
+    @property
+    def mb(self) -> int:
+        return -(-self.m // self.R)
+
+    @property
+    def nb(self) -> int:
+        return -(-self.n // self.C)
+
+    @property
+    def nnz(self) -> int:
+        """Stored count: every entry of every stored block."""
+        return self.nnz_blocks * self.R * self.C
+
+    def np_arrays(self):
+        """Host (indptr, indices, data), the last two trimmed to
+        ``nnz_blocks``; no device round trip for what was built on the
+        host."""
+        k = self.nnz_blocks
+        ip, ix, dt = (h if h is not None else self._field(i).cpu().numpy()
+                      for i, h in enumerate(self._host))
+        return ip, ix[:k], dt[:k]
+
+    def _raw(self):
+        """The three arrays as given: host copies where there are any."""
+        return [a if h is None else h
+                for a, h in zip(self._arrays, self._host)]
+
+    def to(self, device) -> "BSR":
+        """This container when it was placed on ``device`` already (the
+        block values are not uploaded again), else a copy placed there."""
+        d = torch.device(device)
+        mine = self._device
+        if mine is not None and mine.type == d.type and (
+                mine.index == d.index or None in (mine.index, d.index)):
+            return self
+        return BSR(self.m, self.n, self.R, self.C, *self._raw(),
+                   nnz_blocks=self.nnz_blocks, device=device)
+
+    def __repr__(self):
+        where = "default" if self._device is None else self._device
+        return (f"BSR(m={self.m}, n={self.n}, block={self.R}x{self.C}, "
+                f"nnz_blocks={self.nnz_blocks}, dtype={self.dtype}, "
+                f"device={where})")
+
+    def todense(self):
+        from .ops import construct
+
+        return construct.bsr_to_dense(self)
+
+    def to_csc(self) -> CSC:
+        """Expand the blocks to entries (host); zeros inside the blocks are
+        dropped."""
+        from .ops import construct
+
+        ip, bcols, dat = self.np_arrays()
+        brows = np.repeat(np.arange(self.mb, dtype=np.int64), np.diff(ip))
+        R, C = self.R, self.C
+        shape3 = (len(brows), R, C)
+        rr = np.broadcast_to(
+            brows[:, None, None] * R + np.arange(R)[None, :, None],
+            shape3).ravel()
+        cc = np.broadcast_to(
+            bcols[:, None, None].astype(np.int64) * C
+            + np.arange(C)[None, None, :], shape3).ravel()
+        vv = dat.ravel()
+        keep = (vv != 0) & (rr < self.m) & (cc < self.n)
+        return construct.from_triplets(rr[keep], cc[keep], vv[keep],
+                                       (self.m, self.n), device=self._device)
+
+    def t(self) -> "BSR":
+        from .ops import bsr_ops
+
+        return bsr_ops.bsr_transpose(self)
+
+    @property
+    def T(self) -> "BSR":
+        return self.t()
+
+    # block operations on BSR operands of one block shape; mixed operands
+    # go through CSC
+    def _same_block(self, other) -> bool:
+        return isinstance(other, BSR) and (self.R, self.C) == (other.R,
+                                                              other.C)
+
+    def __add__(self, other):
+        from .ops import bsr_ops
+
+        if self._same_block(other):
+            return bsr_ops.bsr_add(self, other)
+        other = other.to_csc() if isinstance(other, BSR) else other
+        return (self.to_csc() + other).to_bsr(block=(self.R, self.C))
+
+    def __sub__(self, other):
+        from .ops import bsr_ops
+
+        if self._same_block(other):
+            return bsr_ops.bsr_add(self, other, beta=-1.0)
+        other = other.to_csc() if isinstance(other, BSR) else other
+        return (self.to_csc() - other).to_bsr(block=(self.R, self.C))
+
+    def __neg__(self):
+        ip, ix, _ = self._raw()
+        return BSR(self.m, self.n, self.R, self.C, ip, ix, -self.data,
+                   nnz_blocks=self.nnz_blocks, device=self._device)
+
+    def multiply(self, other) -> "BSR":
+        """Elementwise product over the union block pattern."""
+        from .ops import bsr_ops
+
+        return bsr_ops.bsr_binop(self, other, torch.multiply)
+
+    def __matmul__(self, other):
+        """BSR @ BSR is the block product (``bsr_ops.bsr_matmat``, through
+        CSC when the inner block sizes differ); BSR @ dense is
+        ``matvec.bsr_spmm``: the CUDA kernel for a tensor on the card."""
+        if isinstance(other, BSR):
+            if self.C == other.R:
+                from .ops import bsr_ops
+
+                return bsr_ops.bsr_matmat(self, other)
+            return (self.to_csc() @ other.to_csc()).to_bsr(
+                block=(self.R, other.C))
+        from .ops import matvec
+
+        if not isinstance(other, torch.Tensor):
+            other = torch.as_tensor(np.asarray(other), device=self.device)
+        return matvec.bsr_spmm(self, other)
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        ip, ix, dt = self.np_arrays()
+        a = sp.bsr_matrix((dt, ix, ip),
+                          shape=(self.mb * self.R, self.nb * self.C))
+        if self.m % self.R or self.n % self.C:
+            a = a[: self.m, : self.n].tobsr(blocksize=(self.R, self.C))
+        return a
+
+    @classmethod
+    def from_scipy(cls, a, device=None) -> "BSR":
+        a = a.tobsr()
+        R, C = a.blocksize
+        return cls(a.shape[0], a.shape[1], R, C, a.indptr, a.indices, a.data,
                    device=device)
 
 

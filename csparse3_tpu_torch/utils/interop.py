@@ -1,8 +1,9 @@
 """Carrying state between the JAX package and the port.
 
 This library has no weights: its state is the matrices and the grids.
-Both helpers take plain numpy arrays (what the JAX package's
-``CSC.np_arrays()`` and ``Grid._asdict()`` give), so a caller can hand the
+The helpers take plain numpy arrays (what the JAX package's
+``CSC.np_arrays()``, the fields of its ``BSR`` and ``Grid._asdict()``
+give), so a caller can hand the
 same state to both packages without either importing the other.
 """
 
@@ -11,9 +12,10 @@ from __future__ import annotations
 import numpy as np
 
 from ..models.grids import Grid
-from ..types import CSC, DIA
+from ..types import BSR, CSC, DIA
 
-__all__ = ["csc_from_arrays", "dia_from_arrays", "grid_from_arrays"]
+__all__ = ["csc_from_arrays", "bsr_from_arrays", "dia_from_arrays",
+           "grid_from_arrays"]
 
 
 def csc_from_arrays(m, n, indptr, indices, data, device=None) -> CSC:
@@ -22,6 +24,16 @@ def csc_from_arrays(m, n, indptr, indices, data, device=None) -> CSC:
     first read); the arrays stay as its host cache."""
     return CSC(m, n, np.asarray(indptr), np.asarray(indices),
                np.asarray(data), device=device)
+
+
+def bsr_from_arrays(m, n, indptr, indices, data, nnz_blocks=None,
+                    device=None) -> BSR:
+    """BSR from host (indptr, indices, data (nblocks, R, C)) arrays, placed
+    like ``csc_from_arrays``; the block shape is read off ``data``."""
+    data = np.asarray(data)
+    return BSR(m, n, data.shape[1], data.shape[2], np.asarray(indptr),
+               np.asarray(indices), data, nnz_blocks=nnz_blocks,
+               device=device)
 
 
 def dia_from_arrays(m, n, offsets, data, device=None) -> DIA:
