@@ -23,10 +23,15 @@ seconds):
            profiler times of both versions, and of the one library call for
            the same function (torch.sparse CSR complex64 @ x).
 5. dia:    the DIA SpMV on the RCM-ordered 200k-bus Ybus (D = 1885
-           diagonals), float32: ``SplitDIA`` and ``SplitSymDIA`` against
-           their plain versions and scipy complex128, row by row within the
-           rounding bound of the sums; times, bytes per call, shares of the
-           published and of the measured memory rate, and the library call.
+           diagonals), float32: ``SplitDIA`` and ``SplitSymDIA``, whose two
+           real slab sets share an occupancy index and go through the
+           split-complex run kernel in one launch, against the dense plain
+           version, the plain walk of the index and scipy complex128, row
+           by row within the rounding bound of the sums, bit-equal on a
+           second call and to one launch per slab set; the dense kernel on
+           the raw slabs held to the same bound; the index's size and share;
+           times, the bytes each route must move, shares of the published
+           and of the measured memory rate, and the library call.
 6. newton: NewtonPowerFlow(synthetic_grid(10_000, seed=3), spmv='bandpoints',
            solver='level', tol=5e-5) on the card from flat start: it must
            converge, its state must give a host float64 scipy mismatch
@@ -43,11 +48,13 @@ seconds):
            FastDecoupled(spmv='symdia') and ('dia') must converge to 1e-8
            and agree with that Newton state; dc_power_flow must match scipy
            spsolve on the host.  Prints the dense tails ``solve_plan``
-           chose.  Then the DIA kernel alone at the shape these solves
-           launch it (float64, one slab set, stacked (2, n) input), general
-           and symmetric form: against its plain version and scipy float64
-           row by row within the rounding bound, with its times, the plain
-           version's and the library call's.
+           chose.  Then the DIA run kernels alone at the shape these solves
+           launch them (float64; one slab set with the stacked (2, n)
+           input, and both sets in the split-complex launch the solves
+           make), general and symmetric form: against both plain versions
+           and scipy row by row within the rounding bound, with their
+           times, the dense kernel's on the raw slabs, the plain versions'
+           and the library call's.
 8. ieee14: phase 6 on ieee14().
 9. spgemm: the sparse-product path on three matrices: C = Cf - Ct of
            synthetic_grid(3000, seed=1) (the GridCal flow), the random
@@ -66,9 +73,12 @@ seconds):
            blocks (6 per block row) with X (16384, 1024), and
            ``spmm(B, X, block=(8, 128))`` for B = imag(Ybus) of the 200k-bus
            grid in float32 with X (200000, 1024); the BSR SpMM kernel
-           against its plain version and scipy float64 row by row within
-           the rounding bound, k = 1 and k = 130 and empty block rows at a
-           small shape, ``BSRMatMatPlan(A, A).numeric`` against scipy's
+           through the containers' column lists (the occupied columns of
+           each block) and without them, against the plain version, the
+           plain walk of the lists and scipy float64 row by row within
+           the rounding bound, bit-equal on a second launch, k = 1 and
+           k = 130 and empty block rows at a small shape,
+           ``BSRMatMatPlan(A, A).numeric`` against scipy's
            ``A @ A``; times of kernel, plain version, the library call
            (torch.sparse BSR ``@ X``) and the entry-stream ``spmm``.
 
@@ -77,6 +87,7 @@ Prints one JSON line of kernel records, the nvidia-smi line, and last
 """
 
 import copy
+import functools
 import json
 import subprocess
 import sys
@@ -147,7 +158,8 @@ def queued_ms(fn, reps):
 
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
-    torch.cuda._sleep(int(40e6))  # ~20 ms: the host gets ahead meanwhile
+    # ~20 ms, or 0.25 ms for every call: the host gets ahead meanwhile
+    torch.cuda._sleep(int(max(40e6, reps * 5e5)))
     start.record()
     for _ in range(reps):
         fn()
@@ -241,6 +253,18 @@ def bound_record(nbytes, flops, flop_rate=F32_FLOP_PER_S):
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return dict(bound_ms=max(tb, tf),
                 bound_by="bytes" if tb >= tf else "operations")
+
+
+def run_route_bytes(plan, *io):
+    """What the run kernel must move for one product of the split-complex
+    banded ``plan``: the packed values of each slab set's listed runs, the
+    shared index once, and each tensor of ``io`` once.  Returns (bytes,
+    listed runs over both sets, index bytes)."""
+    from csparse3_tpu_torch.utils.roofline import plan_bytes
+
+    listed = sum(t.numel() for p in (plan.re, plan.im) for t in p.runs[1::2])
+    index = sum(t.numel() * t.element_size() for t in plan.re.runs)
+    return plan_bytes(plan, *io), listed, index
 
 
 def library_spmv_ms(Y, xr_t, xi_t, yk, reps=50):
@@ -430,7 +454,7 @@ def dia_phase(dev, bw):
     from csparse3_tpu_torch.kernels import dia as kdia
     from csparse3_tpu_torch.linalg.ordering import rcm
     from csparse3_tpu_torch.models.grids import synthetic_grid, ybus
-    from csparse3_tpu_torch.utils.roofline import pct_roofline, plan_bytes
+    from csparse3_tpu_torch.utils.roofline import pct_roofline
 
     t0 = time.perf_counter()
     Y0, _, _ = ybus(synthetic_grid(N_KERNEL, seed=0))
@@ -467,63 +491,149 @@ def dia_phase(dev, bw):
         t1 = time.perf_counter()
         plan = make()
         t_build = time.perf_counter() - t1
-        kdia.LAUNCHES["dia_spmv"] = 0
+        parts = (plan.re, plan.im)
+        sym = plan.re.symmetric
+        if not plan.shared_runs:
+            raise AssertionError(f"{label}: the plan's slab sets share no "
+                                 f"occupancy index (run shares "
+                                 f"{[p.run_share for p in parts]})")
+        for key in kdia.LAUNCHES:
+            kdia.LAUNCHES[key] = 0
         yk = torch.stack(plan(xr_t, xi_t))
         torch.cuda.synchronize()
-        if kdia.LAUNCHES["dia_spmv"] != 2:
-            raise AssertionError(f"{label}: {kdia.LAUNCHES['dia_spmv']} "
-                                 "launches for 2 slab sets")
+        if kdia.LAUNCHES != {"dia_spmv": 1, "dia_spmv_runs": 1,
+                             "dia_spmv_split": 1}:
+            raise AssertionError(f"{label}: launches {kdia.LAUNCHES}, not one "
+                                 "walk of the shared index over 2 slab sets")
+        # the plain versions: the walk of the same index, and the dense loop
         yp = torch.stack(plan.plain(xr_t, xi_t))
+        yd = torch.stack(kdia.split_complex_apply(
+            *(functools.partial(kdia.dia_spmv_plain, p.slabs, omin=p.omin,
+                                symmetric=sym) for p in parts), xr_t, xi_t))
+        # and the dense kernel on the raw slabs, as a caller without an
+        # index launches it
+        x2 = torch.stack([xr_t, xi_t])
+        xn2 = torch.stack([xr_t, xi_t], dim=1)
+        re, im = parts
+
+        def dense_kernel():
+            return [kdia.dia_spmv_cuda(p.slabs, x2, p.omin, sym)
+                    for p in parts]
+
+        vals = (re.run_values, im.run_values)
+
+        def run_kernel():  # the launch the plan makes
+            return kdia.dia_split_cuda(re.slabs, im.slabs, xn2, re.omin, sym,
+                                       re.runs, vals)
+
+        def scattered():  # the same walk, reading the runs from the slabs
+            return kdia.dia_split_cuda(re.slabs, im.slabs, xn2, re.omin, sym,
+                                       re.runs)
+
+        def two_launches():  # the same index, one launch per slab set
+            return [kdia.dia_spmv_cuda(p.slabs, x2, p.omin, sym, p.runs,
+                                       p.run_values) for p in parts]
+
+        r2, i2 = dense_kernel()
+        yraw = torch.stack([r2[0] - i2[1], r2[1] + i2[0]])
         torch.cuda.synchronize()
-        if kdia.LAUNCHES["dia_spmv"] != 2:
-            raise AssertionError(f"{label}: the plain version launched")
-        scale = float(yp.abs().max())
-        d_plain = (yk - yp).abs().double()
+        if kdia.LAUNCHES != {"dia_spmv": 3, "dia_spmv_runs": 1,
+                             "dia_spmv_split": 1}:
+            raise AssertionError(f"{label}: a plain version launched, or the "
+                                 f"dense kernel did not ({kdia.LAUNCHES})")
+        r2, i2 = two_launches()
+        ytwo = torch.stack([r2[0] - i2[1], r2[1] + i2[0]])
+        # and the split-complex kernel without the packed run values: the
+        # same walk with scattered reads of the slabs, the same bits
+        yscat = kdia.dia_split_cuda(re.slabs, im.slabs, xn2, re.omin, sym,
+                                    re.runs)
+        if not torch.equal(yscat, yk):
+            raise AssertionError(f"{label}: the launch on packed run values "
+                                 "and the launch on the slabs differ")
+        scale = float(yd.abs().max())
+        ratios = {}
+        for name, got, want in (("vs_dense_plain", yk, yd),
+                                ("vs_runs_plain", yk, yp),
+                                ("vs_one_launch_per_slab_set", yk, ytwo),
+                                ("dense_kernel_vs_dense_plain", yraw, yd)):
+            ratios[name] = float(
+                ((got - want).abs().double() / (2 * bound_t)).max())
         d_scipy = (yk.double() - torch.as_tensor(z2, device=dev)).abs()
-        r_plain = float((d_plain / (2 * bound_t)).max())
-        r_scipy = float((d_scipy / bound_t).max())
-        abs_plain = float(d_plain.max())
+        ratios["vs_scipy_c128"] = float((d_scipy / bound_t).max())
+        abs_plain = float((yk - yd).abs().max())
+        again = torch.stack(plan(xr_t, xi_t))
+        nbytes, listed, index_bytes = run_route_bytes(plan, xn2, yk)
+        dense_bytes = sum(p.slabs.numel() * p.slabs.element_size()
+                          for p in parts) + 3 * yk.numel() * yk.element_size()
         log(f"{label}: diagonals_per_slab_set={plan.re.ndiag} "
-            f"plan_build_s={t_build:.1f} max_abs_err_vs_plain={abs_plain:.3e} "
-            f"(rel to max|y| {abs_plain / scale:.3e}) "
-            f"worst_row_err_over_bound: vs_plain={r_plain:.4f} "
-            f"vs_scipy_c128={r_scipy:.4f} (bound: (kmax+2) u |A||x| per row, "
-            f"twice that between two float32 versions; must be <= 1) "
-            f"max_row_bound={bound.max():.3e}")
-        if not (r_plain <= 1 and r_scipy <= 1):
+            f"plan_build_s={t_build:.1f} (slabs, index and upload) "
+            f"occupancy index: rows_per_group={kdia.RUN_ROWS} listed_runs="
+            f"{listed} (both slab sets, one shared index) share_of_all_runs="
+            f"{re.run_share:.5f} index_bytes="
+            f"{index_bytes} max_abs_err_vs_dense_plain={abs_plain:.3e} (rel "
+            f"to max|y| {abs_plain / scale:.3e}) worst_row_err_over_bound: "
+            + " ".join(f"{k}={v:.4f}" for k, v in ratios.items())
+            + f" (bound: (kmax+2) u |A||x| per row, twice that between two "
+            f"float32 versions; must be <= 1) max_row_bound="
+            f"{bound.max():.3e} bit_equal_on_repeat={torch.equal(again, yk)}")
+        if not all(v <= 1 for v in ratios.values()):
             raise AssertionError(f"{label}: kernel disagrees")
+        if not torch.equal(again, yk):
+            raise AssertionError(f"{label}: two launches differ")
         for _ in range(5):
             plan(xr_t, xi_t)
-        # plain, kernel, kernel, plain: one card, one call
-        t = [cuda_ms(lambda: plan.plain(xr_t, xi_t), 2),
-             cuda_ms(lambda: plan(xr_t, xi_t), 20),
-             cuda_ms(lambda: plan(xr_t, xi_t), 20),
-             cuda_ms(lambda: plan.plain(xr_t, xi_t), 2)]
-        _, kbusy, klaunch, kby = device_profile(lambda: plan(xr_t, xi_t), 10)
-        ms, kcount = kernel_ms(kby, "dia_spmv_kernel", 2)
-        _, pbusy, plaunch, _ = device_profile(
-            lambda: plan.plain(xr_t, xi_t), 2)
-        plain_ms = pbusy / 2 * 1e3
-        # both slab sets and x (read by each launch's two rows once), y
-        nbytes = plan_bytes(plan, xr_t, xi_t, yk)
-        flops = 2 * 2 * 2 * plan.re.slabs.numel() * (
-            2 if label == "symdia" else 1)
+        # plain, kernel, kernel, plain: one card, one call; the kernel's
+        # launch alone, then the whole wrapper call (the stack of x and the
+        # launch), one launch per slab set on the same index, then the dense
+        # kernel and the dense plain version
+        t = [queued_ms(lambda: plan.plain(xr_t, xi_t), 5),
+             queued_ms(run_kernel, 200), queued_ms(run_kernel, 200),
+             queued_ms(lambda: plan.plain(xr_t, xi_t), 5)]
+        ms, plain_ms = min(t[1], t[2]), min(t[0], t[3])
+        call_ms = queued_ms(lambda: plan(xr_t, xi_t), 200)
+        wall = wall_ms(lambda: plan(xr_t, xi_t), 200)
+        two_ms = queued_ms(two_launches, 200)
+        scat_ms = queued_ms(scattered, 200)
+        dense_ms = queued_ms(dense_kernel, 10)
+        dense_plain_ms = queued_ms(lambda: kdia.split_complex_apply(
+            *(functools.partial(kdia.dia_spmv_plain, p.slabs, omin=p.omin,
+                                symmetric=sym) for p in parts), xr_t, xi_t), 2)
+        note = profiler_note(run_kernel, 20, "dia_runs_split_kernel")
+        # operations: one multiply-add per stored nonzero and input row (the
+        # mirror doubles the strict upper triangle's)
+        nnz = sum(int(p.slabs.count_nonzero()) * 2 - int(
+            p.slabs[0].count_nonzero()) if sym else int(
+                p.slabs.count_nonzero()) for p in parts)
         rec = dict(abs_err=abs_plain, ms=ms, plain_ms=plain_ms,
-                   **bound_record(nbytes, flops))
-        log(f"{label}: wrapper_ms_per_call={min(t[1], t[2]):.6f} "
-            f"plain_ms_per_call={min(t[0], t[3]):.6f} (cuda events, host "
-            f"overhead included; runs plain,kernel,kernel,plain = {t}) "
-            f"kernel_device_ms_per_call={ms:.6f} ({kcount / 10:.0f} launches) "
-            f"wrapper_device_ms_per_call={kbusy / 10 * 1e3:.6f} "
-            f"({klaunch / 10:.0f} kernels) plain_device_ms_per_call="
-            f"{plain_ms:.6f} ({plaunch / 2:.0f} kernels) (torch.profiler) "
-            f"bytes_per_call={nbytes} bound_ms={rec['bound_ms']:.6f} "
-            f"({rec['bound_by']}) share_of_published_peak="
+                   wrapper_call_ms=call_ms, two_launches_ms=two_ms,
+                   scattered_reads_ms=scat_ms,
+                   dense_kernel_ms=dense_ms,
+                   dense_plain_ms=dense_plain_ms, listed_runs=listed,
+                   index_bytes=index_bytes, bytes=nbytes,
+                   dense_bound_ms=dense_bytes / HBM_BYTES_PER_S * 1e3,
+                   **bound_record(nbytes, 2 * 2 * nnz))
+        log(f"{label}: run_kernel_device_ms_per_call={ms:.6f} (1 launch over "
+            f"both slab sets) runs_plain_device_ms_per_call={plain_ms:.6f} "
+            f"(cuda events around calls queued behind a spin kernel; runs "
+            f"plain,kernel,kernel,plain = {t}) wrapper_device_ms_per_call="
+            f"{call_ms:.6f} wrapper_wall_ms_per_call={wall:.6f} one_launch_"
+            f"per_slab_set_device_ms_per_call={two_ms:.6f} same_launch_"
+            f"reading_the_runs_from_the_slabs_device_ms={scat_ms:.6f} "
+            f"dense_kernel_on_raw_slabs_device_ms_per_call={dense_ms:.6f} "
+            f"(2 launches) dense_plain_device_ms_per_call="
+            f"{dense_plain_ms:.6f}; {note}; bytes_per_call={nbytes} bound_ms="
+            f"{rec['bound_ms']:.6f} ({rec['bound_by']}; the listed runs, the "
+            f"index, x and y) share_of_published_peak="
             f"{pct_roofline(nbytes, ms * 1e-3, HBM_BYTES_PER_S):.4f} "
             f"share_of_measured_bandwidth="
-            f"{pct_roofline(nbytes, ms * 1e-3, bw):.4f}")
+            f"{pct_roofline(nbytes, ms * 1e-3, bw):.4f}; the dense walk: "
+            f"bytes_per_call={dense_bytes} bound_ms="
+            f"{rec['dense_bound_ms']:.6f} share_of_published_peak="
+            + format(pct_roofline(dense_bytes, dense_ms * 1e-3,
+                                  HBM_BYTES_PER_S), ".4f"))
         out[label] = rec
-        del plan, yk, yp
+        del plan, parts, re, im, vals, yk, yp, yd, yraw, ytwo, yscat, r2, i2
+        del again
         torch.cuda.empty_cache()
     yk = torch.as_tensor(z2, device=dev, dtype=torch.float32)
     lib_ms = library_spmv_ms(Y, xr_t, xi_t, yk)
@@ -549,13 +659,16 @@ def _tail_report(name, lu, dev):
 
 
 def main_shape_records(dev, n, plans):
-    """The DIA kernel as the banded solves launch it: float64, one real slab
-    set (general or symmetric form) on the stacked (2, n) input.  Holds each
-    slab set's launch against the plain version and against scipy on the
-    host, row by row, and times kernel, plain version and the library call
-    (a float64 torch.sparse CSR matrix times the (n, 2) input).  ``plans``
-    maps a label to (complex Ybus, its split plan); returns a record for
-    each label."""
+    """The DIA kernels as the banded solves launch them: float64, general or
+    symmetric form, through the occupancy index the two real slab sets share.
+    Holds one slab set's launch on the stacked (2, n) input, and the
+    split-complex launch over both sets that the solves make, against the
+    dense plain version, the plain walk of the index and scipy on the host,
+    row by row; times the split-complex launch, one slab set's launch, the
+    dense kernel on the raw slabs, both plain versions and the library call
+    (a complex128 torch.sparse CSR matrix times the complex x).  ``plans``
+    maps a label to (complex Ybus, its split plan); returns a record for each
+    label."""
     import scipy.sparse as sp
     import torch
 
@@ -581,68 +694,169 @@ def main_shape_records(dev, n, plans):
         for part in ("re", "im"):
             Ap = getattr(A, "real" if part == "re" else "imag").tocsr()
             p = getattr(plan, part)
+            if not p.has_runs:
+                raise AssertionError(f"{label}.{part}: no occupancy index "
+                                     f"(run share {p.run_share})")
             bound = torch.as_tensor(
                 2 * (kmax + 2) * 2.0 ** -53 * 1.01 * (abs(Ap) @ x2h.T).T,
                 device=dev)
-            before = kdia.LAUNCHES["dia_spmv"]
-            yk = kdia.dia_spmv_cuda(p.slabs, x2, p.omin, sym)
+            before = dict(kdia.LAUNCHES)
+            yk = kdia.dia_spmv_cuda(p.slabs, x2, p.omin, sym, p.runs,
+                                    p.run_values)
             torch.cuda.synchronize()
-            if kdia.LAUNCHES["dia_spmv"] != before + 1:
-                raise AssertionError(f"{label}.{part}: not one launch")
+            if (kdia.LAUNCHES["dia_spmv"] != before["dia_spmv"] + 1
+                    or kdia.LAUNCHES["dia_spmv_runs"]
+                    != before["dia_spmv_runs"] + 1):
+                raise AssertionError(f"{label}.{part}: not one launch "
+                                     "through the index")
+            yraw = kdia.dia_spmv_cuda(p.slabs, x2, p.omin, sym)
             yp = kdia.dia_spmv_plain(p.slabs, x2, p.omin, sym)
-            d_plain = (yk - yp).abs()
-            d_scipy = (yk - torch.as_tensor((Ap @ x2h.T).T, device=dev)).abs()
+            yw = kdia.dia_spmv_runs_plain(p.slabs, x2, p.omin, sym, p.runs)
+            ys = torch.as_tensor((Ap @ x2h.T).T, device=dev)
             tiny = torch.finfo(torch.float64).tiny
-            r_plain = float((d_plain / (bound + tiny)).max())
-            r_scipy = float((d_scipy / (bound + tiny)).max())
-            err = float(d_plain.max())
+            ratios = {name: float(((got - want).abs() / (bound + tiny)).max())
+                      for name, got, want in (
+                          ("vs_dense_plain", yk, yp),
+                          ("vs_runs_plain", yk, yw),
+                          ("vs_scipy_f64", yk, ys),
+                          ("dense_kernel_vs_dense_plain", yraw, yp))}
+            err = float((yk - yp).abs().max())
             rec["abs_err"] = max(rec["abs_err"], err)
+            # on the slabs in place of the packed values: the same bits
+            again = kdia.dia_spmv_cuda(p.slabs, x2, p.omin, sym, p.runs)
             log(f"banded: dia kernel[{label}.{part}] float64 slabs="
-                f"{tuple(p.slabs.shape)} x=(2, {n}) max_abs_err_vs_plain="
-                f"{err:.3e} worst_row_err_over_bound: vs_plain={r_plain:.4f} "
-                f"vs_scipy_f64={r_scipy:.4f} (bound: 2 (kmax+2) 2^-53 |A||x| "
-                f"per row, kmax={kmax}; must be <= 1) max_row_bound="
-                f"{float(bound.max()):.3e}")
-            if not (r_plain <= 1 and r_scipy <= 1):
+                f"{tuple(p.slabs.shape)} x=(2, {n}) listed_runs="
+                f"{sum(t.numel() for t in p.runs[1::2])} share_of_all_runs="
+                f"{p.run_share:.5f} max_abs_err_vs_dense_plain={err:.3e} "
+                f"worst_row_err_over_bound: "
+                + " ".join(f"{k}={v:.4f}" for k, v in ratios.items())
+                + f" (bound: 2 (kmax+2) 2^-53 |A||x| per row, kmax={kmax}; "
+                f"must be <= 1) max_row_bound={float(bound.max()):.3e} "
+                f"bit_equal_on_packed_values_and_on_the_slabs="
+                f"{torch.equal(again, yk)}")
+            if not all(v <= 1 for v in ratios.values()):
                 raise AssertionError(f"{label}.{part}: kernel disagrees at "
                                      "the main path's shape")
-        # times of the real-part launch (the imaginary part has the same shape)
-        p = plan.re
-        slabs, omin = p.slabs, p.omin
-        for _ in range(10):
-            kdia.dia_spmv_cuda(slabs, x2, omin, sym)
-        ev = cuda_ms(lambda: kdia.dia_spmv_cuda(slabs, x2, omin, sym), 200)
-        _, _, _, kby = device_profile(
-            lambda: kdia.dia_spmv_cuda(slabs, x2, omin, sym), 50)
-        ms, _ = kernel_ms(kby, "dia_spmv_kernel", 1)
-        kdia.dia_spmv_plain(slabs, x2, omin, sym)
-        _, pbusy, plaunch, _ = device_profile(
-            lambda: kdia.dia_spmv_plain(slabs, x2, omin, sym), 3)
-        plain_ms = pbusy / 3 * 1e3
-        csr = A.real.tocsr()
-        lib = torch.sparse_csr_tensor(
-            torch.as_tensor(csr.indptr.astype(np.int64), device=dev),
-            torch.as_tensor(csr.indices.astype(np.int64), device=dev),
-            torch.as_tensor(csr.data, device=dev), size=csr.shape)
+            if not torch.equal(again, yk) or not torch.equal(
+                    p.apply_bn(x2), yk):
+                raise AssertionError(f"{label}.{part}: two launches differ")
+        # ---- the launch the solves make: one walk of the shared index over
+        # both slab sets, x as (n, 2), on the packed run values.  Bit-equal to
+        # the same launch reading the runs from the slabs; within the rounding
+        # bound of one launch per slab set, the plain versions and scipy
+        if not plan.shared_runs:
+            raise AssertionError(f"{label}: the slab sets share no index")
+        re, im = plan.re, plan.im
+        omin, runs = re.omin, re.runs
         xn2 = x2.T.contiguous()
-        yl = (lib @ xn2).T
-        yk = kdia.dia_spmv_cuda(slabs, x2, omin, sym)
-        if float((yl - yk).abs().max()) > 1e-12 * float(yk.abs().max()):
+        before = dict(kdia.LAUNCHES)
+        yk = torch.stack(plan(x2[0], x2[1]))
+        torch.cuda.synchronize()
+        if any(kdia.LAUNCHES[k] != before[k] + 1 for k in before):
+            raise AssertionError(f"{label}: not one launch over both slab "
+                                 f"sets ({before} -> {kdia.LAUNCHES})")
+        two = torch.stack(kdia.split_complex_apply(
+            re.apply_bn, im.apply_bn, x2[0], x2[1]))
+        dense = functools.partial(
+            kdia.split_complex_apply,
+            *(functools.partial(kdia.dia_spmv_plain, p.slabs, omin=omin,
+                                symmetric=sym) for p in (re, im)),
+            x2[0], x2[1])
+        yd = torch.stack(dense())
+        yw = torch.stack(plan.plain(x2[0], x2[1]))
+        z = A @ (x2h[0] + 1j * x2h[1])
+        cbound = torch.as_tensor(
+            2 * (kmax + 2) * 2.0 ** -53 * 1.01 * (
+                (abs(A.real) + abs(A.imag)) @ np.abs(x2h).sum(0)), device=dev)
+        ratios = {name: float(((yk - want).abs() / (cbound + tiny)).max())
+                  for name, want in (
+                      ("vs_dense_plain", yd), ("vs_runs_plain", yw),
+                      ("vs_one_launch_per_slab_set", two),
+                      ("vs_scipy_c128", torch.as_tensor(
+                          np.stack([z.real, z.imag]), device=dev)))}
+        split_err = float((yk - yd).abs().max())
+        rec["abs_err"] = max(rec["abs_err"], split_err)
+        vals = (re.run_values, im.run_values)
+        same = torch.equal(
+            kdia.dia_split_cuda(re.slabs, im.slabs, xn2, omin, sym, runs),
+            yk) and torch.equal(torch.stack(plan(x2[0], x2[1])), yk)
+        log(f"banded: dia kernel[{label}] split-complex launch float64 x=("
+            f"{n}, 2) max_abs_err_vs_dense_plain={split_err:.3e} "
+            f"worst_row_err_over_bound: "
+            + " ".join(f"{k}={v:.4f}" for k, v in ratios.items())
+            + f" (must be <= 1) bit_equal_to_the_launch_on_the_slabs_and_on_"
+            f"repeat={same}")
+        if not all(v <= 1 for v in ratios.values()) or not same:
+            raise AssertionError(f"{label}: the split-complex launch "
+                                 "disagrees at the main path's shape")
+
+        def run_kernel():
+            return kdia.dia_split_cuda(re.slabs, im.slabs, xn2, omin, sym,
+                                       runs, vals)
+
+        def scattered():
+            return kdia.dia_split_cuda(re.slabs, im.slabs, xn2, omin, sym,
+                                       runs)
+
+        def one_set():
+            return kdia.dia_spmv_cuda(re.slabs, x2, omin, sym, runs, vals[0])
+
+        def runs_plain():
+            return plan.plain(x2[0], x2[1])
+
+        def dense_kernel():
+            return [kdia.dia_spmv_cuda(p.slabs, x2, omin, sym)
+                    for p in (re, im)]
+
+        for _ in range(10):
+            run_kernel()
+        # plain, kernel, kernel, plain: one card, one call
+        t = [queued_ms(runs_plain, 20), queued_ms(run_kernel, 400),
+             queued_ms(run_kernel, 400), queued_ms(runs_plain, 20)]
+        ms, plain_ms = min(t[1], t[2]), min(t[0], t[3])
+        ev = cuda_ms(lambda: plan(x2[0], x2[1]), 200)
+        one_ms = queued_ms(one_set, 400)
+        scat_ms = queued_ms(scattered, 400)
+        dense_ms = queued_ms(dense_kernel, 100)
+        dense_plain_ms = queued_ms(dense, 3)
+        # the library call: the complex128 CSR matrix times the complex x
+        lib = _csr_tensor(A, dev, np.complex128)
+        xc = torch.complex(x2[0], x2[1])
+        yl = lib @ xc
+        if float((torch.stack([yl.real, yl.imag]) - yk).abs().max()) \
+                > 1e-12 * float(yk.abs().max()):
             raise AssertionError(f"{label}: library CSR product disagrees")
         for _ in range(10):
-            lib @ xn2
-        _, lbusy, _, _ = device_profile(lambda: lib @ xn2, 50)
-        nbytes = (slabs.numel() + x2.numel() + yk.numel()) * 8
-        flops = 2 * 2 * slabs.numel() * (2 if sym else 1)
-        rec.update(ms=ms, plain_ms=plain_ms, library_ms=lbusy / 50 * 1e3,
-                   **bound_record(nbytes, flops, F64_FLOP_PER_S))
+            lib @ xc
+        _, lbusy, _, _ = device_profile(lambda: lib @ xc, 50)
+        lib_ms = lbusy / 50 * 1e3
+        nbytes, listed, index_bytes = run_route_bytes(plan, xn2, yk)
+        dense_bytes = (2 * re.slabs.numel() + x2.numel() + yk.numel()) * 8
+        nnz = sum(int(p.slabs.count_nonzero()) * 2 - int(
+            p.slabs[0].count_nonzero()) if sym else int(
+                p.slabs.count_nonzero()) for p in (re, im))
+        rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   one_slab_set_ms=one_ms, scattered_reads_ms=scat_ms,
+                   dense_kernel_ms=dense_ms,
+                   dense_plain_ms=dense_plain_ms, listed_runs=listed,
+                   index_bytes=index_bytes, bytes=nbytes,
+                   dense_bound_ms=dense_bytes / HBM_BYTES_PER_S * 1e3,
+                   **bound_record(nbytes, 2 * 2 * nnz, F64_FLOP_PER_S))
         log(f"banded: dia kernel[{label}] at this path's shape (float64, "
-            f"D={slabs.shape[0]}, n={n}, B=2, {nbytes} bytes per launch): "
-            f"device_ms_per_launch={ms:.6f} (torch.profiler), {ev:.6f} (cuda "
-            f"events over 200 launches) plain_device_ms={plain_ms:.6f} "
-            f"({plaunch / 3:.0f} kernels) library_csr_f64_device_ms="
-            f"{rec['library_ms']:.6f} bound_ms={rec['bound_ms']:.6f} "
-            f"({rec['bound_by']})")
+            f"D={re.slabs.shape[0]}, n={n}, both slab sets in one launch): "
+            f"run_kernel_device_ms_per_launch={ms:.6f} runs_plain_device_ms="
+            f"{plain_ms:.6f} (cuda events around launches queued behind a "
+            f"spin kernel; runs plain,kernel,kernel,plain = {t}); the plan's "
+            f"call with the host in the way {ev:.6f} ms; one_slab_set_x(2, n)_"
+            f"run_kernel_device_ms={one_ms:.6f} same_launch_reading_the_"
+            f"runs_from_the_slabs_device_ms={scat_ms:.6f} dense_kernel_on_raw_"
+            f"slabs_device_ms={dense_ms:.6f} (2 launches) "
+            f"dense_plain_device_ms="
+            f"{dense_plain_ms:.6f} library_csr_c128_device_ms={lib_ms:.6f} "
+            f"(torch.profiler); {nbytes} bytes per launch ({listed} listed "
+            f"runs over both sets, index {index_bytes} bytes) bound_ms="
+            f"{rec['bound_ms']:.6f} ({rec['bound_by']}); the dense walk: "
+            f"{dense_bytes} bytes, bound_ms={rec['dense_bound_ms']:.6f}")
         out[label] = rec
     return out
 
@@ -677,7 +891,8 @@ def banded_phase(dev, ell_state):
         fds[sp].solve()
 
     # ---- the main path: counts to 0, the three solves, counts read
-    kdia.LAUNCHES["dia_spmv"] = 0
+    for key in kdia.LAUNCHES:
+        kdia.LAUNCHES[key] = 0
     t1 = time.perf_counter()
     vm, va, it, res = pf.solve()
     torch.cuda.synchronize()
@@ -692,6 +907,11 @@ def banded_phase(dev, ell_state):
         fd_out[sp] = r + (time.perf_counter() - t1,
                           kdia.LAUNCHES["dia_spmv"] - before)
     launches = kdia.LAUNCHES["dia_spmv"]
+    if kdia.LAUNCHES["dia_spmv_split"] != launches:
+        raise AssertionError(
+            f"banded: {kdia.LAUNCHES['dia_spmv_split']} of {launches} "
+            "launches walked a shared occupancy index over both slab sets; "
+            "the solvers' plans all have one")
 
     hm = host_mismatch(g, pf.Y, vm, va)
     vm_e, va_e = ell_state
@@ -707,8 +927,8 @@ def banded_phase(dev, ell_state):
         raise AssertionError(f"newton[dia]: did not converge ({it}, {res})")
     if hm > DIA_HOST_MISMATCH or diff > DIA_STATE_ATOL:
         raise AssertionError("newton[dia]: wrong state")
-    # one launch per real slab set per mismatch evaluation
-    if n_newton == 0 or n_newton != 2 * (it + 1):
+    # one launch over both real slab sets per mismatch evaluation
+    if n_newton == 0 or n_newton != it + 1:
         raise AssertionError(f"newton[dia]: {n_newton} launches for "
                              f"{it + 1} mismatch evaluations")
     for sp, (vm_f, va_f, it_f, res_f, sec, nl) in fd_out.items():
@@ -724,8 +944,8 @@ def banded_phase(dev, ell_state):
             raise AssertionError(f"fdpf[{sp}]: disagrees with Newton")
         # per iteration one residual and two half-step mismatches, then the
         # residual that ends the loop and the one solve() reports; each is
-        # one launch per real slab set
-        if nl == 0 or nl != 2 * (3 * it_f + 2):
+        # one launch over both real slab sets
+        if nl == 0 or nl != 3 * it_f + 2:
             raise AssertionError(f"fdpf[{sp}]: {nl} launches for {it_f} "
                                  "iterations")
     wall, busy, nk, by = device_profile(fds["symdia"].solve, 1)
@@ -985,12 +1205,11 @@ def spgemm_phase(dev):
     return launches, out
 
 
-def _bsr_row_check(label, Y, Yp, S, X, dev):
-    """Hold Y (kernel) and Yp (plain) against scipy float64 row by row.
-    Row i sums its K_i <= K stored nonzeros in float32 (the blocks' zeros
-    add exactly): every version lies within (K + 2) u (|A| |X|)_i of the
-    exact product, two float32 versions within twice that.  Returns
-    max|Y - Yp|."""
+def _bsr_row_bound(S, X, dev):
+    """(scipy float64 product, row-wise rounding bound, K) of Y = S @ X on
+    the card.  Row i sums its K_i <= K stored nonzeros in float32 (the
+    blocks' zeros add exactly): every version lies within (K + 2) u
+    (|A| |X|)_i of the exact product."""
     import torch
 
     K = int(np.diff(S.tocsr().indptr).max())
@@ -998,6 +1217,16 @@ def _bsr_row_check(label, Y, Yp, S, X, dev):
     ref = torch.as_tensor(S @ X64, device=dev)
     bound = torch.as_tensor(
         (K + 2) * 2.0 ** -24 * 1.01 * (abs(S) @ np.abs(X64)), device=dev)
+    return ref, bound, K
+
+
+def _bsr_row_check(label, Y, Yp, rows):
+    """Hold Y (kernel) against scipy float64 within the bound of
+    ``_bsr_row_bound`` (``rows``), and against Yp (a plain version: two
+    float32 versions) within twice that.  Returns max|Y - Yp|."""
+    import torch
+
+    ref, bound, K = rows
     tiny = torch.finfo(torch.float64).tiny
     d_plain = (Y - Yp).abs().double()
     r_plain = float((d_plain / (2 * bound + tiny)).max())
@@ -1079,32 +1308,61 @@ def bsr_phase(dev):
     placed = Bm._bsr_cache
     for label, M, S, X, Xt, Y, reps in (
             ("block32", A, S_a, X_a, Xa_t, Y_a, 50),
-            ("ybus200k", placed, S_b, X_b, Xb_t, Y_b, 5)):
+            ("ybus200k", placed, S_b, X_b, Xb_t, Y_b, 20)):
         nblk = M.nnz_blocks
         args = (M.m, M.n, M.indptr, M.indices[:nblk], M.data[:nblk], Xt)
+        cols = M.column_lists()  # built at the container's first product
+        listed = cols[1].numel()
         before = kbsr.LAUNCHES["bsr_spmm"]
         Yp = kbsr.bsr_spmm_plain(*args)
         if kbsr.LAUNCHES["bsr_spmm"] != before:
             raise AssertionError("bsr: the plain version launched")
-        err = _bsr_row_check(label, Y, Yp, S, X, dev)
-        del Yp
-        for _ in range(2):
-            kbsr.bsr_spmm_cuda(*args)
+        rows = _bsr_row_bound(S, X, dev)
+        err = _bsr_row_check(label, Y, Yp, rows)
+        # the plain walk of the same lists, and the kernel without lists
+        # (every column of every block, as a raw caller launches it)
+        Yw = kbsr.bsr_spmm_plain(*args, cols)
+        _bsr_row_check(f"{label}, kernel vs the plain walk of the lists", Y,
+                       Yw, rows)
+        del Yw
+        Yraw = kbsr.bsr_spmm_cuda(*args)
+        _bsr_row_check(f"{label}, kernel without lists", Yraw, Yp, rows)
+        del Yp, Yraw, rows
+        again = kbsr.bsr_spmm_cuda(*args, cols)
+        if not (torch.equal(again, Y)
+                and torch.equal(kbsr.bsr_spmm_cuda(*args, cols), again)):
+            raise AssertionError(f"bsr[{label}]: two launches differ")
+        del again
         # plain, kernel, kernel, plain: one card, one call
-        t = [queued_ms(lambda: kbsr.bsr_spmm_plain(*args), 2),
-             queued_ms(lambda: kbsr.bsr_spmm_cuda(*args), reps),
-             queued_ms(lambda: kbsr.bsr_spmm_cuda(*args), reps),
-             queued_ms(lambda: kbsr.bsr_spmm_plain(*args), 2)]
+        t = [queued_ms(lambda: kbsr.bsr_spmm_plain(*args, cols), 2),
+             queued_ms(lambda: kbsr.bsr_spmm_cuda(*args, cols), reps),
+             queued_ms(lambda: kbsr.bsr_spmm_cuda(*args, cols), reps),
+             queued_ms(lambda: kbsr.bsr_spmm_plain(*args, cols), 2)]
         ms, plain_ms = min(t[1], t[2]), min(t[0], t[3])
-        note = profiler_note(lambda: kbsr.bsr_spmm_cuda(*args),
+        raw_ms = queued_ms(lambda: kbsr.bsr_spmm_cuda(*args), 5)
+        dense_plain_ms = queued_ms(lambda: kbsr.bsr_spmm_plain(*args), 2)
+        note = profiler_note(lambda: kbsr.bsr_spmm_cuda(*args, cols),
                              min(reps, 10), "bsr_spmm_kernel")
-        # every stored block, the pattern, X and Y, each once; 2 R C k
-        # operations per stored block (its zeros included: the function is
-        # the block product)
-        nbytes = sum(x.numel() * x.element_size() for x in (
+        # What the listed route must move: the R values of every listed
+        # column, the lists, the pattern, X and Y, each once; 2 R k
+        # operations per listed column.  The dense walk beside it: every
+        # stored block, 2 R C k operations per block, zeros included.
+        k_rhs = Xt.shape[1]
+        size = M.data.element_size()
+        nbytes = listed * M.R * size + sum(
+            x.numel() * x.element_size() for x in (
+                *cols, M.indptr, M.indices[:nblk], Xt, Y))
+        flops = 2 * listed * M.R * k_rhs
+        dense_bytes = sum(x.numel() * x.element_size() for x in (
             M.data[:nblk], M.indptr, M.indices[:nblk], Xt, Y))
-        flops = 2 * nblk * M.R * M.C * Xt.shape[1]
+        dense_flops = 2 * nblk * M.R * M.C * k_rhs
+        dense_bound = bound_record(dense_bytes, dense_flops)
         rec = dict(abs_err=err, ms=ms, plain_ms=plain_ms, blocks=nblk,
+                   listed_columns=listed, kernel_without_lists_ms=raw_ms,
+                   dense_plain_ms=dense_plain_ms, bytes=nbytes, flops=flops,
+                   x_rows_read_bytes=listed * k_rhs * size,
+                   dense_bound_ms=dense_bound["bound_ms"],
+                   dense_bound_by=dense_bound["bound_by"],
                    **bound_record(nbytes, flops))
         # the library call: torch.sparse BSR @ X, else the CSR product
         try:
@@ -1128,11 +1386,19 @@ def bsr_phase(dev):
             lib @ Xl
         rec["library_ms"] = cuda_ms(lambda: lib @ Xl, 5)
         del lib, Xl
-        log(f"bsr[{label}]: blocks={nblk} flops={flops} bytes={nbytes} "
-            f"kernel_device_ms_per_launch={ms:.6f} plain_device_ms_per_call="
-            f"{plain_ms:.6f} (cuda events around queued launches; runs "
-            f"plain,kernel,kernel,plain = {t}); {note}; "
-            f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}) "
+        log(f"bsr[{label}]: blocks={nblk} listed_columns={listed} "
+            f"({listed / nblk:.2f} of {M.C} per block; lists "
+            f"{sum(x.numel() * 4 for x in cols)} bytes) flops={flops} "
+            f"bytes={nbytes} (X rows if none is reused: "
+            f"{rec['x_rows_read_bytes']}) kernel_device_ms_per_launch="
+            f"{ms:.6f} "
+            f"plain_walk_of_the_lists_device_ms={plain_ms:.6f} (cuda events "
+            f"around queued launches; runs plain,kernel,kernel,plain = {t}) "
+            f"kernel_without_lists_device_ms={raw_ms:.6f} "
+            f"dense_plain_device_ms={dense_plain_ms:.6f}; {note}; "
+            f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}); the dense "
+            f"walk: flops={dense_flops} bytes={dense_bytes} bound_ms="
+            f"{rec['dense_bound_ms']:.6f} ({rec['dense_bound_by']}); "
             f"library_{which.replace(' ', '_').replace('.', '_')}_f32_"
             f"device_ms={rec['library_ms']:.6f}")
         out[label] = rec
@@ -1146,7 +1412,7 @@ def bsr_phase(dev):
     stream_ms = cuda_ms(lambda: pt.spmm(Bm, Xb_t), 2)
     log(f"bsr[ybus200k]: entry-stream spmm(block=None) device_ms_per_call="
         f"{stream_ms:.6f} (index_select + index_add_ over {Bm.nnz} entries "
-        f"x {K_RHS}; the matrix is uploaded anew at every call)")
+        f"x {K_RHS}; the matrix and its entry streams are placed once)")
 
     def blocked():
         return pt.spmm(Bm, Xb_t, block=(8, 128))
@@ -1205,8 +1471,8 @@ def bsr_phase(dev):
         nb_ = small.nnz_blocks
         Ysp = kbsr.bsr_spmm_plain(300, 300, small.indptr, small.indices[:nb_],
                                   small.data[:nb_], Xs_t)
-        _bsr_row_check(f"small k={k}", Ys, Ysp, Sd.astype(np.float64), Xs,
-                       dev)
+        _bsr_row_check(f"small k={k}", Ys, Ysp,
+                       _bsr_row_bound(Sd.astype(np.float64), Xs, dev))
         if Ys.shape != Xs.shape or float(Ys[160:200].abs().max()) != 0.0:
             raise AssertionError("bsr: empty block rows are not exact zeros")
     log(f"bsr: phase seconds {time.perf_counter() - t_phase:.1f}")
@@ -1325,22 +1591,33 @@ def main():
     log(json.dumps({"kernels": [
         record("bandpoints_spmv", "bandpoints",
                "csparse3_tpu/kernels/bandpoints.py:546", launches, k),
-        # the top-level numbers are one launch at the shape the banded
-        # solves give the kernel (float64, D=473, n=10k, stacked (2, n)
-        # input): the launches counted are those launches
+        # the top-level numbers are one launch of the split-complex run
+        # kernel at the shape the banded solves give it (float64, D=473,
+        # n=10k, both real slab sets through the occupancy index they share,
+        # x (n, 2)): the launches counted are those launches.  bound_ms
+        # counts the listed runs, the index, x and y; dense_bound_ms every
+        # slab value, as the dense kernel (dense_kernel_ms, one launch per
+        # slab set on the raw slabs) reads them; one_slab_set_ms is the run
+        # kernel on one slab set and the stacked (2, n) input
         dict(record("dia_spmv", "dia_spmv",
                     "csparse3_tpu/kernels/dia_pallas.py:67", dia_launches,
                     band["dia"]),
-             shape=f"float64 general form, one slab set of the {N_SOLVE}-bus "
-                   "RCM Ybus, x (2, n), per launch",
+             shape=f"float64 general form, both slab sets of the {N_SOLVE}"
+                   "-bus RCM Ybus through their shared occupancy index, per "
+                   "split-complex launch; plain_ms is the plain walk of the "
+                   "same index, library_ms the complex128 CSR product",
+             **{k: band["dia"][k] for k in (
+                 "one_slab_set_ms", "scattered_reads_ms", "dense_kernel_ms",
+                 "dense_plain_ms", "dense_bound_ms",
+                 "listed_runs", "index_bytes")},
              symmetric_form=band["symdia"],
-             # per SplitDIA / SplitSymDIA call (2 launches) on the 200k-bus
+             # per SplitDIA / SplitSymDIA call (1 launch) on the 200k-bus
              # RCM Ybus, float32; the library call is the complex64 CSR
-             # product
+             # product; two_launches_ms is one launch per slab set
              full_size_float32=dict(
                  shape=f"float32, both slab sets of the {N_KERNEL}-bus RCM "
-                       "Ybus, per split-complex call of 2 launches",
-                 launches_per_call=2, general_form=dia["dia"],
+                       "Ybus, per split-complex call of 1 launch",
+                 launches_per_call=1, general_form=dia["dia"],
                  symmetric_form=dia["symdia"])),
         record("triad", "triad", "probes/_probe_pallas.py:38",
                tri["launches"], tri),
@@ -1355,13 +1632,20 @@ def main():
                    "torch.sparse.mm (symbolic and numeric together)",
              conn3000=spg["conn3000"], rand10k=spg["rand10k"]),
         # the top-level numbers are spmm(B, X, block=(8, 128)) on the
-        # 200k-bus susceptance matrix; the launches counted are that product
-        # and the 32x32 block matrix's
+        # 200k-bus susceptance matrix, through its column lists; the
+        # launches counted are that product and the 32x32 block matrix's.
+        # bound_ms counts the listed columns' values and operations,
+        # dense_bound_ms every stored block's
         dict(record("bsr_spmm", "bsr_spmm",
                     "csparse3_tpu/kernels/bsr_spmm_pallas.py:71",
                     bsr_launches, bsr["ybus200k"]),
              shape=f"float32, imag(Ybus) of the {N_KERNEL}-bus grid in "
-                   "(8, 128) blocks times X (n, 1024), per launch",
+                   "(8, 128) blocks times X (n, 1024), the occupied columns "
+                   "only, per launch; plain_ms is the plain walk of the "
+                   "same lists",
+             **{k: bsr["ybus200k"][k] for k in (
+                 "kernel_without_lists_ms", "dense_plain_ms",
+                 "dense_bound_ms", "dense_bound_by", "listed_columns")},
              block_matrix_32x32=bsr["block32"]),
     ]}))
     log(f"total seconds {time.perf_counter() - t_all:.1f}")

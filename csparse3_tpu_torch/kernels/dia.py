@@ -1,5 +1,5 @@
-"""Banded (DIA-slab) SpMV: the CUDA kernel, its wrapper and its plain
-PyTorch version.
+"""Banded (DIA-slab) SpMV: the CUDA kernels, their wrapper and their plain
+PyTorch versions.
 
 The matrix is a dense range of D diagonals, row aligned (the layout of
 ``ops.matvec.DIAPlan``): ``slabs[d, i] = A[i, i + omin + d]``.  Vectors
@@ -10,13 +10,41 @@ are carried as (B, m): batch first, rows last.
                 (omin = 0) and the strict lower triangle is their mirror,
                 y[b, i] += sum_{d > 0} slabs[d, i - d] * x[b, i - d]
 
-``dia_spmv_cuda`` launches the hand-written kernel ``csrc/dia_spmv.cu``
-(built with nvcc at first use), which stands for the Pallas kernel of the
-JAX package's ``csparse3_tpu/kernels/dia_pallas.py``; ``dia_spmv_plain``
-is the same function in plain PyTorch, a loop over diagonals of ``slab *
-shifted window``.  ``band_spmv`` picks between them by where its input
-lies: a CPU tensor runs the plain version, a CUDA tensor launches the
-kernel or raises.  Float32 and float64.
+On an H100 the product is bound by the bytes of the slabs, and the band of
+an RCM-ordered power grid is almost all zeros (0.3% nonzeros at 200k buses).
+So a plan carries an **occupancy index**, built once on the host
+(``run_index``): rows are cut into groups of ``RUN_ROWS`` consecutive rows,
+and for each group the index lists, ascending, the diagonals whose run of
+``RUN_ROWS`` slab values holds a nonzero (``run_ptr``, ``run_diag``: a CSR
+over groups; the symmetric form has a second pair for the mirror reads).
+The run kernel of ``csrc/dia_spmv.cu`` walks only the listed runs; the dense
+kernels of the same source walk every diagonal and stay for bands that are
+dense and for raw slabs without an index.  Both stand for the Pallas kernel
+of the JAX package's ``csparse3_tpu/kernels/dia_pallas.py``.
+
+The listed runs lie scattered over the slabs (one short read per run, 1.5 GB
+apart at 200k buses), and scattered reads are what the card does worst.  So
+a plan also keeps the **packed run values** (``pack_runs``): the values the
+listed runs read, copied once in index order, about 1% of the slabs.  The
+run kernels stream them; given the index alone they read the same values
+from the slabs, to the same bits.  The slabs keep their (D, m) layout and
+stay the truth: the dense kernel and both plain versions read only them.
+
+A complex matrix is two real slab sets, and a product with it four real
+products.  The split-complex plans give both sets ONE index (the union of
+theirs, ``merge_run_index``), and ``dia_split_cuda`` launches the kernel that
+walks it once over both sets, with the real and the imaginary part of x side
+by side: one launch and one read of the index and of x where two launches
+on the stacked input made two.
+
+``dia_spmv_cuda`` launches a kernel (built with nvcc at first use): the run
+kernel when it is given an index, else the dense one.  ``dia_spmv_plain`` is
+the dense product in plain PyTorch, a loop over diagonals of ``slab *
+shifted window``, and the truth every other version is held to;
+``dia_spmv_runs_plain`` walks an index in plain PyTorch (gather the listed
+runs, multiply, ``index_add_``), so that an index is tested without a card.
+``band_spmv`` picks by where its input lies: a CPU tensor runs a plain
+version, a CUDA tensor launches a kernel or raises.  Float32 and float64.
 
 ``CudaDIA`` and ``SplitCudaDIA`` are the float32 casting wrappers of the
 JAX module (``PallasDIA`` / ``SplitPallasDIA``, kept as aliases).  Their
@@ -29,21 +57,63 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..utils.build import build_cuda_library
 from .bandpoints import _shifted
 
-__all__ = ["band_spmv", "dia_spmv_cuda", "dia_spmv_plain", "load_cuda_library",
-           "LAUNCHES", "split_complex_apply", "CudaDIA", "SplitCudaDIA", "PallasDIA",
-           "SplitPallasDIA"]
+__all__ = ["band_spmv", "dia_spmv_cuda", "dia_spmv_plain",
+           "dia_spmv_runs_plain", "dia_split_cuda", "split_band_spmv",
+           "run_index", "merge_run_index", "pack_runs", "load_cuda_library",
+           "LAUNCHES", "RUN_ROWS", "RUN_SHARE_MAX", "split_complex_apply",
+           "CudaDIA", "SplitCudaDIA", "PallasDIA", "SplitPallasDIA"]
 
-#: kernel launches made by ``dia_spmv_cuda`` since import (or since a caller
-#: set it to 0): one per launch, nowhere else
-LAUNCHES = {"dia_spmv": 0}
+#: kernel launches made by ``dia_spmv_cuda`` and ``dia_split_cuda`` since
+#: import (or since a caller set them to 0), one per launch and nowhere else:
+#: ``dia_spmv`` counts every launch, ``dia_spmv_runs`` those of them that
+#: walked an occupancy index, ``dia_spmv_split`` those of these that walked
+#: it over two slab sets at once
+LAUNCHES = {"dia_spmv": 0, "dia_spmv_runs": 0, "dia_spmv_split": 0}
+
+#: rows per group of the occupancy index: the value ``csrc/dia_spmv.cu`` is
+#: built for (its DIA_RUN_ROWS), chosen among 4, 8, 16, 32 by measurement on
+#: an H100 (``utils/tune_kernels.py``).  Split-complex launch on packed run
+#: values, RCM Ybus: 200k buses float32, general / symmetric form, 13.4 / 11.2
+#: us at 4 rows, 22.2 / 21.1 at 8, 41.8 / 38.5 at 16, 61.0 / 58.1 at 32; 10k
+#: buses float64, general form, 4.0 us at 4, 5.3 at 8, 8.6 at 16, 18.4 at 32.
+#: Reading the runs from the slabs instead, 4 is ahead as well (200k: 43-46
+#: us at 4, 47-49 at 8, 52-58 at 16, 70-77 at 32)
+RUN_ROWS = 4
+
+#: a plan keeps its index (and the packed values of its runs) when the listed
+#: runs are at most this share of the runs the dense kernel walks; above it
+#: the dense kernel is used.  Measured on an H100 on bands of 200,000 rows
+#: and 256 diagonals in float32 whose runs are occupied at random
+#: (``utils/tune_kernels.py``): the dense kernel takes 0.084 ms whatever the
+#: share, the run kernel on packed values 0.034 ms at 20%, 0.050 at 30%, 0.065
+#: at 40%, 0.081 at 50%, 0.116 at 75%: they cross just above 50%.  At 40% the
+#: run kernel is still a quarter faster, and the packed copy stays well under
+#: half the size of the slabs
+RUN_SHARE_MAX = 0.4
 
 _DTYPES = (torch.float32, torch.float64)
+
+
+def bind_library(path):
+    """Load a build of ``csrc/dia_spmv.cu`` and declare its functions."""
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.dia_spmv.restype = ci
+    lib.dia_spmv.argtypes = [ci] * 7 + [vp, vp, vp, vp]
+    lib.dia_spmv_runs.restype = ci
+    lib.dia_spmv_runs.argtypes = [ci] * 9 + [vp] * 10
+    lib.dia_spmv_runs_split.restype = ci
+    lib.dia_spmv_runs_split.argtypes = [ci] * 8 + [vp] * 13
+    lib.dia_spmv_error_string.restype = ctypes.c_char_p
+    lib.dia_spmv_error_string.argtypes = [ci]
+    return lib
 
 
 @functools.cache
@@ -51,16 +121,10 @@ def load_cuda_library():
     """Build ``csrc/dia_spmv.cu`` with nvcc for sm_90a (first use) and load
     it.  Returns the ctypes library; raises BuildError when nvcc is missing
     or refuses the source."""
-    lib = ctypes.CDLL(build_cuda_library("dia_spmv"))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.dia_spmv.restype = ci
-    lib.dia_spmv.argtypes = [ci] * 7 + [vp, vp, vp, vp]
-    lib.dia_spmv_error_string.restype = ctypes.c_char_p
-    lib.dia_spmv_error_string.argtypes = [ci]
-    return lib
+    return bind_library(build_cuda_library("dia_spmv"))
 
 
-def _check(slabs, xbm, omin, symmetric):
+def _check(slabs, xbm, omin, symmetric, runs=None, vals=None):
     if slabs.ndim != 2 or xbm.ndim != 2:
         raise ValueError(f"slabs must be (D, m) and x (B, n); got "
                          f"{tuple(slabs.shape)} and {tuple(xbm.shape)}")
@@ -68,11 +132,88 @@ def _check(slabs, xbm, omin, symmetric):
         raise ValueError("the symmetric form needs omin == 0 and a square "
                          f"matrix; got omin={omin}, m={slabs.shape[1]}, "
                          f"n={xbm.shape[1]}")
+    if runs is None:
+        if vals is not None:
+            raise ValueError("packed run values need the occupancy index "
+                             "they were packed for")
+        return
+    groups = -(-slabs.shape[1] // RUN_ROWS)
+    if len(runs) != (4 if symmetric else 2) or any(
+            t.dtype != torch.int32 or t.ndim != 1 for t in runs) or any(
+            p.shape[0] != groups + 1 for p in runs[::2]):
+        raise ValueError(
+            "the occupancy index is (run_ptr, run_diag), and (mir_ptr, "
+            f"mir_diag) after them for the symmetric form: int32, with "
+            f"{groups + 1} pointers for {slabs.shape[1]} rows in groups of "
+            f"{RUN_ROWS}")
+    if vals is not None and (
+            len(vals) != len(runs) // 2 or any(
+                v.shape != (d.shape[0], RUN_ROWS) or v.dtype != slabs.dtype
+                for v, d in zip(vals, runs[1::2]))):
+        raise ValueError(
+            "the packed run values are one (listed runs, "
+            f"{RUN_ROWS}) tensor of the slabs' dtype for each list of the "
+            f"index; got {[tuple(v.shape) for v in vals]} {vals[0].dtype} "
+            f"for {[d.shape[0] for d in runs[1::2]]} runs of {slabs.dtype}")
+
+
+def run_index(slabs, symmetric: bool = False):
+    """The occupancy index of (D, m) slabs given as a numpy array, built on
+    the host: ``(run_ptr, run_diag)`` as int32 numpy arrays, and ``(mir_ptr,
+    mir_diag)`` after them for the symmetric form.
+
+    Rows are cut into groups of ``RUN_ROWS``; ``run_diag[run_ptr[g]:
+    run_ptr[g + 1]]`` lists, ascending, the diagonals d with a nonzero in
+    ``slabs[d, g*RUN_ROWS:(g+1)*RUN_ROWS]``.  The mirror lists name, for the
+    rows of group g, the diagonals d >= 1 with a nonzero among ``slabs[d, i
+    - d]``, the values those rows read from below the diagonal.  Every
+    nonzero of ``slabs`` lies in a listed run."""
+    D, m = slabs.shape
+    groups = -(-m // RUN_ROWS)
+
+    def lists(first, shift):
+        gs, ds = [], []
+        for d in range(first, D):
+            rows = np.flatnonzero(slabs[d]) + shift * d
+            g = np.unique(rows[rows < m] // RUN_ROWS)
+            gs.append(g)
+            ds.append(np.full(len(g), d, dtype=np.int32))
+        g = np.concatenate(gs) if gs else np.zeros(0, dtype=np.int64)
+        if len(g) >= 2 ** 31:
+            raise ValueError(f"{len(g)} occupied runs do not fit the int32 "
+                             "index of the banded kernel")
+        ptr = np.zeros(groups + 1, dtype=np.int64)
+        np.cumsum(np.bincount(g, minlength=groups), out=ptr[1:])
+        # stable: within a group the diagonals stay ascending
+        diag = (np.concatenate(ds)[np.argsort(g, kind="stable")] if ds
+                else np.zeros(0, dtype=np.int32))
+        return ptr.astype(np.int32), diag
+
+    return lists(0, 0) + (lists(1, 1) if symmetric else ())
+
+
+def merge_run_index(a, b, ndiag: int):
+    """The union of two occupancy indices of (ndiag, m) slabs, as numpy
+    arrays in the form of ``run_index``: a run either of them lists.  It is
+    an index of both slab sets: a superset of each one's own."""
+    out = ()
+    for k in range(0, len(a), 2):
+        keys = []
+        for ptr, diag in (a[k:k + 2], b[k:k + 2]):
+            g = np.repeat(np.arange(len(ptr) - 1, dtype=np.int64),
+                          np.diff(ptr))
+            keys.append(g * ndiag + diag)  # sorted by group, then diagonal
+        both = np.union1d(*keys)
+        ptr = np.zeros(len(a[k]), dtype=np.int64)
+        np.cumsum(np.bincount(both // max(ndiag, 1),
+                              minlength=len(ptr) - 1), out=ptr[1:])
+        out += (ptr.astype(np.int32), (both % max(ndiag, 1)).astype(np.int32))
+    return out
 
 
 @torch.inference_mode()
 def dia_spmv_plain(slabs, xbm, omin: int, symmetric: bool = False):
-    """The plain PyTorch version of the kernel, on any device: y (B, m) for
+    """The dense product in plain PyTorch, on any device: y (B, m) for
     slabs (D, m) and x (B, n), in the promoted dtype of the two."""
     _check(slabs, xbm, omin, symmetric)
     D, m = slabs.shape
@@ -89,16 +230,92 @@ def dia_spmv_plain(slabs, xbm, omin: int, symmetric: bool = False):
     return y
 
 
+def _run_reads(slabs, n, omin, ptr, diag, mirror):
+    """Where the listed runs read: (rows, columns, values), each (listed
+    runs, RUN_ROWS).  ``rows`` are the rows of y a run adds to (clamped to
+    m - 1), ``columns`` the entries of x it meets (clamped to [0, n)), and
+    ``values`` the slab values, zero where the run reaches past an edge.
+    Forward reads, or the mirror reads of the symmetric form."""
+    m, nruns, dev = slabs.shape[1], diag.shape[0], slabs.device
+    g = torch.repeat_interleave(
+        torch.arange(ptr.shape[0] - 1, device=dev), ptr.long().diff(),
+        output_size=nruns)
+    d = diag.long()[:, None]
+    rows = g[:, None] * RUN_ROWS + torch.arange(RUN_ROWS, device=dev)
+    if mirror:  # A[i, i - d] = slabs[d, i - d]
+        src = col = rows - d
+        ok = (rows < m) & (src >= 0) & (d > 0)
+    else:
+        src, col = rows, rows + omin + d
+        ok = (rows < m) & (col >= 0) & (col < n)
+    src = src.clamp(0, max(m - 1, 0))
+    vals = torch.where(ok, slabs[d.expand_as(src), src], 0)
+    return rows.clamp(max=m - 1), col.clamp(0, max(n - 1, 0)), vals
+
+
 @torch.inference_mode()
-def dia_spmv_cuda(slabs, xbm, omin: int, symmetric: bool = False):
-    """The CUDA kernel: y (B, m) for slabs (D, m) and x (B, n), both on one
-    CUDA device, both float32 or both float64.  One launch per two rows of
-    x (the kernel keeps two sums per thread in registers)."""
-    _check(slabs, xbm, omin, symmetric)
+def pack_runs(slabs, n: int, omin: int, symmetric: bool, runs):
+    """The values the listed runs read, copied out of the (D, m) slabs in
+    the order of the index: one (listed runs, RUN_ROWS) tensor for the
+    forward lists and, for the symmetric form, one for the mirror lists, on
+    the slabs' device; zero where a run reaches past an edge of the matrix.
+    The run kernels stream these instead of making one scattered read of
+    the slabs per run.  They are a copy: valid for the slabs they were
+    packed from."""
+    if slabs.numel() == 0 or n == 0:
+        return tuple(slabs.new_zeros((d.shape[0], RUN_ROWS))
+                     for d in runs[1::2])
+    return tuple(
+        _run_reads(slabs, n, omin, runs[k], runs[k + 1], k == 2)[2]
+        .contiguous() for k in range(0, len(runs), 2))
+
+
+def _add_runs(y, slabs, x, omin, ptr, diag, mirror):
+    """y[:, rows] += the products of the listed runs (forward reads, or the
+    mirror reads of the symmetric form)."""
+    if diag.shape[0] == 0:
+        return
+    rows, col, vals = _run_reads(slabs, x.shape[1], omin, ptr, diag, mirror)
+    y.index_add_(1, rows.reshape(-1),
+                 (vals * x[:, col]).reshape(x.shape[0], -1))
+
+
+@torch.inference_mode()
+def dia_spmv_runs_plain(slabs, xbm, omin: int, symmetric: bool, runs):
+    """The product through an occupancy index in plain PyTorch, on any
+    device: gather the listed runs of ``slabs`` and the values of x they
+    meet, multiply, and ``index_add_`` by row.  What the index leaves out
+    is not read: with the index of ``run_index`` the result is that of
+    ``dia_spmv_plain`` up to the order of the sums."""
+    _check(slabs, xbm, omin, symmetric, runs)
+    dtype = torch.promote_types(slabs.dtype, xbm.dtype)
+    x, s = xbm.to(dtype), slabs.to(dtype)
+    y = torch.zeros((x.shape[0], slabs.shape[1]), dtype=dtype,
+                    device=x.device)
+    if slabs.numel() == 0 or x.shape[1] == 0:
+        return y
+    _add_runs(y, s, x, omin, runs[0], runs[1], False)
+    if symmetric:
+        _add_runs(y, s, x, omin, runs[2], runs[3], True)
+    return y
+
+
+@torch.inference_mode()
+def dia_spmv_cuda(slabs, xbm, omin: int, symmetric: bool = False, runs=None,
+                  vals=None):
+    """A CUDA kernel: y (B, m) for slabs (D, m) and x (B, n), both on one
+    CUDA device, both float32 or both float64.  With ``runs`` (the int32
+    occupancy index on the same device) the run kernel, which reads only
+    the listed runs: from ``vals`` (``pack_runs`` of these slabs and this
+    index) as a stream, else scattered from the slabs; the same bits either
+    way.  Without ``runs``, the dense kernel.  One launch per two rows of x
+    (the kernels keep two sums per thread in registers)."""
+    _check(slabs, xbm, omin, symmetric, runs, vals)
     dev = slabs.device
-    if dev.type != "cuda" or xbm.device != dev:
-        raise ValueError(f"dia_spmv_cuda needs slabs and x on one CUDA "
-                         f"device; slabs on {dev}, x on {xbm.device}")
+    if dev.type != "cuda" or xbm.device != dev or any(
+            t.device != dev for t in (*(runs or ()), *(vals or ()))):
+        raise ValueError(f"dia_spmv_cuda needs slabs, x and the index on one "
+                         f"CUDA device; slabs on {dev}, x on {xbm.device}")
     if slabs.dtype not in _DTYPES or xbm.dtype != slabs.dtype:
         raise TypeError(f"dia_spmv_cuda takes float32 or float64 slabs and "
                         f"x of the same dtype; got {slabs.dtype} and "
@@ -109,28 +326,123 @@ def dia_spmv_cuda(slabs, xbm, omin: int, symmetric: bool = False):
     (D, m), (B, n) = slabs.shape, x.shape
     y = torch.empty((B, m), dtype=slabs.dtype, device=dev)
     size = slabs.element_size()
+    if runs is not None:
+        runs = [t.contiguous() for t in runs]
+        index = [t.data_ptr() for t in runs] + [None] * (4 - len(runs))
+        vals = [t.contiguous() for t in vals or ()]
+        index += [t.data_ptr() for t in vals] + [None] * (2 - len(vals))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for b0 in range(0, B, 2):
             nb = min(2, B - b0)
-            err = lib.dia_spmv(
-                size, int(symmetric), m, n, D, omin, nb, slabs.data_ptr(),
-                x.data_ptr() + b0 * n * size, y.data_ptr() + b0 * m * size,
-                stream)
+            xp = x.data_ptr() + b0 * n * size
+            yp = y.data_ptr() + b0 * m * size
+            if runs is None:
+                err = lib.dia_spmv(size, int(symmetric), m, n, D, omin, nb,
+                                   slabs.data_ptr(), xp, yp, stream)
+            else:
+                err = lib.dia_spmv_runs(
+                    size, int(symmetric), m, n, D, omin, nb, RUN_ROWS,
+                    -(-m // RUN_ROWS), slabs.data_ptr(), *index, xp, yp,
+                    stream)
             if err:
                 raise RuntimeError(
                     "dia_spmv launch failed: "
                     f"{lib.dia_spmv_error_string(err).decode()}")
             LAUNCHES["dia_spmv"] += 1
+            if runs is not None:
+                LAUNCHES["dia_spmv_runs"] += 1
     return y
 
 
-def band_spmv(slabs, xbm, omin: int, symmetric: bool = False):
-    """y (B, m) = band(slabs, omin) @ x for x given as (B, n): the plain
-    version for CPU tensors, the CUDA kernel otherwise."""
+@torch.inference_mode()
+def dia_split_cuda(re, im, xn2, omin: int, symmetric: bool, runs, vals=None):
+    """The split-complex run kernel: y (2, m) = (yr, yi) for the real slab
+    sets ``re`` and ``im`` (both (D, m)) of one complex matrix, their shared
+    occupancy index ``runs`` and x given as (n, 2), the real and the
+    imaginary part of a column side by side; all on one CUDA device, float32
+    or float64.  ``vals`` is (``pack_runs`` of re, ``pack_runs`` of im) for
+    this index, which the kernel then streams; without it the runs are read
+    scattered from the slabs, to the same bits.  One launch, in place of
+    ``split_complex_apply`` over two launches of ``dia_spmv_cuda`` with this
+    index: the same sums in the same order."""
+    _check(re, xn2.T, omin, symmetric, runs, vals and vals[0])
+    if vals is not None and (len(vals) != 2 or any(
+            a.shape != b.shape or a.dtype != b.dtype for a, b in zip(*vals))):
+        raise ValueError("the packed run values of re and of im must be "
+                         "alike: one index serves both slab sets")
+    dev = re.device
+    tensors = (re, im, xn2) + tuple(runs) + tuple(
+        t for v in vals or () for t in v)
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("dia_split_cuda needs both slab sets, x and the "
+                         "index on one CUDA device; got "
+                         + ", ".join(str(t.device) for t in tensors))
+    if re.shape != im.shape or xn2.shape[1] != 2:
+        raise ValueError(f"re and im must be (D, m) alike and x (n, 2); got "
+                         f"{tuple(re.shape)}, {tuple(im.shape)} and "
+                         f"{tuple(xn2.shape)}")
+    if re.dtype not in _DTYPES or im.dtype != re.dtype \
+            or xn2.dtype != re.dtype:
+        raise TypeError("dia_split_cuda takes float32 or float64 slab sets "
+                        f"and x of one dtype; got {re.dtype}, {im.dtype} and "
+                        f"{xn2.dtype}")
+    lib = load_cuda_library()
+    re, im, x = re.contiguous(), im.contiguous(), xn2.contiguous()
+    size = re.element_size()
+    if x.data_ptr() % (2 * size):  # a view that starts between two pairs
+        x = x.clone()
+    (D, m), n = re.shape, x.shape[0]
+    runs = [t.contiguous() for t in runs]
+    index = [t.data_ptr() for t in runs] + [None] * (4 - len(runs))
+    if vals is None:
+        index += [None] * 4
+    else:  # re's and im's forward values, then their mirror values
+        vals = [[t.contiguous() for t in v] for v in vals]
+        index += [v[k].data_ptr() if k < len(v) else None
+                  for k in range(2) for v in vals]
+    y = torch.empty((2, m), dtype=re.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.dia_spmv_runs_split(
+            size, int(symmetric), m, n, D, omin, RUN_ROWS, -(-m // RUN_ROWS),
+            re.data_ptr(), im.data_ptr(), *index, x.data_ptr(), y.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError("dia_spmv_runs_split launch failed: "
+                           f"{lib.dia_spmv_error_string(err).decode()}")
+    for key in LAUNCHES:
+        LAUNCHES[key] += 1
+    return y
+
+
+def split_band_spmv(re, im, xr, xi, omin: int, symmetric: bool, runs,
+                    vals=None):
+    """(yr, yi) of the complex band ``re + 1j*im`` (two (D, m) slab sets
+    with one occupancy index) times ``xr + 1j*xi``: on CPU tensors the plain
+    walk of the index over each set, on CUDA tensors one launch of the
+    split-complex kernel (on the packed run values ``vals`` where given)."""
+    if re.device.type == "cpu" and xr.device.type == "cpu":
+        return split_complex_apply(
+            *(functools.partial(dia_spmv_runs_plain, s, omin=omin,
+                                symmetric=symmetric, runs=runs)
+              for s in (re, im)), xr, xi)
+    y = dia_split_cuda(re, im, torch.stack([xr, xi], dim=1), omin, symmetric,
+                       runs, vals)
+    return y[0], y[1]
+
+
+def band_spmv(slabs, xbm, omin: int, symmetric: bool = False, runs=None,
+              vals=None):
+    """y (B, m) = band(slabs, omin) @ x for x given as (B, n): a plain
+    version for CPU tensors, a CUDA kernel otherwise; with ``runs``, the
+    occupancy index, the version of either that walks it (the kernel on the
+    packed run values ``vals`` where given; the plain walk gathers from the
+    slabs)."""
     if slabs.device.type == "cpu" and xbm.device.type == "cpu":
-        return dia_spmv_plain(slabs, xbm, omin, symmetric)
-    return dia_spmv_cuda(slabs, xbm, omin, symmetric)
+        if runs is None:
+            return dia_spmv_plain(slabs, xbm, omin, symmetric)
+        return dia_spmv_runs_plain(slabs, xbm, omin, symmetric, runs)
+    return dia_spmv_cuda(slabs, xbm, omin, symmetric, runs, vals)
 
 
 def split_complex_apply(re, im, xr, xi):
@@ -177,23 +489,28 @@ class CudaDIA(nn.Module):
 
 class SplitCudaDIA(nn.Module):
     """Split-complex banded SpMV in float32: ``forward(xr, xi) -> (yr,
-    yi)``; each real slab set is streamed once for the stacked (2, n)
-    input."""
+    yi)``; the two real slab sets share one occupancy index where they have
+    one, and a product walks it once for both."""
 
     def __init__(self, a, tile: int = 512, dchunk: int = 64, device=None):
         super().__init__()
         from ..config import resolve_device
-        from ..ops.matvec import _split_real
+        from ..ops.matvec import _share_runs, _split_real
 
         device = resolve_device(device, a)
         self.iscomplex, re, im = _split_real(a)
         self.re = CudaDIA(re, device=device)
         self.im = None if im is None else CudaDIA(im, device=device)
+        self.shared_runs = _share_runs(self.re.plan,
+                                       self.im and self.im.plan)
 
     @torch.inference_mode()
     def forward(self, xr, xi):
-        return split_complex_apply(
-            self.re.apply_bn, self.im and self.im.apply_bn, xr, xi)
+        from ..ops.matvec import _split_apply
+
+        return _split_apply(self.re.plan, self.im and self.im.plan,
+                            self.shared_runs, xr.to(torch.float32),
+                            xi.to(torch.float32))
 
 
 # the JAX package exports these names

@@ -23,9 +23,16 @@ The DIA family is the gather-free form for banded matrices (an RCM-ordered
 grid Ybus, ``models.grids.rcm_grid``): ``DIAPlan`` densifies the offset
 range [omin, omax] into row-aligned slabs, ``SymDIAPlan`` stores only the
 diagonals d >= 0 of a symmetric matrix, ``SplitDIA`` / ``SplitSymDIA`` are
-their split-complex forms.  They keep the matrix's dtype.  A product on a
-CPU tensor runs the plain version of ``kernels.dia``; on a CUDA tensor it
-launches that module's CUDA kernel, or raises.  ``chunk=`` (the JAX
+their split-complex forms.  They keep the matrix's dtype.  Beside its slabs
+a plan holds their occupancy index (``kernels.dia.run_index``, built once on
+the host with the slabs: which runs of ``RUN_ROWS`` consecutive slab values
+hold a nonzero) and the values of those runs packed in index order
+(``kernels.dia.pack_runs``, ~1% of the slabs, for the kernel to stream),
+unless the band is dense enough that walking all of it is faster.  The
+split-complex forms give their two real plans one shared index and make one
+kernel launch per product.  A product on a CPU tensor runs a plain version
+of ``kernels.dia``; on a CUDA tensor it launches one of that module's CUDA
+kernels (the one that walks the index when the plan has one), or raises.  ``chunk=`` (the JAX
 plans' diagonals per scan step) is accepted and has no effect.
 
 Every plan is placed on ``device``; None is the device its matrix was
@@ -67,13 +74,12 @@ def _stream_product(rows, cols, vals, m, x):
 
 @torch.inference_mode()
 def spmv(a: CSC, x):
-    """y = A @ x on x's device (A is placed there)."""
+    """y = A @ x on x's device.  A is placed there at the first call (the
+    placed copy and its entry streams are kept on ``a``)."""
     _check(a.m, a.n, x)
     a = a.to(x.device)
-    k = a.nnz
-    cols = torch.as_tensor(construct.expand_indptr_np(a.np_arrays()[0]),
-                           dtype=torch.int64, device=x.device)
-    return _stream_product(a.indices[:k].long(), cols, a.data[:k], a.m, x)
+    rows, cols = a.entry_streams()
+    return _stream_product(rows, cols, a.data[: a.nnz], a.m, x)
 
 
 @torch.inference_mode()
@@ -99,12 +105,13 @@ def spmm(a: CSC, X, *, block=None, device=None):
 
 def bsr_spmm(a: BSR, X):
     """Y = A @ X with A in BSR blocks, on X's device (A is placed there):
-    every stored (R, C) block meets the C rows of X of its block column,
-    and the products add up by block row.  X is (n, k) or (n,)."""
+    every stored (R, C) block meets the rows of X of its occupied columns
+    (``BSR.column_lists``, built at the container's first product), and the
+    products add up by block row.  X is (n, k) or (n,)."""
     a = a.to(X.device)
     k = a.nnz_blocks
     return bsr_kernel.bsr_spmm(a.m, a.n, a.indptr, a.indices[:k],
-                               a.data[:k], X)
+                               a.data[:k], X, a.column_lists())
 
 
 class SpMVPlan(nn.Module):
@@ -238,12 +245,74 @@ def _split_real(a):
 
 
 class _BandPlan(nn.Module):
-    """What the two banded plans share: (D, m) slabs on the device, and a
-    forward that carries (n,) or (n, B) input as (B, n) to ``kernels.dia``;
-    ``apply_bn`` takes and returns that layout directly."""
+    """What the two banded plans share: (D, m) slabs on the device, their
+    occupancy index (or none, for a dense band), and a forward that carries
+    (n,) or (n, B) input as (B, n) to ``kernels.dia``; ``apply_bn`` takes
+    and returns that layout directly."""
 
     symmetric = False
     omin = 0
+    _RUN_BUFFERS = ("run_ptr", "run_diag", "mir_ptr", "mir_diag")
+    _VAL_BUFFERS = ("run_vals", "mir_vals")
+
+    def _place(self, ra, device):
+        """Register the host slabs ``ra`` on ``device``, and their occupancy
+        index as int32 buffers when the listed runs are at most
+        ``RUN_SHARE_MAX`` of the runs the dense kernel walks.  The rule is
+        fixed here, at build: a cast of the values (``float()``) leaves the
+        index alone, and cannot turn a zero into a nonzero."""
+        self.register_buffer("slabs", torch.as_tensor(ra, device=device))
+        self.has_runs = False
+        self._set_runs(dia_kernel.run_index(ra, self.symmetric))
+
+    def _set_runs(self, index) -> bool:
+        """Take ``index`` (numpy arrays, as ``kernels.dia.run_index`` gives
+        them) for the plan's occupancy index if it passes the rule; returns
+        whether it did.  An index that fails leaves the plan as it was."""
+        listed = sum(len(diag) for diag in index[1::2])
+        D, m = self.slabs.shape
+        walked = -(-m // dia_kernel.RUN_ROWS) * (
+            2 * D - 1 if self.symmetric else D)
+        share = listed / walked if walked > 0 else 1.0
+        if not self.has_runs:
+            #: listed runs over the runs of the dense walk
+            self.run_share = share
+        if share > dia_kernel.RUN_SHARE_MAX:
+            return False
+        self.run_share, self.has_runs = share, True
+        for name, arr in zip(self._RUN_BUFFERS, index):
+            self.register_buffer(
+                name, torch.as_tensor(arr, device=self.slabs.device))
+        # the listed runs' values, packed in index order for the kernels to
+        # stream: a copy of ~1% of the slabs (float buffers: a cast of the
+        # plan casts them with the slabs)
+        for name, vals in zip(self._VAL_BUFFERS, dia_kernel.pack_runs(
+                self.slabs, self.n, self.omin, self.symmetric, self.runs)):
+            self.register_buffer(name, vals)
+        return True
+
+    @property
+    def runs(self):
+        """The occupancy index as ``kernels.dia`` takes it, or None."""
+        if not self.has_runs:
+            return None
+        return tuple(getattr(self, name) for name in
+                     self._RUN_BUFFERS[: 4 if self.symmetric else 2])
+
+    @property
+    def run_values(self):
+        """The packed values of the listed runs (``kernels.dia.pack_runs``),
+        or None."""
+        if not self.has_runs:
+            return None
+        return tuple(getattr(self, name) for name in
+                     self._VAL_BUFFERS[: 2 if self.symmetric else 1])
+
+    def call_buffers(self):
+        """The buffers one product reads (``utils.roofline.plan_bytes``):
+        the index and the packed run values, or all of the slabs."""
+        return self.runs + self.run_values if self.has_runs \
+            else (self.slabs,)
 
     @property
     def ndiag(self) -> int:
@@ -251,7 +320,8 @@ class _BandPlan(nn.Module):
 
     def apply_bn(self, xbn, plain: bool = False):
         """y (B, m) for x given as (B, n), the kernel's own layout, in the
-        plan's working dtype; ``plain`` asks for the plain PyTorch version.
+        plan's working dtype; ``plain`` asks for the plain PyTorch version
+        of the same route (through the index when the plan has one).
         The kernel takes one dtype: an input wider than the slabs is
         refused on a CUDA device rather than casting the slabs on every
         call."""
@@ -264,8 +334,12 @@ class _BandPlan(nn.Module):
                 f"{type(self).__name__} holds {self.slabs.dtype} slabs and "
                 f"got {xbn.dtype} input: cast x, or build the plan from a "
                 f"matrix of the wider dtype")
-        fn = dia_kernel.dia_spmv_plain if plain else dia_kernel.band_spmv
-        return fn(self.slabs, xbn.to(dtype), self.omin, self.symmetric)
+        args = (self.slabs, xbn.to(dtype), self.omin, self.symmetric)
+        if not plain:
+            return dia_kernel.band_spmv(*args, self.runs, self.run_values)
+        if self.runs is None:
+            return dia_kernel.dia_spmv_plain(*args)
+        return dia_kernel.dia_spmv_runs_plain(*args, self.runs)
 
     def _call(self, x, plain):
         _check(self.m, self.n, x)
@@ -288,8 +362,9 @@ class DIAPlan(_BandPlan):
 
     The matrix (a CSC or a DIA) is stored as a DENSE range of diagonals
     [omin, omax]: ``slabs[o - omin, i] = A[i, i + o]``, missing offsets
-    hold zero slabs (RCM bands are nearly dense in offset space).  A
-    product reads D * m values, whatever the nonzero count.
+    hold zero slabs.  The plan lists which runs of the slabs hold
+    nonzeros (``runs``), and a product reads only those; a band that is
+    dense keeps no list, and a product reads all D * m values.
     ``forward(x)`` takes (n,) or (n, B).
     """
 
@@ -308,7 +383,7 @@ class DIAPlan(_BandPlan):
                 ra[off - omin, i_lo:i_hi] = data[t, i_lo + off: i_hi + off]
         self.omin = omin
         self.chunk = int(chunk)
-        self.register_buffer("slabs", torch.as_tensor(ra, device=device))
+        self._place(ra, device)
 
 
 class SymDIAPlan(_BandPlan):
@@ -358,26 +433,63 @@ class SymDIAPlan(_BandPlan):
                         f"{off}); use DIAPlan, or check=False to skip")
         self.omax = omax
         self.chunk = int(chunk)
-        self.register_buffer("slabs", torch.as_tensor(ra, device=device))
+        self._place(ra, device)
+
+
+def _share_runs(re, im) -> bool:
+    """Give the two real plans of one complex matrix ONE occupancy index, the
+    union of theirs (the real and the imaginary part share a pattern, so the
+    two are equal unless a stored value has a zero part), held once on the
+    device.  Returns whether they now share one: not when the matrix is real,
+    when either band is dense, or when the union fails the plans' rule."""
+    if im is None or not (re.has_runs and im.has_runs):
+        return False
+    if not all(torch.equal(a, b) for a, b in zip(re.runs, im.runs)):
+        union = dia_kernel.merge_run_index(
+            *([t.cpu().numpy() for t in p.runs] for p in (re, im)), re.ndiag)
+        if not re._set_runs(union):
+            return False
+        im._set_runs(union)  # the same rule on the same count: it passes
+    for name in re._RUN_BUFFERS[: len(re.runs)]:
+        setattr(im, name, getattr(re, name))
+    return True
+
+
+def _split_apply(re, im, shared, xr, xi, plain=False):
+    """(yr, yi) of the complex band held as the real plans ``re`` / ``im``
+    (``im`` None for a real matrix).  With a shared index (``_share_runs``)
+    one walk of it serves both slab sets: on CUDA tensors a single launch
+    of the split-complex kernel.  Else each plan is applied once, to the
+    stacked (2, n) input."""
+    if xr.shape[-1] != re.n:
+        raise ValueError(f"dimension mismatch: matrix is ({re.m}, {re.n}), "
+                         f"x has {xr.shape[-1]} rows")
+    if shared and not plain:
+        dtype = torch.promote_types(re.slabs.dtype, xr.dtype)
+        return dia_kernel.split_band_spmv(
+            re.slabs, im.slabs, xr.to(dtype), xi.to(dtype), re.omin,
+            re.symmetric, re.runs, (re.run_values, im.run_values))
+    return dia_kernel.split_complex_apply(
+        functools.partial(re.apply_bn, plain=plain),
+        im and functools.partial(im.apply_bn, plain=plain), xr, xi)
 
 
 class _SplitBand(nn.Module):
     """Split-complex banded SpMV over two real plans ``re`` / ``im``:
-    ``forward(xr, xi) -> (yr, yi)`` with the algebra of ``SplitSpMV``,
-    each real slab set streamed once for the stacked (2, n) input."""
+    ``forward(xr, xi) -> (yr, yi)`` with the algebra of ``SplitSpMV``.  The
+    two plans share one occupancy index where they have one
+    (``shared_runs``), and a product then walks it once for both."""
 
     @torch.inference_mode()
     def forward(self, xr, xi):
-        return dia_kernel.split_complex_apply(
-            self.re.apply_bn, self.im and self.im.apply_bn, xr, xi)
+        return _split_apply(self.re, self.im, self.shared_runs, xr, xi)
 
     @torch.inference_mode()
     def plain(self, xr, xi):
-        """The plain PyTorch version, on any device."""
-        return dia_kernel.split_complex_apply(
-            functools.partial(self.re.apply_bn, plain=True),
-            self.im and functools.partial(self.im.apply_bn, plain=True),
-            xr, xi)
+        """The plain PyTorch version, on any device: each plan's plain
+        walk of its index (or of the whole band), combined."""
+        return _split_apply(self.re, self.im, self.shared_runs, xr, xi,
+                            plain=True)
 
 
 class SplitDIA(_SplitBand):
@@ -390,6 +502,7 @@ class SplitDIA(_SplitBand):
         self.re = DIAPlan(re, chunk=chunk, device=device)
         self.im = None if im is None else DIAPlan(im, chunk=chunk,
                                                   device=device)
+        self.shared_runs = _share_runs(self.re, self.im)
 
 
 class SplitSymDIA(_SplitBand):
@@ -404,3 +517,4 @@ class SplitSymDIA(_SplitBand):
         kw = dict(chunk=chunk, check=check, tol=tol, device=device)
         self.re = SymDIAPlan(re, **kw)
         self.im = None if im is None else SymDIAPlan(im, **kw)
+        self.shared_runs = _share_runs(self.re, self.im)

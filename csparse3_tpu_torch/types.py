@@ -15,7 +15,12 @@ tensors are made on first access of ``indptr`` / ``indices`` / ``data``
 host-only caller passes ``device="cpu"``).  That default is resolved at
 the first access of ``device`` or of a tensor, not at construction: the
 host-symbolic steps read ``np_arrays()`` and need no device at all.
-``to(device)`` returns a container placed elsewhere.
+``to(device)`` returns the container itself when it was placed there
+already, else a container placed there (a CSC remembers the one it made for
+each device, so a product that places its matrix uploads it once).  Nothing
+in this package changes a container's values in place: results are new
+containers, which is what lets structure derived from values (the placed
+copies, a CSC's entry streams, a BSR's column lists) be kept.
 """
 
 from __future__ import annotations
@@ -28,6 +33,14 @@ import torch
 from .config import resolve_device
 
 __all__ = ["CSC", "CSR", "COO", "BSR", "DIA"]
+
+
+def _placed_on(mine, device) -> bool:
+    """Whether a container placed on ``mine`` (None: not placed yet) is on
+    ``device``; an index that either side leaves open matches."""
+    d = torch.device(device)
+    return mine is not None and mine.type == d.type and (
+        mine.index == d.index or None in (mine.index, d.index))
 
 
 def _host_cache(*arrays):
@@ -113,9 +126,29 @@ class CSC(_SparseBase):
     data = property(lambda self: self._field(2))
 
     def to(self, device) -> "CSC":
-        arrays = self._np if self._np is not None else self._arrays
-        return CSC(self.m, self.n, *arrays, nnz=self.nnz,
-                   canonical=self.canonical, device=device)
+        """This container when it was placed on ``device`` already, else
+        the copy placed there, made at the first such call and kept."""
+        if _placed_on(self._device, device):
+            return self
+        placed = self.__dict__.setdefault("_placed", {})
+        key = str(torch.device(device))
+        if key not in placed:
+            arrays = self._np if self._np is not None else self._arrays
+            placed[key] = CSC(self.m, self.n, *arrays, nnz=self.nnz,
+                              canonical=self.canonical, device=device)
+        return placed[key]
+
+    def entry_streams(self):
+        """(row ids, column ids) of the stored entries as int64 tensors on
+        the container's device, the column ids expanded from ``indptr`` on
+        the host: made once and kept."""
+        if "_streams" not in self.__dict__:
+            from .ops.construct import expand_indptr_np
+
+            cols = torch.as_tensor(expand_indptr_np(self.np_arrays()[0]),
+                                   dtype=torch.int64, device=self.device)
+            self._streams = (self.indices[: self.nnz].long(), cols)
+        return self._streams
 
     def __getitem__(self, key):
         from .ops import slicing
@@ -311,7 +344,10 @@ class BSR:
     the block-CSR pattern, mb = ceil(m / R) block rows, nb = ceil(n / C)
     block columns; the logical matrix is zero-padded up to (mb*R, nb*C).
     The block pattern is host work (``np_arrays``), the block values are
-    the device tensor ``data``."""
+    the device tensor ``data``.  ``column_lists`` is structure derived from
+    the values (which columns of each block hold a nonzero), built once; it
+    would go stale if ``data`` were changed in place, which nothing in this
+    package does."""
 
     def __init__(self, m, n, R, C, indptr, indices, data, nnz_blocks=None,
                  device=None):
@@ -368,14 +404,29 @@ class BSR:
 
     def to(self, device) -> "BSR":
         """This container when it was placed on ``device`` already (the
-        block values are not uploaded again), else a copy placed there."""
-        d = torch.device(device)
-        mine = self._device
-        if mine is not None and mine.type == d.type and (
-                mine.index == d.index or None in (mine.index, d.index)):
+        block values are not uploaded again), else a copy placed there; the
+        host column lists go with it."""
+        if _placed_on(self._device, device):
             return self
-        return BSR(self.m, self.n, self.R, self.C, *self._raw(),
-                   nnz_blocks=self.nnz_blocks, device=device)
+        out = BSR(self.m, self.n, self.R, self.C, *self._raw(),
+                  nnz_blocks=self.nnz_blocks, device=device)
+        if "_cols_np" in self.__dict__:
+            out._cols_np = self._cols_np
+        return out
+
+    def column_lists(self):
+        """(col_ptr, col_idx): for each stored block the sorted columns that
+        hold a nonzero in any of its rows (``kernels.bsr_spmm.column_lists``),
+        as int32 tensors on the container's device.  Built on the host from
+        ``np_arrays()`` at the first call and kept with the container."""
+        if "_cols" not in self.__dict__:
+            if "_cols_np" not in self.__dict__:
+                from .kernels.bsr_spmm import column_lists
+
+                self._cols_np = column_lists(self.np_arrays()[2])
+            self._cols = tuple(torch.as_tensor(a, device=self.device)
+                               for a in self._cols_np)
+        return self._cols
 
     def __repr__(self):
         where = "default" if self._device is None else self._device

@@ -137,9 +137,17 @@ def measure_hbm_bw(mb: int = 1024, reps: int = 10, trials: int = 3,
 
 def plan_bytes(plan, *io) -> int:
     """Compulsory bytes of one call: every buffer of ``plan`` (an
-    nn.Module, the operator's resident state) read once, plus each explicit
-    ``io`` tensor moved once."""
-    total = sum(b.numel() * b.element_size() for b in plan.buffers())
+    nn.Module, the operator's resident state) that a call reads, once, plus
+    each explicit ``io`` tensor moved once.  A module names the buffers a
+    call reads with ``call_buffers()`` where they are not all of its own (a
+    banded plan with an occupancy index reads the index and the packed run
+    values, not the slabs); a buffer two modules share counts once."""
+    read = {}
+    for mod in plan.modules():
+        own = mod.call_buffers() if hasattr(mod, "call_buffers") \
+            else mod.buffers(recurse=False)
+        read.update((id(b), b) for b in own)
+    total = sum(b.numel() * b.element_size() for b in read.values())
     return total + sum(t.numel() * t.element_size() for t in io)
 
 

@@ -234,3 +234,106 @@ def test_bsr_matmat_with_an_empty_product():
     assert Zp.nnz_blocks == 0
     _same_bsr(Ap @ Zp, Aj @ Zj)
     assert (pmv.bsr_spmm(Zp, torch.ones(64, 3, dtype=torch.float64)) == 0).all()
+
+
+# -- the column lists ----------------------------------------------------------
+
+LIST_CASES = {
+    "ragged_8x128": (lambda dt: _rand(100, 90, 0.05, 2, dt), (8, 128)),
+    "rect_8x128": (lambda dt: _rand(300, 260, 0.03, 0, dt), (8, 128)),
+    "empty_block_rows_8x128": (_diag100, (8, 128)),
+    "square_32x32": (lambda dt: _rand(256, 256, 0.03, 3, dt), (32, 32)),
+    "full_blocks_32x32": (lambda dt: _rand(96, 64, 0.9, 15, dt), (32, 32)),
+    "odd_3x5": (lambda dt: _rand(100, 93, 0.05, 16, dt), (3, 5)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIST_CASES))
+def test_column_lists_cover_every_nonzero_of_the_blocks(case):
+    make, block = LIST_CASES[case]
+    Bp, _ = _bsr_pair(make(np.float64), block)
+    col_ptr, col_idx = Bp.column_lists()
+    assert col_ptr.dtype == col_idx.dtype == torch.int32
+    assert col_ptr.shape == (Bp.nnz_blocks + 1,) and col_ptr[0] == 0 \
+        and col_ptr[-1] == col_idx.shape[0]
+    data = Bp.np_arrays()[2]
+    for p in range(Bp.nnz_blocks):
+        cols = col_idx[col_ptr[p]:col_ptr[p + 1]].numpy()
+        np.testing.assert_array_equal(
+            cols, np.flatnonzero((data[p] != 0).any(axis=0)))
+    # built once, kept with the container and with the one ``to`` returns
+    assert Bp.column_lists() is Bp.column_lists()
+    assert Bp.to("cpu").column_lists()[1] is col_idx
+    if case == "full_blocks_32x32":  # every list is the whole block
+        assert (col_ptr.diff() == 32).all()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [None, 1, 37])
+@pytest.mark.parametrize("case", sorted(LIST_CASES))
+def test_bsr_spmm_plain_with_lists_equals_without_and_jax(case, k, dtype):
+    make, block = LIST_CASES[case]
+    a = make(dtype)
+    Bp, Bj = _bsr_pair(a, block)
+    rng = np.random.RandomState(17)
+    X = (rng.rand(a.shape[1]) if k is None
+         else rng.rand(a.shape[1], k)).astype(dtype)
+    nb = Bp.nnz_blocks
+    args = (Bp.m, Bp.n, Bp.indptr, Bp.indices[:nb], Bp.data[:nb],
+            torch.as_tensor(X))
+    dense = kbsr.bsr_spmm_plain(*args)
+    listed = kbsr.bsr_spmm_plain(*args, Bp.column_lists())
+    assert listed.shape == dense.shape and listed.dtype == dense.dtype
+    rtol = 1e-5 if dtype == np.float32 else 1e-12
+    ref = a.astype(np.float64) @ X.astype(np.float64)
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(listed.numpy(), dense.numpy(), rtol=rtol,
+                               atol=rtol * scale)
+    np.testing.assert_allclose(listed.numpy(), ref, rtol=rtol,
+                               atol=rtol * scale)
+    np.testing.assert_allclose(
+        listed.numpy(), np.asarray(bsr_spmm_pallas(Bj, jnp.asarray(X))),
+        rtol=rtol, atol=rtol * scale)
+    # the container's product walks its lists; the raw call without lists
+    # still takes every column
+    assert torch.equal(pmv.bsr_spmm(Bp, torch.as_tensor(X)), listed)
+    assert torch.equal(kbsr.bsr_spmm(*args), dense)
+    if case == "empty_block_rows_8x128":
+        assert (listed[100:] == 0).all()
+
+
+def test_bsr_spmm_with_lists_walks_in_chunks_and_refuses_bad_lists(
+        monkeypatch):
+    a = _rand(300, 260, 0.03, 0)
+    Bp, _ = _bsr_pair(a, (8, 128))
+    X = torch.as_tensor(np.random.RandomState(2).rand(260, 9))
+    nb = Bp.nnz_blocks
+    args = (Bp.m, Bp.n, Bp.indptr, Bp.indices[:nb], Bp.data[:nb], X)
+    cols = Bp.column_lists()
+    whole = kbsr.bsr_spmm_plain(*args, cols)
+    monkeypatch.setattr(kbsr, "PLAIN_GATHER_BYTES", 5 * 8 * 9 * 8)
+    np.testing.assert_allclose(kbsr.bsr_spmm_plain(*args, cols).numpy(),
+                               whole.numpy(), rtol=1e-13)
+    with pytest.raises(ValueError, match="column lists"):
+        kbsr.bsr_spmm(*args, (cols[0][:-1], cols[1]))
+    with pytest.raises(ValueError, match="column lists"):
+        kbsr.bsr_spmm(*args, (cols[0].long(), cols[1]))
+    with pytest.raises(ValueError, match="CUDA device"):
+        kbsr.bsr_spmm_cuda(*args, cols)
+
+
+def test_spmv_and_spmm_place_the_matrix_and_its_streams_once():
+    a = _rand(120, 120, 0.05, 6)
+    A = csc_from_arrays(120, 120, a.indptr, a.indices, a.data)  # no device
+    x = torch.as_tensor(np.random.RandomState(3).rand(120))
+    y1 = pmv.spmv(A, x)
+    placed = A.to("cpu")
+    streams = placed.entry_streams()
+    y2 = pmv.spmm(A, torch.stack([x, x], dim=1))
+    assert A.to(x.device) is placed and placed.to("cpu") is placed
+    assert placed.entry_streams() is streams
+    assert placed.data.data_ptr() == A.to("cpu").data.data_ptr()
+    np.testing.assert_array_equal(streams[1].numpy(),
+                                  np.repeat(np.arange(120), np.diff(a.indptr)))
+    np.testing.assert_allclose(y1.numpy(), a @ x.numpy(), rtol=1e-12)
+    np.testing.assert_allclose(y2[:, 1].numpy(), y1.numpy(), rtol=1e-12)

@@ -214,9 +214,19 @@ def test_plan_bytes_and_pct_roofline():
     Y = pgrids.ybus(pgrids.rcm_grid(pgrids.synthetic_grid(200, seed=7))[0])[0]
     plan = pt.SplitDIA(Y, device="cpu")
     x = torch.zeros(200, dtype=torch.float64)
-    D = plan.re.ndiag
-    assert roofline.plan_bytes(plan) == 2 * D * 200 * 8
-    assert roofline.plan_bytes(plan, x, x) == 2 * D * 200 * 8 + 2 * 200 * 8
+    # a call reads the shared occupancy index once and each slab set's
+    # packed run values, not the (D, 200) slabs
+    assert plan.shared_runs
+    read = sum(t.numel() * 4 for t in plan.re.runs) + sum(
+        t.numel() * 8 for p in (plan.re, plan.im) for t in p.run_values)
+    assert read < plan.re.ndiag * 200 * 8
+    assert roofline.plan_bytes(plan) == read
+    assert roofline.plan_bytes(plan, x, x) == read + 2 * 200 * 8
+    # a dense band keeps no index: all of its slabs
+    tri = pt.DIAPlan(pt.from_triplets(
+        np.r_[0:50, 1:50], np.r_[0:50, 0:49], np.ones(99), (50, 50)),
+        device="cpu")
+    assert not tri.has_runs and roofline.plan_bytes(tri) == 2 * 50 * 8
     assert roofline.pct_roofline(3.35e12, 2.0, roofline.H100_HBM_BYTES_PER_S) \
         == 0.5
     assert roofline.pct_roofline(1, 0.0, 1.0) == 0.0

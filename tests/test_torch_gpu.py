@@ -12,11 +12,17 @@ The kernel and the plain version both sum in float32, in different orders
 The DIA kernel is held row by row to the rounding bound of its sums,
 (k + 2) u (|A| |x|)_i for k stored diagonals, u the unit roundoff of the
 dtype; the triad rounds like its plain version and must equal it bit for
-bit.  The SpGEMM-numeric kernel is held output by output to (L + 1) u
+bit.  The DIA run kernel (the one that walks a plan's occupancy index) and
+the BSR kernel with column lists are held to the same bounds, against the
+dense plain version and against the plain version that walks the same
+index, and two launches on one input must agree bit for bit.  The
+SpGEMM-numeric kernel is held output by output to (L + 1) u
 sum|a||b| over the L products of the output, twice that between two
 versions; the BSR kernel row by row to (K + 2) u (|A| |X|) for K stored
 columns in the row's blocks.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -127,6 +133,7 @@ def _offset_band(m, n, offs, seed):
     return pt.from_triplets(rows, cols, rng.rand(len(rows)) - 0.5, (m, n))
 
 
+@functools.lru_cache(maxsize=None)  # read-only in every test
 def _rcm_ybus_real(n, seed, part):
     Y = ybus(rcm_grid(synthetic_grid(n, seed=seed))[0])[0]
     ip, ix, dt = Y.np_arrays()
@@ -211,11 +218,13 @@ def test_split_dia_on_cuda_matches_scipy(cuda, plan):
     p = getattr(pt, plan)(Y, device=cuda, **kw)
     rng = np.random.RandomState(10)
     xr, xi = rng.rand(Y.n), rng.rand(Y.n)
-    before = kdia.LAUNCHES["dia_spmv"]
+    before = dict(kdia.LAUNCHES)
     yr, yi = p(torch.as_tensor(xr, device=cuda),
                torch.as_tensor(xi, device=cuda))
     torch.cuda.synchronize()
-    assert kdia.LAUNCHES["dia_spmv"] - before == 2  # one per real slab set
+    # one launch walks the shared index over both real slab sets
+    assert p.shared_runs
+    assert all(kdia.LAUNCHES[k] - before[k] == 1 for k in before)
     z = Y.to_scipy() @ (xr + 1j * xi)
     f32 = plan == "SplitCudaDIA"
     assert yr.dtype == (torch.float32 if f32 else torch.float64)
@@ -227,20 +236,171 @@ def test_split_dia_on_cuda_matches_scipy(cuda, plan):
 @pytest.mark.gpu
 def test_dia_cuda_input_never_reaches_plain_version(cuda, monkeypatch):
     plan = pt.DIAPlan(_rcm_ybus_real(1037, 3, "real"), device=cuda)
+    dense = pt.DIAPlan(_band(1037), device=cuda)  # tridiagonal: no index
+    assert plan.has_runs and all(t.is_cuda for t in plan.runs)
+    assert not dense.has_runs
 
     def refuse(*a, **k):
         raise AssertionError("plain version ran on a CUDA input")
 
     monkeypatch.setattr(kdia, "dia_spmv_plain", refuse)
+    monkeypatch.setattr(kdia, "dia_spmv_runs_plain", refuse)
     x = torch.rand(1037, device=cuda, dtype=torch.float64)
-    before = kdia.LAUNCHES["dia_spmv"]
+    before = dict(kdia.LAUNCHES)
     plan(x)
-    assert kdia.LAUNCHES["dia_spmv"] == before + 1
+    assert kdia.LAUNCHES["dia_spmv"] == before["dia_spmv"] + 1
+    assert kdia.LAUNCHES["dia_spmv_runs"] == before["dia_spmv_runs"] + 1
+    dense(x)  # the dense kernel: counted, not as a walk of an index
+    assert kdia.LAUNCHES["dia_spmv"] == before["dia_spmv"] + 2
+    assert kdia.LAUNCHES["dia_spmv_runs"] == before["dia_spmv_runs"] + 1
+    with pytest.raises(ValueError, match="CUDA device"):
+        kdia.band_spmv(plan.slabs, x[None], plan.omin, False,
+                       tuple(t.cpu() for t in plan.runs))
     with pytest.raises(ValueError, match="CUDA device"):
         plan(x.cpu())  # slabs on the card, x on the CPU: no fallback
+    split = pt.SplitDIA(ybus(rcm_grid(synthetic_grid(1037, seed=3))[0])[0],
+                        device=cuda)
+    assert split.shared_runs
+    before = dict(kdia.LAUNCHES)
+    split(x, x)
+    assert all(kdia.LAUNCHES[k] == before[k] + 1 for k in before)
+    with pytest.raises(ValueError, match="CUDA device"):
+        split(x.cpu(), x.cpu())
+    with pytest.raises(TypeError, match="one dtype"):
+        split.float()(x, x)
     with pytest.raises(TypeError, match="float64"):
         pt.DIAPlan(_offset_band(64, 64, [0, 1], 1).to(cuda),
                    device=cuda).float()(x[:64])
+
+
+# (case, symmetric form): small matrices split a group's list over eight
+# lane-sets, 20k rows over four, 40k rows over two
+RUN_CASES = [("rcm_ybus_re", False), ("rcm_ybus_re", True),
+             ("rcm_ybus_im", False), ("rcm_ybus_im", True),
+             ("above_diagonal", False), ("below_diagonal", False),
+             ("one_diagonal", False), ("one_diagonal", True),
+             ("rcm_ybus_20k", False), ("rcm_ybus_20k", True),
+             ("rcm_ybus_40k", False), ("rcm_ybus_40k", True),
+             ("rcm_ybus_70k", False), ("rcm_ybus_70k", True)]
+RUN_MATRICES = dict(
+    DIA_CASES,
+    rcm_ybus_20k=lambda: _rcm_ybus_real(20_001, 4, "imag"),
+    rcm_ybus_40k=lambda: _rcm_ybus_real(40_003, 5, "real"),
+    # 70k rows and more: one lane-set per group
+    rcm_ybus_70k=lambda: _rcm_ybus_real(70_001, 7, "imag"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case,sym", RUN_CASES)
+def test_dia_run_kernel_matches_plain_versions_and_repeats(cuda, case, sym,
+                                                           dtype, B):
+    a = RUN_MATRICES[case]()
+    ip, ix, dt = a.np_arrays()
+    a = pt.CSC(a.m, a.n, ip, ix, dt.astype(dtype))
+    plan = (pt.SymDIAPlan(a, tol=1e-12 if dtype == np.float64 else 1e-6,
+                          device=cuda) if sym else pt.DIAPlan(a, device=cuda))
+    # the index of these slabs, whether or not the plan's rule kept one
+    runs = tuple(torch.as_tensor(t, device=cuda) for t in kdia.run_index(
+        plan.slabs.cpu().numpy(), sym))
+    x = torch.as_tensor(np.random.RandomState(12).rand(B, a.n).astype(dtype),
+                        device=cuda)
+    before = dict(kdia.LAUNCHES)
+    yk = kdia.band_spmv(plan.slabs, x, plan.omin, sym, runs)
+    torch.cuda.synchronize()
+    for key in ("dia_spmv", "dia_spmv_runs"):
+        assert kdia.LAUNCHES[key] - before[key] == (B + 1) // 2
+    assert kdia.LAUNCHES["dia_spmv_split"] == before["dia_spmv_split"]
+    dense = kdia.dia_spmv_plain(plan.slabs, x, plan.omin, sym)
+    walked = kdia.dia_spmv_runs_plain(plan.slabs, x, plan.omin, sym, runs)
+    for key in ("dia_spmv", "dia_spmv_runs"):
+        assert kdia.LAUNCHES[key] - before[key] == (B + 1) // 2
+    assert kdia.LAUNCHES["dia_spmv_split"] == before["dia_spmv_split"]
+    assert yk.shape == dense.shape == (B, a.m) and yk.dtype == dense.dtype
+    bound = _dia_bound(plan, x)
+    assert ((yk - dense).abs() <= bound).all()
+    assert ((yk - walked).abs() <= bound).all()
+    ref = (a.to_scipy() @ x.double().cpu().numpy().T).T
+    rel = 1e-12 if dtype == np.float64 else REL
+    assert np.abs(yk.cpu().numpy() - ref).max() <= rel * np.abs(ref).max()
+    # a fixed order of summation: the same bits at every launch, and on the
+    # packed run values as on the slabs
+    assert torch.equal(kdia.band_spmv(plan.slabs, x, plan.omin, sym, runs), yk)
+    vals = kdia.pack_runs(plan.slabs, a.n, plan.omin, sym, runs)
+    assert all(v.is_cuda for v in vals)
+    assert torch.equal(
+        kdia.band_spmv(plan.slabs, x, plan.omin, sym, runs, vals), yk)
+    if plan.has_runs:  # and it is what the plan itself launches
+        assert torch.equal(plan.apply_bn(x), yk)
+
+
+def _complex_band(n, seed, dtype):
+    """RCM-ordered Ybus whose parts differ in pattern: every seventh stored
+    value (by its lower bus) is purely real, every eleventh purely
+    imaginary, symmetrically."""
+    Y = ybus(rcm_grid(synthetic_grid(n, seed=seed))[0])[0]
+    ip, ix, dt = Y.np_arrays()
+    cols = np.repeat(np.arange(Y.n), np.diff(ip))
+    lo = np.minimum(ix, cols)
+    dt = np.where(lo % 7 == 0, dt.real, np.where(lo % 11 == 0, 1j * dt.imag,
+                                                  dt))
+    return pt.CSC(Y.m, Y.n, ip, ix, dt.astype(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("n", [1037, 20_001, 40_003])
+@pytest.mark.parametrize("plan", ["SplitDIA", "SplitSymDIA"])
+def test_split_run_kernel_matches_plain_versions_and_repeats(cuda, plan, n,
+                                                             dtype):
+    Y = _complex_band(n, 6, dtype)
+    f32 = dtype == np.complex64
+    kw = dict(tol=1e-6 if f32 else 1e-12) if plan == "SplitSymDIA" else {}
+    p = getattr(pt, plan)(Y, device=cuda, **kw)
+    assert p.shared_runs and p.re.runs[1] is p.im.runs[1]
+    real = np.float32 if f32 else np.float64
+    rng = np.random.RandomState(14)
+    xr, xi = (torch.as_tensor(rng.rand(n).astype(real), device=cuda)
+              for _ in range(2))
+    before = dict(kdia.LAUNCHES)
+    yr, yi = p(xr, xi)
+    torch.cuda.synchronize()
+    assert all(kdia.LAUNCHES[k] - before[k] == 1 for k in before)
+    two = kdia.split_complex_apply(p.re.apply_bn, p.im.apply_bn, xr, xi)
+    assert kdia.LAUNCHES["dia_spmv_split"] - before["dia_spmv_split"] == 1
+    assert kdia.LAUNCHES["dia_spmv_runs"] - before["dia_spmv_runs"] == 3
+    again = p(xr, xi)
+    assert torch.equal(again[0], yr) and torch.equal(again[1], yi)
+    # the plan launches on its packed run values; the same walk reading the
+    # runs from the slabs gives the same bits
+    xn2 = torch.stack([xr, xi], dim=1)
+    for vals in (None, (p.re.run_values, p.im.run_values)):
+        y = kdia.dia_split_cuda(p.re.slabs, p.im.slabs, xn2, p.re.omin,
+                                p.re.symmetric, p.re.runs, vals)
+        assert torch.equal(y[0], yr) and torch.equal(y[1], yi)
+    # one launch per slab set (the same sums, folded over the lanes in
+    # another order where the two kernels split the lists differently), the
+    # plain walk of the index, and the dense plain version, row by row
+    x2 = torch.stack([xr, xi])
+    for ref in (two, p.plain(xr, xi), kdia.split_complex_apply(
+            *(functools.partial(kdia.dia_spmv_plain, q.slabs, omin=q.omin,
+                                symmetric=q.symmetric)
+              for q in (p.re, p.im)), xr, xi)):
+        bound = sum(_dia_bound(q, x2).sum(0) for q in (p.re, p.im))
+        for got, want in zip((yr, yi), ref):
+            assert ((got - want).abs() <= bound).all()
+    z = Y.to_scipy().astype(np.complex128) @ (
+        xr.double().cpu().numpy() + 1j * xi.double().cpu().numpy())
+    got = yr.double().cpu().numpy() + 1j * yi.double().cpu().numpy()
+    assert np.abs(got - z).max() <= (REL if f32 else 1e-12) * np.abs(z).max()
+    # a view of x that starts between two pairs is copied, not refused
+    flat = torch.zeros(2 * n + 1, dtype=xr.dtype, device=cuda)
+    xn2 = flat[1:].view(n, 2).copy_(torch.stack([xr, xi], dim=1))
+    y = kdia.dia_split_cuda(p.re.slabs, p.im.slabs, xn2, p.re.omin,
+                            p.re.symmetric, p.re.runs,
+                            (p.re.run_values, p.im.run_values))
+    assert torch.equal(y[0], yr) and torch.equal(y[1], yi)
 
 
 # -- K6: the SpGEMM numeric kernel ---------------------------------------------
@@ -416,6 +576,55 @@ def test_bsr_spmm_kernel_matches_plain_and_scipy(cuda, case, dtype, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [None, 1, 37, 130, 256])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", sorted(BSR_CASES))
+def test_bsr_listed_and_raw_kernel_routes_match_plain_and_repeat(cuda, case,
+                                                                 dtype, k):
+    make, block = BSR_CASES[case]
+    A = make(dtype)
+    B = A.to_bsr(block=block).to(cuda)
+    rng = np.random.RandomState(13)
+    X = rng.rand(A.n).astype(dtype) if k is None else \
+        rng.rand(A.n, k).astype(dtype)
+    Xt = torch.as_tensor(X, device=cuda)
+    nb = B.nnz_blocks
+    cols = B.column_lists()
+    assert all(t.is_cuda and t.dtype == torch.int32 for t in cols)
+    S = A.to_scipy().astype(np.float64)
+    K = int(np.diff(S.tocsr().indptr).max())
+    bound = torch.as_tensor(
+        2 * (K + 2) * np.finfo(dtype).eps / 2
+        * (abs(S) @ np.abs(X).astype(np.float64)), device=cuda) \
+        + np.finfo(np.float64).tiny
+    for index_dtype in (torch.int32, torch.int64):
+        args = (B.m, B.n, B.indptr.to(index_dtype),
+                B.indices[:nb].to(index_dtype), B.data[:nb], Xt)
+        before = kbsr.LAUNCHES["bsr_spmm"]
+        raw = kbsr.bsr_spmm(*args)          # every column of every block
+        listed = kbsr.bsr_spmm(*args, cols)  # the occupied columns only
+        torch.cuda.synchronize()
+        assert kbsr.LAUNCHES["bsr_spmm"] == before + 2
+        plain = kbsr.bsr_spmm_plain(*args)
+        plain_listed = kbsr.bsr_spmm_plain(*args, cols)
+        assert kbsr.LAUNCHES["bsr_spmm"] == before + 2
+        for got in (raw, listed):
+            assert got.shape == plain.shape and got.dtype == plain.dtype
+            assert ((got - plain).abs() <= bound).all()
+            assert ((got - plain_listed).abs() <= bound).all()
+        # one thread per output, a fixed order: the same bits every launch
+        assert torch.equal(kbsr.bsr_spmm(*args, cols), listed)
+        assert torch.equal(kbsr.bsr_spmm(*args), raw)
+        assert torch.equal(B @ Xt, listed)
+    # an X that starts off a 16-byte boundary takes the scalar loads
+    if k == 256:
+        flat = torch.zeros(A.n * k + 1, dtype=Xt.dtype, device=cuda)
+        off = flat[1:].view(A.n, k).copy_(Xt)
+        assert off.is_contiguous() and off.data_ptr() % 16 != 0
+        assert ((B @ off - listed).abs() <= bound).all()
+
+
+@pytest.mark.gpu
 def test_spmm_block_route_and_int64_indices_on_cuda(cuda, monkeypatch):
     A = _rand_csc(500, 400, 0.02, 9, np.float32)
     X = np.random.RandomState(10).rand(400, 70).astype(np.float32)
@@ -437,7 +646,13 @@ def test_spmm_block_route_and_int64_indices_on_cuda(cuda, monkeypatch):
         raise AssertionError("plain version ran on a CUDA input")
 
     monkeypatch.setattr(kbsr, "bsr_spmm_plain", refuse)
-    B @ torch.as_tensor(X, device=cuda)
+    B @ torch.as_tensor(X, device=cuda)  # through its column lists
+    kbsr.bsr_spmm(B.m, B.n, B.indptr, B.indices, B.data,
+                  torch.as_tensor(X, device=cuda), B.column_lists())
+    with pytest.raises(ValueError, match="CUDA device"):
+        kbsr.bsr_spmm(B.m, B.n, B.indptr, B.indices, B.data,
+                      torch.as_tensor(X, device=cuda),
+                      tuple(t.cpu() for t in B.column_lists()))
     with pytest.raises(ValueError, match="CUDA device"):
         kbsr.bsr_spmm(B.m, B.n, B.indptr, B.indices, B.data,
                       torch.as_tensor(X))
@@ -492,10 +707,14 @@ def test_measure_hbm_bw_is_a_plausible_device_rate(cuda):
 @pytest.mark.parametrize("spmv", ["dia", "symdia"])
 def test_banded_solvers_on_cuda_match_cpu(cuda, spmv):
     g = rcm_grid(synthetic_grid(2000, seed=3))[0]
-    before = kdia.LAUNCHES["dia_spmv"]
-    vm, va, it, res = FastDecoupled(g, spmv=spmv).solve()  # device=None
-    # two mismatches per iteration, one residual per check, one final
-    assert kdia.LAUNCHES["dia_spmv"] - before == 2 * (2 * it + it + 1 + 1)
+    before = dict(kdia.LAUNCHES)
+    fd = FastDecoupled(g, spmv=spmv)  # device=None
+    vm, va, it, res = fd.solve()
+    # two mismatches per iteration, one residual per check, one final; each
+    # one launch over both slab sets of Ybus
+    assert fd._yplan.shared_runs
+    assert all(kdia.LAUNCHES[k] - before[k] == 2 * it + it + 1 + 1
+               for k in before)
     vm_c, va_c, it_c, res_c = FastDecoupled(g, spmv=spmv,
                                             device="cpu").solve()
     assert it == it_c and res <= 1e-8
@@ -504,7 +723,7 @@ def test_banded_solvers_on_cuda_match_cpu(cuda, spmv):
     before = kdia.LAUNCHES["dia_spmv"]
     vm_n, va_n, it_n, res_n = NewtonPowerFlow(g, spmv=spmv,
                                               device=cuda).solve()
-    assert kdia.LAUNCHES["dia_spmv"] - before == 2 * (it_n + 1)
+    assert kdia.LAUNCHES["dia_spmv"] - before == it_n + 1
     assert res_n <= 1e-10
     np.testing.assert_allclose(vm, vm_n, rtol=0, atol=1e-7)
     np.testing.assert_allclose(dc_power_flow(g),
