@@ -267,6 +267,18 @@ def run_route_bytes(plan, *io):
     return plan_bytes(plan, *io), listed, index
 
 
+def nonzero_bytes(re, im, *io):
+    """What a product with the complex band ``re + 1j*im`` needs at the
+    least, whatever the layout: each slab set's nonzero values, one int32
+    position for every entry either set holds (the two share them), and each
+    tensor of ``io`` once.  The run route moves more than this: a listed run
+    is streamed whole, zeros included.  Returns (bytes, entries)."""
+    entries = int(((re.slabs != 0) | (im.slabs != 0)).sum())
+    values = sum(int(p.slabs.count_nonzero()) for p in (re, im))
+    return (values * re.slabs.element_size() + 4 * entries + sum(
+        t.numel() * t.element_size() for t in io)), entries
+
+
 def library_spmv_ms(Y, xr_t, xi_t, yk, reps=50):
     """Device ms of the one library call for a complex SpMV: a
     torch.sparse CSR complex64 matrix times the complex64 vector.  It is
@@ -526,10 +538,6 @@ def dia_phase(dev, bw):
             return kdia.dia_split_cuda(re.slabs, im.slabs, xn2, re.omin, sym,
                                        re.runs, vals)
 
-        def scattered():  # the same walk, reading the runs from the slabs
-            return kdia.dia_split_cuda(re.slabs, im.slabs, xn2, re.omin, sym,
-                                       re.runs)
-
         def two_launches():  # the same index, one launch per slab set
             return [kdia.dia_spmv_cuda(p.slabs, x2, p.omin, sym, p.runs,
                                        p.run_values) for p in parts]
@@ -543,13 +551,6 @@ def dia_phase(dev, bw):
                                  f"dense kernel did not ({kdia.LAUNCHES})")
         r2, i2 = two_launches()
         ytwo = torch.stack([r2[0] - i2[1], r2[1] + i2[0]])
-        # and the split-complex kernel without the packed run values: the
-        # same walk with scattered reads of the slabs, the same bits
-        yscat = kdia.dia_split_cuda(re.slabs, im.slabs, xn2, re.omin, sym,
-                                    re.runs)
-        if not torch.equal(yscat, yk):
-            raise AssertionError(f"{label}: the launch on packed run values "
-                                 "and the launch on the slabs differ")
         scale = float(yd.abs().max())
         ratios = {}
         for name, got, want in (("vs_dense_plain", yk, yd),
@@ -589,13 +590,12 @@ def dia_phase(dev, bw):
         t = [queued_ms(lambda: plan.plain(xr_t, xi_t), 5),
              queued_ms(run_kernel, 200), queued_ms(run_kernel, 200),
              queued_ms(lambda: plan.plain(xr_t, xi_t), 5)]
-        ms, plain_ms = min(t[1], t[2]), min(t[0], t[3])
+        ms, runs_plain_ms = min(t[1], t[2]), min(t[0], t[3])
         call_ms = queued_ms(lambda: plan(xr_t, xi_t), 200)
         wall = wall_ms(lambda: plan(xr_t, xi_t), 200)
         two_ms = queued_ms(two_launches, 200)
-        scat_ms = queued_ms(scattered, 200)
         dense_ms = queued_ms(dense_kernel, 10)
-        dense_plain_ms = queued_ms(lambda: kdia.split_complex_apply(
+        plain_ms = queued_ms(lambda: kdia.split_complex_apply(
             *(functools.partial(kdia.dia_spmv_plain, p.slabs, omin=p.omin,
                                 symmetric=sym) for p in parts), xr_t, xi_t), 2)
         note = profiler_note(run_kernel, 20, "dia_runs_split_kernel")
@@ -604,35 +604,44 @@ def dia_phase(dev, bw):
         nnz = sum(int(p.slabs.count_nonzero()) * 2 - int(
             p.slabs[0].count_nonzero()) if sym else int(
                 p.slabs.count_nonzero()) for p in parts)
+        nz_bytes, entries = nonzero_bytes(re, im, xn2, yk)
         rec = dict(abs_err=abs_plain, ms=ms, plain_ms=plain_ms,
+                   runs_plain_ms=runs_plain_ms,
                    wrapper_call_ms=call_ms, two_launches_ms=two_ms,
-                   scattered_reads_ms=scat_ms,
-                   dense_kernel_ms=dense_ms,
-                   dense_plain_ms=dense_plain_ms, listed_runs=listed,
+                   dense_kernel_ms=dense_ms, listed_runs=listed,
                    index_bytes=index_bytes, bytes=nbytes,
+                   nonzero_bytes=nz_bytes,
+                   nonzero_bound_ms=nz_bytes / HBM_BYTES_PER_S * 1e3,
                    dense_bound_ms=dense_bytes / HBM_BYTES_PER_S * 1e3,
                    **bound_record(nbytes, 2 * 2 * nnz))
         log(f"{label}: run_kernel_device_ms_per_call={ms:.6f} (1 launch over "
-            f"both slab sets) runs_plain_device_ms_per_call={plain_ms:.6f} "
+            f"both slab sets) runs_plain_device_ms_per_call="
+            f"{runs_plain_ms:.6f} "
             f"(cuda events around calls queued behind a spin kernel; runs "
             f"plain,kernel,kernel,plain = {t}) wrapper_device_ms_per_call="
             f"{call_ms:.6f} wrapper_wall_ms_per_call={wall:.6f} one_launch_"
-            f"per_slab_set_device_ms_per_call={two_ms:.6f} same_launch_"
-            f"reading_the_runs_from_the_slabs_device_ms={scat_ms:.6f} "
+            f"per_slab_set_device_ms_per_call={two_ms:.6f} "
             f"dense_kernel_on_raw_slabs_device_ms_per_call={dense_ms:.6f} "
             f"(2 launches) dense_plain_device_ms_per_call="
-            f"{dense_plain_ms:.6f}; {note}; bytes_per_call={nbytes} bound_ms="
+            f"{plain_ms:.6f}; {note}; bytes_per_call={nbytes} bound_ms="
             f"{rec['bound_ms']:.6f} ({rec['bound_by']}; the listed runs, the "
             f"index, x and y) share_of_published_peak="
             f"{pct_roofline(nbytes, ms * 1e-3, HBM_BYTES_PER_S):.4f} "
             f"share_of_measured_bandwidth="
-            f"{pct_roofline(nbytes, ms * 1e-3, bw):.4f}; the dense walk: "
+            f"{pct_roofline(nbytes, ms * 1e-3, bw):.4f}; the nonzeros alone: "
+            f"{entries} entries, nonzero_share_of_the_listed_values="
+            f"{nnz / (listed * kdia.RUN_ROWS):.4f} "
+            f"bytes_per_call={nz_bytes} (nonzero values, a position per "
+            f"entry, x and y) nonzero_bound_ms={rec['nonzero_bound_ms']:.6f} "
+            f"share_of_published_peak="
+            f"{pct_roofline(nz_bytes, ms * 1e-3, HBM_BYTES_PER_S):.4f}; the "
+            f"dense walk: "
             f"bytes_per_call={dense_bytes} bound_ms="
             f"{rec['dense_bound_ms']:.6f} share_of_published_peak="
             + format(pct_roofline(dense_bytes, dense_ms * 1e-3,
                                   HBM_BYTES_PER_S), ".4f"))
         out[label] = rec
-        del plan, parts, re, im, vals, yk, yp, yd, yraw, ytwo, yscat, r2, i2
+        del plan, parts, re, im, vals, yk, yp, yd, yraw, ytwo, r2, i2
         del again
         torch.cuda.empty_cache()
     yk = torch.as_tensor(z2, device=dev, dtype=torch.float32)
@@ -722,8 +731,8 @@ def main_shape_records(dev, n, plans):
                           ("dense_kernel_vs_dense_plain", yraw, yp))}
             err = float((yk - yp).abs().max())
             rec["abs_err"] = max(rec["abs_err"], err)
-            # on the slabs in place of the packed values: the same bits
-            again = kdia.dia_spmv_cuda(p.slabs, x2, p.omin, sym, p.runs)
+            again = kdia.dia_spmv_cuda(p.slabs, x2, p.omin, sym, p.runs,
+                                       p.run_values)
             log(f"banded: dia kernel[{label}.{part}] float64 slabs="
                 f"{tuple(p.slabs.shape)} x=(2, {n}) listed_runs="
                 f"{sum(t.numel() for t in p.runs[1::2])} share_of_all_runs="
@@ -732,8 +741,7 @@ def main_shape_records(dev, n, plans):
                 + " ".join(f"{k}={v:.4f}" for k, v in ratios.items())
                 + f" (bound: 2 (kmax+2) 2^-53 |A||x| per row, kmax={kmax}; "
                 f"must be <= 1) max_row_bound={float(bound.max()):.3e} "
-                f"bit_equal_on_packed_values_and_on_the_slabs="
-                f"{torch.equal(again, yk)}")
+                f"bit_equal_on_repeat={torch.equal(again, yk)}")
             if not all(v <= 1 for v in ratios.values()):
                 raise AssertionError(f"{label}.{part}: kernel disagrees at "
                                      "the main path's shape")
@@ -741,9 +749,9 @@ def main_shape_records(dev, n, plans):
                     p.apply_bn(x2), yk):
                 raise AssertionError(f"{label}.{part}: two launches differ")
         # ---- the launch the solves make: one walk of the shared index over
-        # both slab sets, x as (n, 2), on the packed run values.  Bit-equal to
-        # the same launch reading the runs from the slabs; within the rounding
-        # bound of one launch per slab set, the plain versions and scipy
+        # both slab sets, x as (n, 2), on the packed run values.  Bit-equal on
+        # repeat; within the rounding bound of one launch per slab set, the
+        # plain versions and scipy
         if not plan.shared_runs:
             raise AssertionError(f"{label}: the slab sets share no index")
         re, im = plan.re, plan.im
@@ -778,14 +786,14 @@ def main_shape_records(dev, n, plans):
         rec["abs_err"] = max(rec["abs_err"], split_err)
         vals = (re.run_values, im.run_values)
         same = torch.equal(
-            kdia.dia_split_cuda(re.slabs, im.slabs, xn2, omin, sym, runs),
+            kdia.dia_split_cuda(re.slabs, im.slabs, xn2, omin, sym, runs,
+                                vals),
             yk) and torch.equal(torch.stack(plan(x2[0], x2[1])), yk)
         log(f"banded: dia kernel[{label}] split-complex launch float64 x=("
             f"{n}, 2) max_abs_err_vs_dense_plain={split_err:.3e} "
             f"worst_row_err_over_bound: "
             + " ".join(f"{k}={v:.4f}" for k, v in ratios.items())
-            + f" (must be <= 1) bit_equal_to_the_launch_on_the_slabs_and_on_"
-            f"repeat={same}")
+            + f" (must be <= 1) bit_equal_on_repeat={same}")
         if not all(v <= 1 for v in ratios.values()) or not same:
             raise AssertionError(f"{label}: the split-complex launch "
                                  "disagrees at the main path's shape")
@@ -793,10 +801,6 @@ def main_shape_records(dev, n, plans):
         def run_kernel():
             return kdia.dia_split_cuda(re.slabs, im.slabs, xn2, omin, sym,
                                        runs, vals)
-
-        def scattered():
-            return kdia.dia_split_cuda(re.slabs, im.slabs, xn2, omin, sym,
-                                       runs)
 
         def one_set():
             return kdia.dia_spmv_cuda(re.slabs, x2, omin, sym, runs, vals[0])
@@ -813,12 +817,11 @@ def main_shape_records(dev, n, plans):
         # plain, kernel, kernel, plain: one card, one call
         t = [queued_ms(runs_plain, 20), queued_ms(run_kernel, 400),
              queued_ms(run_kernel, 400), queued_ms(runs_plain, 20)]
-        ms, plain_ms = min(t[1], t[2]), min(t[0], t[3])
+        ms, runs_plain_ms = min(t[1], t[2]), min(t[0], t[3])
         ev = cuda_ms(lambda: plan(x2[0], x2[1]), 200)
         one_ms = queued_ms(one_set, 400)
-        scat_ms = queued_ms(scattered, 400)
         dense_ms = queued_ms(dense_kernel, 100)
-        dense_plain_ms = queued_ms(dense, 3)
+        plain_ms = queued_ms(dense, 3)
         # the library call: the complex128 CSR matrix times the complex x
         lib = _csr_tensor(A, dev, np.complex128)
         xc = torch.complex(x2[0], x2[1])
@@ -835,27 +838,31 @@ def main_shape_records(dev, n, plans):
         nnz = sum(int(p.slabs.count_nonzero()) * 2 - int(
             p.slabs[0].count_nonzero()) if sym else int(
                 p.slabs.count_nonzero()) for p in (re, im))
-        rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   one_slab_set_ms=one_ms, scattered_reads_ms=scat_ms,
-                   dense_kernel_ms=dense_ms,
-                   dense_plain_ms=dense_plain_ms, listed_runs=listed,
+        nz_bytes, entries = nonzero_bytes(re, im, xn2, yk)
+        rec.update(ms=ms, plain_ms=plain_ms, runs_plain_ms=runs_plain_ms,
+                   library_ms=lib_ms, one_slab_set_ms=one_ms,
+                   dense_kernel_ms=dense_ms, listed_runs=listed,
                    index_bytes=index_bytes, bytes=nbytes,
+                   nonzero_bytes=nz_bytes,
+                   nonzero_bound_ms=nz_bytes / HBM_BYTES_PER_S * 1e3,
                    dense_bound_ms=dense_bytes / HBM_BYTES_PER_S * 1e3,
                    **bound_record(nbytes, 2 * 2 * nnz, F64_FLOP_PER_S))
         log(f"banded: dia kernel[{label}] at this path's shape (float64, "
             f"D={re.slabs.shape[0]}, n={n}, both slab sets in one launch): "
             f"run_kernel_device_ms_per_launch={ms:.6f} runs_plain_device_ms="
-            f"{plain_ms:.6f} (cuda events around launches queued behind a "
+            f"{runs_plain_ms:.6f} (cuda events around launches queued behind a "
             f"spin kernel; runs plain,kernel,kernel,plain = {t}); the plan's "
             f"call with the host in the way {ev:.6f} ms; one_slab_set_x(2, n)_"
-            f"run_kernel_device_ms={one_ms:.6f} same_launch_reading_the_"
-            f"runs_from_the_slabs_device_ms={scat_ms:.6f} dense_kernel_on_raw_"
+            f"run_kernel_device_ms={one_ms:.6f} dense_kernel_on_raw_"
             f"slabs_device_ms={dense_ms:.6f} (2 launches) "
             f"dense_plain_device_ms="
-            f"{dense_plain_ms:.6f} library_csr_c128_device_ms={lib_ms:.6f} "
+            f"{plain_ms:.6f} library_csr_c128_device_ms={lib_ms:.6f} "
             f"(torch.profiler); {nbytes} bytes per launch ({listed} listed "
             f"runs over both sets, index {index_bytes} bytes) bound_ms="
-            f"{rec['bound_ms']:.6f} ({rec['bound_by']}); the dense walk: "
+            f"{rec['bound_ms']:.6f} ({rec['bound_by']}); the nonzeros alone "
+            f"({entries} entries: values, a position each, x and y): "
+            f"{nz_bytes} bytes, nonzero_bound_ms="
+            f"{rec['nonzero_bound_ms']:.6f}; the dense walk: "
             f"{dense_bytes} bytes, bound_ms={rec['dense_bound_ms']:.6f}")
         out[label] = rec
     return out
@@ -1338,9 +1345,9 @@ def bsr_phase(dev):
              queued_ms(lambda: kbsr.bsr_spmm_cuda(*args, cols), reps),
              queued_ms(lambda: kbsr.bsr_spmm_cuda(*args, cols), reps),
              queued_ms(lambda: kbsr.bsr_spmm_plain(*args, cols), 2)]
-        ms, plain_ms = min(t[1], t[2]), min(t[0], t[3])
+        ms, lists_plain_ms = min(t[1], t[2]), min(t[0], t[3])
         raw_ms = queued_ms(lambda: kbsr.bsr_spmm_cuda(*args), 5)
-        dense_plain_ms = queued_ms(lambda: kbsr.bsr_spmm_plain(*args), 2)
+        plain_ms = queued_ms(lambda: kbsr.bsr_spmm_plain(*args), 2)
         note = profiler_note(lambda: kbsr.bsr_spmm_cuda(*args, cols),
                              min(reps, 10), "bsr_spmm_kernel")
         # What the listed route must move: the R values of every listed
@@ -1359,7 +1366,7 @@ def bsr_phase(dev):
         dense_bound = bound_record(dense_bytes, dense_flops)
         rec = dict(abs_err=err, ms=ms, plain_ms=plain_ms, blocks=nblk,
                    listed_columns=listed, kernel_without_lists_ms=raw_ms,
-                   dense_plain_ms=dense_plain_ms, bytes=nbytes, flops=flops,
+                   lists_plain_ms=lists_plain_ms, bytes=nbytes, flops=flops,
                    x_rows_read_bytes=listed * k_rhs * size,
                    dense_bound_ms=dense_bound["bound_ms"],
                    dense_bound_by=dense_bound["bound_by"],
@@ -1392,10 +1399,10 @@ def bsr_phase(dev):
             f"bytes={nbytes} (X rows if none is reused: "
             f"{rec['x_rows_read_bytes']}) kernel_device_ms_per_launch="
             f"{ms:.6f} "
-            f"plain_walk_of_the_lists_device_ms={plain_ms:.6f} (cuda events "
+            f"plain_walk_of_the_lists_device_ms={lists_plain_ms:.6f} (cuda events "
             f"around queued launches; runs plain,kernel,kernel,plain = {t}) "
             f"kernel_without_lists_device_ms={raw_ms:.6f} "
-            f"dense_plain_device_ms={dense_plain_ms:.6f}; {note}; "
+            f"dense_plain_device_ms={plain_ms:.6f}; {note}; "
             f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}); the dense "
             f"walk: flops={dense_flops} bytes={dense_bytes} bound_ms="
             f"{rec['dense_bound_ms']:.6f} ({rec['dense_bound_by']}); "
@@ -1595,21 +1602,25 @@ def main():
         # kernel at the shape the banded solves give it (float64, D=473,
         # n=10k, both real slab sets through the occupancy index they share,
         # x (n, 2)): the launches counted are those launches.  bound_ms
-        # counts the listed runs, the index, x and y; dense_bound_ms every
-        # slab value, as the dense kernel (dense_kernel_ms, one launch per
-        # slab set on the raw slabs) reads them; one_slab_set_ms is the run
-        # kernel on one slab set and the stacked (2, n) input
+        # counts what the route moves: the listed runs (streamed whole, their
+        # zeros included), the index, x and y; nonzero_bound_ms the nonzero
+        # values, a position for each, x and y: the least any layout needs;
+        # dense_bound_ms every slab value, as the dense kernel
+        # (dense_kernel_ms, one launch per slab set on the raw slabs) reads
+        # them.  plain_ms is the dense plain version, runs_plain_ms the plain
+        # walk of the index; one_slab_set_ms is the run kernel on one slab
+        # set and the stacked (2, n) input
         dict(record("dia_spmv", "dia_spmv",
                     "csparse3_tpu/kernels/dia_pallas.py:67", dia_launches,
                     band["dia"]),
              shape=f"float64 general form, both slab sets of the {N_SOLVE}"
                    "-bus RCM Ybus through their shared occupancy index, per "
-                   "split-complex launch; plain_ms is the plain walk of the "
-                   "same index, library_ms the complex128 CSR product",
+                   "split-complex launch; library_ms is the complex128 CSR "
+                   "product",
              **{k: band["dia"][k] for k in (
-                 "one_slab_set_ms", "scattered_reads_ms", "dense_kernel_ms",
-                 "dense_plain_ms", "dense_bound_ms",
-                 "listed_runs", "index_bytes")},
+                 "runs_plain_ms", "one_slab_set_ms", "dense_kernel_ms",
+                 "nonzero_bound_ms", "dense_bound_ms", "listed_runs",
+                 "index_bytes")},
              symmetric_form=band["symdia"],
              # per SplitDIA / SplitSymDIA call (1 launch) on the 200k-bus
              # RCM Ybus, float32; the library call is the complex64 CSR
@@ -1635,16 +1646,16 @@ def main():
         # 200k-bus susceptance matrix, through its column lists; the
         # launches counted are that product and the 32x32 block matrix's.
         # bound_ms counts the listed columns' values and operations,
-        # dense_bound_ms every stored block's
+        # dense_bound_ms every stored block's; plain_ms is the plain version
+        # over every column, lists_plain_ms its walk of the same lists
         dict(record("bsr_spmm", "bsr_spmm",
                     "csparse3_tpu/kernels/bsr_spmm_pallas.py:71",
                     bsr_launches, bsr["ybus200k"]),
              shape=f"float32, imag(Ybus) of the {N_KERNEL}-bus grid in "
                    "(8, 128) blocks times X (n, 1024), the occupied columns "
-                   "only, per launch; plain_ms is the plain walk of the "
-                   "same lists",
+                   "only, per launch",
              **{k: bsr["ybus200k"][k] for k in (
-                 "kernel_without_lists_ms", "dense_plain_ms",
+                 "kernel_without_lists_ms", "lists_plain_ms",
                  "dense_bound_ms", "dense_bound_by", "listed_columns")},
              block_matrix_32x32=bsr["block32"]),
     ]}))

@@ -43,8 +43,7 @@
 // warp (P = 1, 2, 4 or 8) whose sums are folded by shuffles, always in the
 // same order: a short matrix gives few groups, and more lane-sets keep more
 // reads in flight.  The edges (rows past m in the last group, columns outside
-// [0, n)) are tested per lane.  The slabs keep their (D, m) layout, so the
-// dense kernel reads the same buffer.
+// [0, n)) are tested per lane.
 //
 // A complex matrix is two real slab sets, re and im, and the solvers multiply
 // it with a complex x.  The split-complex kernel walks ONE index (the union of
@@ -55,14 +54,14 @@
 //
 // Packed run values.  The listed runs lie scattered over the 1.5 GB of a
 // slab set, one 16-byte read per run, and that is what the card does worst:
-// reading them there, the split-complex launch takes 43-46 us at 200k buses
-// (1.43M runs, 23 MB of values: 0.5 TB/s where a stream moves 2.9), whatever
-// the number of lane-sets.  So the plan also copies the values of the listed
-// runs once, in the order of the lists (run_vals, mir_vals: listed runs x
-// kRunRows, zero where a run reaches past an edge), and the kernels stream
-// that copy, about 1% of the slabs: 11-13 us for the same launch, the same
-// bits.  Given the index without the copy they read the slabs.  The slabs
-// keep their (D, m) layout for the dense kernel and the plain versions.
+// a run kernel that read them there took 43-46 us for the split-complex
+// launch at 200k buses (1.43M runs, 23 MB of values: 0.5 TB/s where a stream
+// moves 2.9), whatever the number of lane-sets.  So the plan copies the
+// values of the listed runs once, in the order of the lists (run_vals,
+// mir_vals: listed runs x kRunRows, zero where a run reaches past an edge),
+// and the run kernels stream that copy, about 1% of the slabs, and never
+// read the slabs: 11-12 us for the same launch.  The slabs keep their (D, m)
+// layout for the dense kernel and the plain versions.
 //
 // The dense kernels stay for bands that are dense (a tridiagonal matrix,
 // raw slabs without an index): one thread owns one row and walks all D
@@ -160,17 +159,13 @@ __global__ void symdia_spmv_kernel(int m, int D, const T* __restrict__ slabs,
 }
 
 // rows per group of the occupancy index.  Measured on an H100 among 4, 8,
-// 16 and 32 at both shapes (utils/tune_kernels.py): 4 is ahead of 8 by 3-30%
-// and of 32 by 2-5x.  The index is built for this value by kernels/dia.py
-// (RUN_ROWS), which passes its own for a check
-#ifndef DIA_RUN_ROWS
-#define DIA_RUN_ROWS 4
-#endif
-// lane-sets per group; 0: by the number of rows (run_parts below).  Only the
-// tuning script builds with another value
-#ifndef DIA_RUN_PARTS
-#define DIA_RUN_PARTS 0
-#endif
+// 16 and 32 at both shapes: 4 is ahead of 8 by 28-78% and of 32 by about 5x
+// (the times stand beside RUN_ROWS in kernels/dia.py, which builds the index
+// for this value and passes its own for a check)
+constexpr int kRunRows = 4;
+static_assert(kRunRows == 4 || kRunRows == 8 || kRunRows == 16 ||
+                  kRunRows == 32,
+              "a group and its lane-sets must tile a warp");
 // the occupancy index: a CSR over groups of rows for the forward reads, and
 // one for the mirror reads of the symmetric form (null otherwise)
 struct RunIndex {
@@ -180,10 +175,6 @@ struct RunIndex {
   const int* mir_diag;
 };
 
-constexpr int kRunRows = DIA_RUN_ROWS;
-static_assert(kRunRows == 4 || kRunRows == 8 || kRunRows == 16 ||
-                  kRunRows == 32,
-              "a group and its lane-sets must tile a warp");
 // a launch wants about this many threads (132 SMs x 1024) before it stops
 // splitting lists
 constexpr long long kRunThreads = 132LL * 1024;
@@ -192,7 +183,7 @@ constexpr long long kRunThreads = 132LL * 1024;
 // (lane-set `part` takes runs part, part + P, ...), all inside one warp.
 template <typename T, int B, int P, bool SYM>
 __global__ void dia_runs_kernel(int m, int n, int omin, int ngroups,
-                                const T* __restrict__ slabs, RunIndex index,
+                                RunIndex index,
                                 const T* __restrict__ run_vals,
                                 const T* __restrict__ mir_vals,
                                 const T* __restrict__ x, T* __restrict__ y) {
@@ -209,12 +200,10 @@ __global__ void dia_runs_kernel(int m, int n, int omin, int ngroups,
   const long long g = t / (S * P);
   const long long i = g * S + lane;
   const bool row = g < ngroups && i < m;
-  const bool packed = run_vals != nullptr;
   T acc[B];
 #pragma unroll
   for (int b = 0; b < B; ++b) acc[b] = T(0);
   if (g < ngroups) {
-    const T* s = slabs + i;
     const long long base = i + omin;
     const int r1 = run_ptr[g + 1];
 #pragma unroll 4
@@ -222,8 +211,7 @@ __global__ void dia_runs_kernel(int m, int n, int omin, int ngroups,
       const int d = run_diag[r];
       const long long col = base + d;
       if (row && col >= 0 && col < n) {
-        const T v = packed ? run_vals[static_cast<size_t>(r) * S + lane]
-                           : s[static_cast<size_t>(d) * m];
+        const T v = run_vals[static_cast<size_t>(r) * S + lane];
 #pragma unroll
         for (int b = 0; b < B; ++b)
           acc[b] += v * x[static_cast<size_t>(b) * n + col];
@@ -237,8 +225,7 @@ __global__ void dia_runs_kernel(int m, int n, int omin, int ngroups,
         const int d = mir_diag[r];
         const long long j = i - d;
         if (row && d > 0 && j >= 0) {
-          const T w = packed ? mir_vals[static_cast<size_t>(r) * S + lane]
-                             : slabs[static_cast<size_t>(d) * m + j];
+          const T w = mir_vals[static_cast<size_t>(r) * S + lane];
 #pragma unroll
           for (int b = 0; b < B; ++b)
             acc[b] += w * x[static_cast<size_t>(b) * n + j];
@@ -266,16 +253,15 @@ struct alignas(2 * sizeof(T)) Pair {
 };
 
 // The split-complex product in one launch.  A complex matrix is held as two
-// real slab sets, re and im, that share one occupancy index; x is (n, 2), the
-// real and the imaginary part of a column side by side, so that one load
-// brings both, and y is (2, m): y[0] = re * xr - im * xi, y[1] = re * xi +
-// im * xr.  The four partial sums are kept apart and combined at the end, as
+// real slab sets, re and im, that share one occupancy index (given here as
+// their packed run values, forward and mirror); x is (n, 2), the real and
+// the imaginary part of a column side by side, so that one load brings both,
+// and y is (2, m): y[0] = re * xr - im * xi, y[1] = re * xi + im * xr.  The
+// four partial sums are kept apart and combined at the end, as
 // two launches of dia_runs_kernel on the stacked input combine theirs, with
 // one walk of the index and one read of x in place of two.
 template <typename T, int P, bool SYM>
 __global__ void dia_runs_split_kernel(int m, int n, int omin, int ngroups,
-                                      const T* __restrict__ re,
-                                      const T* __restrict__ im,
                                       RunIndex index,
                                       const T* __restrict__ re_vals,
                                       const T* __restrict__ im_vals,
@@ -296,7 +282,6 @@ __global__ void dia_runs_split_kernel(int m, int n, int omin, int ngroups,
   const long long g = t / (S * P);
   const long long i = g * S + lane;
   const bool row = g < ngroups && i < m;
-  const bool packed = re_vals != nullptr;
   // acc[0] = re * xr, [1] = re * xi, [2] = im * xr, [3] = im * xi
   T acc[4] = {T(0), T(0), T(0), T(0)};
   if (g < ngroups) {
@@ -307,10 +292,9 @@ __global__ void dia_runs_split_kernel(int m, int n, int omin, int ngroups,
       const int d = run_diag[r];
       const long long col = base + d;
       if (row && col >= 0 && col < n) {
-        const size_t at = packed ? static_cast<size_t>(r) * S + lane
-                                 : static_cast<size_t>(d) * m + i;
-        const T a = (packed ? re_vals : re)[at];
-        const T b = (packed ? im_vals : im)[at];
+        const size_t at = static_cast<size_t>(r) * S + lane;
+        const T a = re_vals[at];
+        const T b = im_vals[at];
         const Pair<T> xv = x[col];
         acc[0] += a * xv.re;
         acc[1] += a * xv.im;
@@ -325,10 +309,9 @@ __global__ void dia_runs_split_kernel(int m, int n, int omin, int ngroups,
         const int d = mir_diag[r];
         const long long j = i - d;
         if (row && d > 0 && j >= 0) {
-          const size_t at = packed ? static_cast<size_t>(r) * S + lane
-                                   : static_cast<size_t>(d) * m + j;
-          const T a = (packed ? re_mir : re)[at];
-          const T b = (packed ? im_mir : im)[at];
+          const size_t at = static_cast<size_t>(r) * S + lane;
+          const T a = re_mir[at];
+          const T b = im_mir[at];
           const Pair<T> xv = x[j];
           acc[0] += a * xv.re;
           acc[1] += a * xv.im;
@@ -351,20 +334,17 @@ __global__ void dia_runs_split_kernel(int m, int n, int omin, int ngroups,
 }
 
 // lane-sets per group: split the lists while the launch is short of threads.
-// Measured on an H100 at 4 rows per group on packed run values, the
-// split-complex kernel: 8 lane-sets at 10k rows (4.0 us against 7.3 for
-// one), one at 200k rows (13.4 us against 17.8 for eight; symmetric form 11.2
-// against 20.0); the one-slab-set kernel likewise (10k: 3.4 against 6.8;
-// 200k: 9.2 against 12.4)
+// Measured on an H100 at 4 rows per group, the split-complex kernel: 8
+// lane-sets at 10k rows (3.5 us against 7.6 for one), one at 200k rows (12.0
+// us against 14.5 for eight; symmetric form 11.2 against 16.9); the
+// one-slab-set kernel likewise (10k: 3.4 against 5.6; 200k: 9.0 against 12.3)
 inline int run_parts(int m) {
-  if (DIA_RUN_PARTS) return DIA_RUN_PARTS;
   int parts = 1;
   while (parts < 8 && kRunRows * parts * 2 <= 32 &&
          static_cast<long long>(m) * parts * 2 <= kRunThreads)
     parts *= 2;
   return parts;
 }
-
 
 // grid for `ngroups` groups with P lane-sets each
 template <int P>
@@ -374,41 +354,41 @@ int run_grid(int ngroups) {
 }
 
 // One slab set, x (B, n).  vals: the packed values of the forward and of the
-// mirror runs, or null to read the runs from the slabs.
+// mirror runs.
 template <typename T, int B, int P>
 int launch_runs_p(int symmetric, int m, int n, int omin, int ngroups,
-                  const T* s, RunIndex index, const T* const* vals,
-                  const T* x, T* y, cudaStream_t stream) {
+                  RunIndex index, const T* const* vals, const T* x, T* y,
+                  cudaStream_t stream) {
   if constexpr (kRunRows * P > 32) {
     return -1;
   } else {
     const int grid = run_grid<P>(ngroups);
     if (symmetric)
       dia_runs_kernel<T, B, P, true><<<grid, kTile, 0, stream>>>(
-          m, n, omin, ngroups, s, index, vals[0], vals[1], x, y);
+          m, n, omin, ngroups, index, vals[0], vals[1], x, y);
     else
       dia_runs_kernel<T, B, P, false><<<grid, kTile, 0, stream>>>(
-          m, n, omin, ngroups, s, index, vals[0], vals[1], x, y);
+          m, n, omin, ngroups, index, vals[0], vals[1], x, y);
     return static_cast<int>(cudaGetLastError());
   }
 }
 
 template <typename T, int B>
 int launch_runs_b(int symmetric, int m, int n, int omin, int ngroups,
-                  const T* s, RunIndex index, const T* const* vals,
-                  const T* x, T* y, cudaStream_t st) {
+                  RunIndex index, const T* const* vals, const T* x, T* y,
+                  cudaStream_t st) {
   switch (run_parts(m)) {
     case 1:
-      return launch_runs_p<T, B, 1>(symmetric, m, n, omin, ngroups, s, index,
+      return launch_runs_p<T, B, 1>(symmetric, m, n, omin, ngroups, index,
                                     vals, x, y, st);
     case 2:
-      return launch_runs_p<T, B, 2>(symmetric, m, n, omin, ngroups, s, index,
+      return launch_runs_p<T, B, 2>(symmetric, m, n, omin, ngroups, index,
                                     vals, x, y, st);
     case 4:
-      return launch_runs_p<T, B, 4>(symmetric, m, n, omin, ngroups, s, index,
+      return launch_runs_p<T, B, 4>(symmetric, m, n, omin, ngroups, index,
                                     vals, x, y, st);
     case 8:
-      return launch_runs_p<T, B, 8>(symmetric, m, n, omin, ngroups, s, index,
+      return launch_runs_p<T, B, 8>(symmetric, m, n, omin, ngroups, index,
                                     vals, x, y, st);
     default:
       return -1;
@@ -417,66 +397,61 @@ int launch_runs_b(int symmetric, int m, int n, int omin, int ngroups,
 
 template <typename T>
 int launch_runs(int symmetric, int m, int n, int omin, int B, int ngroups,
-                const void* slabs, RunIndex index, const void* const* vals,
-                const void* x, void* y, cudaStream_t st) {
-  const T* s = static_cast<const T*>(slabs);
+                RunIndex index, const void* const* vals, const void* x,
+                void* y, cudaStream_t st) {
   const T* v[2] = {static_cast<const T*>(vals[0]),
                    static_cast<const T*>(vals[1])};
   const T* xv = static_cast<const T*>(x);
   T* yv = static_cast<T*>(y);
-  return B == 1 ? launch_runs_b<T, 1>(symmetric, m, n, omin, ngroups, s,
-                                      index, v, xv, yv, st)
-                : launch_runs_b<T, 2>(symmetric, m, n, omin, ngroups, s,
-                                      index, v, xv, yv, st);
+  return B == 1 ? launch_runs_b<T, 1>(symmetric, m, n, omin, ngroups, index,
+                                      v, xv, yv, st)
+                : launch_runs_b<T, 2>(symmetric, m, n, omin, ngroups, index,
+                                      v, xv, yv, st);
 }
 
 // Two slab sets, x (n, 2).  vals: the packed values of re's and im's forward
-// runs, then of their mirror runs, or null to read the runs from the slabs.
+// runs, then of their mirror runs.
 template <typename T, int P>
 int launch_split_p(int symmetric, int m, int n, int omin, int ngroups,
-                   const T* re, const T* im, RunIndex index,
-                   const T* const* vals, const Pair<T>* x, T* y,
-                   cudaStream_t stream) {
+                   RunIndex index, const T* const* vals, const Pair<T>* x,
+                   T* y, cudaStream_t stream) {
   if constexpr (kRunRows * P > 32) {
     return -1;
   } else {
     const int grid = run_grid<P>(ngroups);
     if (symmetric)
       dia_runs_split_kernel<T, P, true><<<grid, kTile, 0, stream>>>(
-          m, n, omin, ngroups, re, im, index, vals[0], vals[1], vals[2],
-          vals[3], x, y);
+          m, n, omin, ngroups, index, vals[0], vals[1], vals[2], vals[3], x,
+          y);
     else
       dia_runs_split_kernel<T, P, false><<<grid, kTile, 0, stream>>>(
-          m, n, omin, ngroups, re, im, index, vals[0], vals[1], vals[2],
-          vals[3], x, y);
+          m, n, omin, ngroups, index, vals[0], vals[1], vals[2], vals[3], x,
+          y);
     return static_cast<int>(cudaGetLastError());
   }
 }
 
 template <typename T>
 int launch_split(int symmetric, int m, int n, int omin, int ngroups,
-                 const void* re, const void* im, RunIndex index,
-                 const void* const* vals, const void* x, void* y,
-                 cudaStream_t st) {
-  const T* a = static_cast<const T*>(re);
-  const T* b = static_cast<const T*>(im);
+                 RunIndex index, const void* const* vals, const void* x,
+                 void* y, cudaStream_t st) {
   const T* v[4];
   for (int k = 0; k < 4; ++k) v[k] = static_cast<const T*>(vals[k]);
   const Pair<T>* xv = static_cast<const Pair<T>*>(x);
   T* yv = static_cast<T*>(y);
   switch (run_parts(m)) {
     case 1:
-      return launch_split_p<T, 1>(symmetric, m, n, omin, ngroups, a, b, index,
-                                  v, xv, yv, st);
+      return launch_split_p<T, 1>(symmetric, m, n, omin, ngroups, index, v,
+                                  xv, yv, st);
     case 2:
-      return launch_split_p<T, 2>(symmetric, m, n, omin, ngroups, a, b, index,
-                                  v, xv, yv, st);
+      return launch_split_p<T, 2>(symmetric, m, n, omin, ngroups, index, v,
+                                  xv, yv, st);
     case 4:
-      return launch_split_p<T, 4>(symmetric, m, n, omin, ngroups, a, b, index,
-                                  v, xv, yv, st);
+      return launch_split_p<T, 4>(symmetric, m, n, omin, ngroups, index, v,
+                                  xv, yv, st);
     case 8:
-      return launch_split_p<T, 8>(symmetric, m, n, omin, ngroups, a, b, index,
-                                  v, xv, yv, st);
+      return launch_split_p<T, 8>(symmetric, m, n, omin, ngroups, index, v,
+                                  xv, yv, st);
     default:
       return -1;
   }
@@ -531,18 +506,17 @@ int dia_spmv(int itemsize, int symmetric, int m, int n, int D, int omin,
 // read otherwise).  ngroups = ceil(m / run_rows); run_rows must be the value
 // this library was built for.  A diagonal the lists leave out is not read:
 // the caller lists every run that holds a nonzero.  run_vals (listed runs x
-// run_rows) and, for the symmetric form, mir_vals (null for an empty list)
-// hold the values the runs read, packed in the order of the lists; with
-// run_vals null the runs are read from the slabs.
-int dia_spmv_runs(int itemsize, int symmetric, int m, int n, int D, int omin,
-                  int B, int run_rows, int ngroups, const void* slabs,
-                  const void* run_ptr, const void* run_diag,
-                  const void* mir_ptr, const void* mir_diag,
-                  const void* run_vals, const void* mir_vals, const void* x,
-                  void* y, void* stream) {
-  if ((itemsize != 4 && itemsize != 8) || (B != 1 && B != 2) || D < 0 ||
-      m < 0 || (symmetric && (n != m || omin != 0)) ||
-      run_rows != kRunRows ||
+// run_rows) and, for the symmetric form, mir_vals hold the values the runs
+// read, packed in the order of the lists (a null pointer only for an empty
+// list): the slabs themselves are not read.
+int dia_spmv_runs(int itemsize, int symmetric, int m, int n, int omin, int B,
+                  int run_rows, int ngroups, const void* run_ptr,
+                  const void* run_diag, const void* mir_ptr,
+                  const void* mir_diag, const void* run_vals,
+                  const void* mir_vals, const void* x, void* y,
+                  void* stream) {
+  if ((itemsize != 4 && itemsize != 8) || (B != 1 && B != 2) || m < 0 ||
+      (symmetric && (n != m || omin != 0)) || run_rows != kRunRows ||
       ngroups != (m + kRunRows - 1) / kRunRows)
     return -1;
   if (m == 0) return 0;
@@ -552,31 +526,28 @@ int dia_spmv_runs(int itemsize, int symmetric, int m, int n, int D, int omin,
       static_cast<const int*>(mir_ptr), static_cast<const int*>(mir_diag)};
   const void* vals[2] = {run_vals, mir_vals};
   return itemsize == 4
-             ? launch_runs<float>(symmetric, m, n, omin, B, ngroups, slabs,
-                                  index, vals, x, y, st)
-             : launch_runs<double>(symmetric, m, n, omin, B, ngroups, slabs,
-                                   index, vals, x, y, st);
+             ? launch_runs<float>(symmetric, m, n, omin, B, ngroups, index,
+                                  vals, x, y, st)
+             : launch_runs<double>(symmetric, m, n, omin, B, ngroups, index,
+                                   vals, x, y, st);
 }
 
 // The split-complex product through one occupancy index shared by the two
-// slab sets re and im (both (D, m)): x is (n, 2), xr and xi of a column side
-// by side, on a boundary of 2 * itemsize bytes; y is (2, m), yr then yi.
-// vals: four pointers, the packed values of re's and im's forward runs and of
-// their mirror runs (symmetric form; else not read), or the first null to
-// read every run from the slabs.
-int dia_spmv_runs_split(int itemsize, int symmetric, int m, int n, int D,
-                        int omin, int run_rows, int ngroups, const void* re,
-                        const void* im, const void* run_ptr,
+// slab sets re and im of one complex matrix: x is (n, 2), xr and xi of a
+// column side by side, on a boundary of 2 * itemsize bytes; y is (2, m), yr
+// then yi.  re_vals / im_vals are the packed values of the two sets' forward
+// runs, re_mir / im_mir of their mirror runs (symmetric form; else not read).
+int dia_spmv_runs_split(int itemsize, int symmetric, int m, int n, int omin,
+                        int run_rows, int ngroups, const void* run_ptr,
                         const void* run_diag, const void* mir_ptr,
                         const void* mir_diag, const void* re_vals,
                         const void* im_vals, const void* re_mir,
                         const void* im_mir, const void* x, void* y,
                         void* stream) {
-  if ((itemsize != 4 && itemsize != 8) || D < 0 || m < 0 ||
+  if ((itemsize != 4 && itemsize != 8) || m < 0 ||
       (symmetric && (n != m || omin != 0)) || run_rows != kRunRows ||
       ngroups != (m + kRunRows - 1) / kRunRows ||
-      reinterpret_cast<size_t>(x) % (2 * itemsize) != 0 ||
-      (re_vals != nullptr && im_vals == nullptr))
+      reinterpret_cast<size_t>(x) % (2 * itemsize) != 0)
     return -1;
   if (m == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -585,10 +556,10 @@ int dia_spmv_runs_split(int itemsize, int symmetric, int m, int n, int D,
       static_cast<const int*>(mir_ptr), static_cast<const int*>(mir_diag)};
   const void* vals[4] = {re_vals, im_vals, re_mir, im_mir};
   return itemsize == 4
-             ? launch_split<float>(symmetric, m, n, omin, ngroups, re, im,
-                                   index, vals, x, y, st)
-             : launch_split<double>(symmetric, m, n, omin, ngroups, re, im,
-                                    index, vals, x, y, st);
+             ? launch_split<float>(symmetric, m, n, omin, ngroups, index,
+                                   vals, x, y, st)
+             : launch_split<double>(symmetric, m, n, omin, ngroups, index,
+                                    vals, x, y, st);
 }
 
 const char* dia_spmv_error_string(int code) {

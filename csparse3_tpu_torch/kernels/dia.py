@@ -26,9 +26,10 @@ The listed runs lie scattered over the slabs (one short read per run, 1.5 GB
 apart at 200k buses), and scattered reads are what the card does worst.  So
 a plan also keeps the **packed run values** (``pack_runs``): the values the
 listed runs read, copied once in index order, about 1% of the slabs.  The
-run kernels stream them; given the index alone they read the same values
-from the slabs, to the same bits.  The slabs keep their (D, m) layout and
-stay the truth: the dense kernel and both plain versions read only them.
+run kernels stream them and never read the slabs, so an index goes to a
+kernel together with the values packed for it.  The slabs keep their (D, m)
+layout and stay the truth: the dense kernel and both plain versions read
+only them, and ``pack_runs`` is held to them on the CPU.
 
 A complex matrix is two real slab sets, and a product with it four real
 products.  The split-complex plans give both sets ONE index (the union of
@@ -38,7 +39,7 @@ by side: one launch and one read of the index and of x where two launches
 on the stacked input made two.
 
 ``dia_spmv_cuda`` launches a kernel (built with nvcc at first use): the run
-kernel when it is given an index, else the dense one.  ``dia_spmv_plain`` is
+kernel when it is given an index and its packed values, else the dense one.  ``dia_spmv_plain`` is
 the dense product in plain PyTorch, a loop over diagonals of ``slab *
 shifted window``, and the truth every other version is held to;
 ``dia_spmv_runs_plain`` walks an index in plain PyTorch (gather the listed
@@ -78,42 +79,26 @@ __all__ = ["band_spmv", "dia_spmv_cuda", "dia_spmv_plain",
 LAUNCHES = {"dia_spmv": 0, "dia_spmv_runs": 0, "dia_spmv_split": 0}
 
 #: rows per group of the occupancy index: the value ``csrc/dia_spmv.cu`` is
-#: built for (its DIA_RUN_ROWS), chosen among 4, 8, 16, 32 by measurement on
-#: an H100 (``utils/tune_kernels.py``).  Split-complex launch on packed run
-#: values, RCM Ybus: 200k buses float32, general / symmetric form, 13.4 / 11.2
-#: us at 4 rows, 22.2 / 21.1 at 8, 41.8 / 38.5 at 16, 61.0 / 58.1 at 32; 10k
-#: buses float64, general form, 4.0 us at 4, 5.3 at 8, 8.6 at 16, 18.4 at 32.
-#: Reading the runs from the slabs instead, 4 is ahead as well (200k: 43-46
-#: us at 4, 47-49 at 8, 52-58 at 16, 70-77 at 32)
+#: built for (its kRunRows), chosen among 4, 8, 16, 32 by measurement on an
+#: H100 (``tune_dia_spmv.py`` at the repository root builds the source for
+#: each and times it).  Split-complex launch, RCM Ybus: 200k buses float32,
+#: general / symmetric form, 12.0 / 11.2 us at 4 rows, 19.6 / 19.9 at 8,
+#: 36.4 / 37.6 at 16, 55.0 / 54.9 at 32; 10k buses float64, general form,
+#: 3.5 us at 4, 4.5 at 8, 6.9 at 16, 19.9 at 32
 RUN_ROWS = 4
 
 #: a plan keeps its index (and the packed values of its runs) when the listed
 #: runs are at most this share of the runs the dense kernel walks; above it
 #: the dense kernel is used.  Measured on an H100 on bands of 200,000 rows
 #: and 256 diagonals in float32 whose runs are occupied at random
-#: (``utils/tune_kernels.py``): the dense kernel takes 0.084 ms whatever the
-#: share, the run kernel on packed values 0.034 ms at 20%, 0.050 at 30%, 0.065
-#: at 40%, 0.081 at 50%, 0.116 at 75%: they cross just above 50%.  At 40% the
-#: run kernel is still a quarter faster, and the packed copy stays well under
-#: half the size of the slabs
+#: (``tune_dia_spmv.py``): the dense kernel takes 0.082 ms whatever the
+#: share, the run kernel 0.034 ms at 20%, 0.051 at 30%, 0.064 at 40%, 0.079
+#: at 50%, 0.116 at 75%: they cross just above 50%.  At 40% the run kernel
+#: is still a fifth faster, and the packed copy stays well under half the
+#: size of the slabs
 RUN_SHARE_MAX = 0.4
 
 _DTYPES = (torch.float32, torch.float64)
-
-
-def bind_library(path):
-    """Load a build of ``csrc/dia_spmv.cu`` and declare its functions."""
-    lib = ctypes.CDLL(path)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.dia_spmv.restype = ci
-    lib.dia_spmv.argtypes = [ci] * 7 + [vp, vp, vp, vp]
-    lib.dia_spmv_runs.restype = ci
-    lib.dia_spmv_runs.argtypes = [ci] * 9 + [vp] * 10
-    lib.dia_spmv_runs_split.restype = ci
-    lib.dia_spmv_runs_split.argtypes = [ci] * 8 + [vp] * 13
-    lib.dia_spmv_error_string.restype = ctypes.c_char_p
-    lib.dia_spmv_error_string.argtypes = [ci]
-    return lib
 
 
 @functools.cache
@@ -121,7 +106,17 @@ def load_cuda_library():
     """Build ``csrc/dia_spmv.cu`` with nvcc for sm_90a (first use) and load
     it.  Returns the ctypes library; raises BuildError when nvcc is missing
     or refuses the source."""
-    return bind_library(build_cuda_library("dia_spmv"))
+    lib = ctypes.CDLL(build_cuda_library("dia_spmv"))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.dia_spmv.restype = ci
+    lib.dia_spmv.argtypes = [ci] * 7 + [vp, vp, vp, vp]
+    lib.dia_spmv_runs.restype = ci
+    lib.dia_spmv_runs.argtypes = [ci] * 8 + [vp] * 9
+    lib.dia_spmv_runs_split.restype = ci
+    lib.dia_spmv_runs_split.argtypes = [ci] * 7 + [vp] * 11
+    lib.dia_spmv_error_string.restype = ctypes.c_char_p
+    lib.dia_spmv_error_string.argtypes = [ci]
+    return lib
 
 
 def _check(slabs, xbm, omin, symmetric, runs=None, vals=None):
@@ -259,9 +254,9 @@ def pack_runs(slabs, n: int, omin: int, symmetric: bool, runs):
     the order of the index: one (listed runs, RUN_ROWS) tensor for the
     forward lists and, for the symmetric form, one for the mirror lists, on
     the slabs' device; zero where a run reaches past an edge of the matrix.
-    The run kernels stream these instead of making one scattered read of
-    the slabs per run.  They are a copy: valid for the slabs they were
-    packed from."""
+    The run kernels stream these and read nothing of the slabs: one
+    scattered read per run is what the card does worst.  They are a copy:
+    valid for the slabs they were packed from."""
     if slabs.numel() == 0 or n == 0:
         return tuple(slabs.new_zeros((d.shape[0], RUN_ROWS))
                      for d in runs[1::2])
@@ -305,12 +300,15 @@ def dia_spmv_cuda(slabs, xbm, omin: int, symmetric: bool = False, runs=None,
                   vals=None):
     """A CUDA kernel: y (B, m) for slabs (D, m) and x (B, n), both on one
     CUDA device, both float32 or both float64.  With ``runs`` (the int32
-    occupancy index on the same device) the run kernel, which reads only
-    the listed runs: from ``vals`` (``pack_runs`` of these slabs and this
-    index) as a stream, else scattered from the slabs; the same bits either
-    way.  Without ``runs``, the dense kernel.  One launch per two rows of x
-    (the kernels keep two sums per thread in registers)."""
+    occupancy index) and ``vals`` (``pack_runs`` of these slabs and this
+    index), both on the same device, the run kernel: it streams ``vals``
+    and reads nothing of ``slabs``.  With neither, the dense kernel.  One
+    launch per two rows of x (the kernels keep two sums per thread in
+    registers)."""
     _check(slabs, xbm, omin, symmetric, runs, vals)
+    if runs is not None and vals is None:
+        raise ValueError("the run kernel takes the occupancy index together "
+                         "with the run values packed for it (pack_runs)")
     dev = slabs.device
     if dev.type != "cuda" or xbm.device != dev or any(
             t.device != dev for t in (*(runs or ()), *(vals or ()))):
@@ -329,7 +327,7 @@ def dia_spmv_cuda(slabs, xbm, omin: int, symmetric: bool = False, runs=None,
     if runs is not None:
         runs = [t.contiguous() for t in runs]
         index = [t.data_ptr() for t in runs] + [None] * (4 - len(runs))
-        vals = [t.contiguous() for t in vals or ()]
+        vals = [t.contiguous() for t in vals]
         index += [t.data_ptr() for t in vals] + [None] * (2 - len(vals))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -342,9 +340,8 @@ def dia_spmv_cuda(slabs, xbm, omin: int, symmetric: bool = False, runs=None,
                                    slabs.data_ptr(), xp, yp, stream)
             else:
                 err = lib.dia_spmv_runs(
-                    size, int(symmetric), m, n, D, omin, nb, RUN_ROWS,
-                    -(-m // RUN_ROWS), slabs.data_ptr(), *index, xp, yp,
-                    stream)
+                    size, int(symmetric), m, n, omin, nb, RUN_ROWS,
+                    -(-m // RUN_ROWS), *index, xp, yp, stream)
             if err:
                 raise RuntimeError(
                     "dia_spmv launch failed: "
@@ -356,24 +353,22 @@ def dia_spmv_cuda(slabs, xbm, omin: int, symmetric: bool = False, runs=None,
 
 
 @torch.inference_mode()
-def dia_split_cuda(re, im, xn2, omin: int, symmetric: bool, runs, vals=None):
+def dia_split_cuda(re, im, xn2, omin: int, symmetric: bool, runs, vals):
     """The split-complex run kernel: y (2, m) = (yr, yi) for the real slab
     sets ``re`` and ``im`` (both (D, m)) of one complex matrix, their shared
-    occupancy index ``runs`` and x given as (n, 2), the real and the
-    imaginary part of a column side by side; all on one CUDA device, float32
-    or float64.  ``vals`` is (``pack_runs`` of re, ``pack_runs`` of im) for
-    this index, which the kernel then streams; without it the runs are read
-    scattered from the slabs, to the same bits.  One launch, in place of
-    ``split_complex_apply`` over two launches of ``dia_spmv_cuda`` with this
-    index: the same sums in the same order."""
-    _check(re, xn2.T, omin, symmetric, runs, vals and vals[0])
-    if vals is not None and (len(vals) != 2 or any(
-            a.shape != b.shape or a.dtype != b.dtype for a, b in zip(*vals))):
+    occupancy index ``runs``, ``vals`` = (``pack_runs`` of re, ``pack_runs``
+    of im) for this index, and x given as (n, 2), the real and the imaginary
+    part of a column side by side; all on one CUDA device, float32 or
+    float64.  The kernel streams ``vals`` and reads nothing of the slabs.
+    One launch, in place of ``split_complex_apply`` over two launches of
+    ``dia_spmv_cuda`` with this index: the same sums in the same order."""
+    if len(vals) != 2 or len(vals[0]) != len(vals[1]) or any(
+            a.shape != b.shape or a.dtype != b.dtype for a, b in zip(*vals)):
         raise ValueError("the packed run values of re and of im must be "
                          "alike: one index serves both slab sets")
+    _check(re, xn2.T, omin, symmetric, runs, vals[0])
     dev = re.device
-    tensors = (re, im, xn2) + tuple(runs) + tuple(
-        t for v in vals or () for t in v)
+    tensors = (re, im, xn2) + tuple(runs) + tuple(t for v in vals for t in v)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("dia_split_cuda needs both slab sets, x and the "
                          "index on one CUDA device; got "
@@ -388,24 +383,22 @@ def dia_split_cuda(re, im, xn2, omin: int, symmetric: bool, runs, vals=None):
                         f"and x of one dtype; got {re.dtype}, {im.dtype} and "
                         f"{xn2.dtype}")
     lib = load_cuda_library()
-    re, im, x = re.contiguous(), im.contiguous(), xn2.contiguous()
+    x = xn2.contiguous()
     size = re.element_size()
     if x.data_ptr() % (2 * size):  # a view that starts between two pairs
         x = x.clone()
-    (D, m), n = re.shape, x.shape[0]
+    m, n = re.shape[1], x.shape[0]
     runs = [t.contiguous() for t in runs]
     index = [t.data_ptr() for t in runs] + [None] * (4 - len(runs))
-    if vals is None:
-        index += [None] * 4
-    else:  # re's and im's forward values, then their mirror values
-        vals = [[t.contiguous() for t in v] for v in vals]
-        index += [v[k].data_ptr() if k < len(v) else None
-                  for k in range(2) for v in vals]
+    # re's and im's forward values, then their mirror values
+    vals = [[t.contiguous() for t in v] for v in vals]
+    index += [v[k].data_ptr() if k < len(v) else None
+              for k in range(2) for v in vals]
     y = torch.empty((2, m), dtype=re.dtype, device=dev)
     with torch.cuda.device(dev):
         err = lib.dia_spmv_runs_split(
-            size, int(symmetric), m, n, D, omin, RUN_ROWS, -(-m // RUN_ROWS),
-            re.data_ptr(), im.data_ptr(), *index, x.data_ptr(), y.data_ptr(),
+            size, int(symmetric), m, n, omin, RUN_ROWS, -(-m // RUN_ROWS),
+            *index, x.data_ptr(), y.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("dia_spmv_runs_split launch failed: "
@@ -415,12 +408,11 @@ def dia_split_cuda(re, im, xn2, omin: int, symmetric: bool, runs, vals=None):
     return y
 
 
-def split_band_spmv(re, im, xr, xi, omin: int, symmetric: bool, runs,
-                    vals=None):
+def split_band_spmv(re, im, xr, xi, omin: int, symmetric: bool, runs, vals):
     """(yr, yi) of the complex band ``re + 1j*im`` (two (D, m) slab sets
     with one occupancy index) times ``xr + 1j*xi``: on CPU tensors the plain
     walk of the index over each set, on CUDA tensors one launch of the
-    split-complex kernel (on the packed run values ``vals`` where given)."""
+    split-complex kernel on the two sets' packed run values ``vals``."""
     if re.device.type == "cpu" and xr.device.type == "cpu":
         return split_complex_apply(
             *(functools.partial(dia_spmv_runs_plain, s, omin=omin,
@@ -436,8 +428,8 @@ def band_spmv(slabs, xbm, omin: int, symmetric: bool = False, runs=None,
     """y (B, m) = band(slabs, omin) @ x for x given as (B, n): a plain
     version for CPU tensors, a CUDA kernel otherwise; with ``runs``, the
     occupancy index, the version of either that walks it (the kernel on the
-    packed run values ``vals`` where given; the plain walk gathers from the
-    slabs)."""
+    packed run values ``vals``, which it needs with the index; the plain
+    walk gathers from the slabs)."""
     if slabs.device.type == "cpu" and xbm.device.type == "cpu":
         if runs is None:
             return dia_spmv_plain(slabs, xbm, omin, symmetric)

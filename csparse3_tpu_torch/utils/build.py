@@ -79,13 +79,10 @@ def build_shared_library(name, sources, command, key="", timeout=600):
             fcntl.flock(lock, fcntl.LOCK_UN)
 
 
-def build_cuda_library(name, defines=()):
+def build_cuda_library(name):
     """Build ``csrc/<name>.cu`` with nvcc for sm_90a (first use) and return
-    the library's path.  ``defines`` are ``NAME=VALUE`` macros for the
-    source's tunable constants: the package builds with none (the values in
-    the source), ``utils/tune_kernels.py`` with the candidates it times;
-    each set is a library of its own.  Raises BuildError when nvcc is
-    missing or refuses the source."""
+    the library's path.  Raises BuildError when nvcc is missing or refuses
+    the source."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     nvcc = shutil.which("nvcc") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
@@ -96,4 +93,4 @@ def build_cuda_library(name, defines=()):
         name, [src],
         lambda out: [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                      "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                     *(f"-D{d}" for d in defines), "-o", out, src])
+                     "-o", out, src])

@@ -485,8 +485,11 @@ def test_run_wrappers_refuse_a_malformed_index():
         pdia.band_spmv(slabs, x, -1, False, (ptr.long(), diag))
     with pytest.raises(ValueError, match="occupancy index"):
         pdia.band_spmv(slabs, x, 0, True, (ptr, diag))  # no mirror lists
-    with pytest.raises(ValueError, match="CUDA device"):
+    with pytest.raises(ValueError, match="together with the run values"):
         pdia.dia_spmv_cuda(slabs, x, -1, False, (ptr, diag))
+    with pytest.raises(ValueError, match="CUDA device"):
+        pdia.dia_spmv_cuda(slabs, x, -1, False, (ptr, diag), pdia.pack_runs(
+            slabs, 20, -1, False, (ptr, diag)))
 
 
 # -- one index for the two slab sets of a complex matrix ----------------------

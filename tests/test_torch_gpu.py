@@ -255,7 +255,9 @@ def test_dia_cuda_input_never_reaches_plain_version(cuda, monkeypatch):
     assert kdia.LAUNCHES["dia_spmv_runs"] == before["dia_spmv_runs"] + 1
     with pytest.raises(ValueError, match="CUDA device"):
         kdia.band_spmv(plan.slabs, x[None], plan.omin, False,
-                       tuple(t.cpu() for t in plan.runs))
+                       tuple(t.cpu() for t in plan.runs), plan.run_values)
+    with pytest.raises(ValueError, match="together with the run values"):
+        kdia.band_spmv(plan.slabs, x[None], plan.omin, False, plan.runs)
     with pytest.raises(ValueError, match="CUDA device"):
         plan(x.cpu())  # slabs on the card, x on the CPU: no fallback
     split = pt.SplitDIA(ybus(rcm_grid(synthetic_grid(1037, seed=3))[0])[0],
@@ -306,8 +308,11 @@ def test_dia_run_kernel_matches_plain_versions_and_repeats(cuda, case, sym,
         plan.slabs.cpu().numpy(), sym))
     x = torch.as_tensor(np.random.RandomState(12).rand(B, a.n).astype(dtype),
                         device=cuda)
+    # and the values it lists, packed in its order: what the kernel streams
+    vals = kdia.pack_runs(plan.slabs, a.n, plan.omin, sym, runs)
+    assert all(v.is_cuda for v in vals)
     before = dict(kdia.LAUNCHES)
-    yk = kdia.band_spmv(plan.slabs, x, plan.omin, sym, runs)
+    yk = kdia.band_spmv(plan.slabs, x, plan.omin, sym, runs, vals)
     torch.cuda.synchronize()
     for key in ("dia_spmv", "dia_spmv_runs"):
         assert kdia.LAUNCHES[key] - before[key] == (B + 1) // 2
@@ -324,11 +329,7 @@ def test_dia_run_kernel_matches_plain_versions_and_repeats(cuda, case, sym,
     ref = (a.to_scipy() @ x.double().cpu().numpy().T).T
     rel = 1e-12 if dtype == np.float64 else REL
     assert np.abs(yk.cpu().numpy() - ref).max() <= rel * np.abs(ref).max()
-    # a fixed order of summation: the same bits at every launch, and on the
-    # packed run values as on the slabs
-    assert torch.equal(kdia.band_spmv(plan.slabs, x, plan.omin, sym, runs), yk)
-    vals = kdia.pack_runs(plan.slabs, a.n, plan.omin, sym, runs)
-    assert all(v.is_cuda for v in vals)
+    # a fixed order of summation: the same bits at every launch
     assert torch.equal(
         kdia.band_spmv(plan.slabs, x, plan.omin, sym, runs, vals), yk)
     if plan.has_runs:  # and it is what the plan itself launches
@@ -372,13 +373,12 @@ def test_split_run_kernel_matches_plain_versions_and_repeats(cuda, plan, n,
     assert kdia.LAUNCHES["dia_spmv_runs"] - before["dia_spmv_runs"] == 3
     again = p(xr, xi)
     assert torch.equal(again[0], yr) and torch.equal(again[1], yi)
-    # the plan launches on its packed run values; the same walk reading the
-    # runs from the slabs gives the same bits
+    # the launch the plan makes, on the packed run values of its two parts
     xn2 = torch.stack([xr, xi], dim=1)
-    for vals in (None, (p.re.run_values, p.im.run_values)):
-        y = kdia.dia_split_cuda(p.re.slabs, p.im.slabs, xn2, p.re.omin,
-                                p.re.symmetric, p.re.runs, vals)
-        assert torch.equal(y[0], yr) and torch.equal(y[1], yi)
+    y = kdia.dia_split_cuda(p.re.slabs, p.im.slabs, xn2, p.re.omin,
+                            p.re.symmetric, p.re.runs,
+                            (p.re.run_values, p.im.run_values))
+    assert torch.equal(y[0], yr) and torch.equal(y[1], yi)
     # one launch per slab set (the same sums, folded over the lanes in
     # another order where the two kernels split the lists differently), the
     # plain walk of the index, and the dense plain version, row by row
