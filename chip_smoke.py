@@ -19,9 +19,12 @@ seconds):
 4. kernel: the band+points SpMV on the 200k-bus synthetic Ybus: the CUDA
            kernel against its plain PyTorch version on the card and against
            scipy complex128 on the host, for the default plan and for an
-           offset-group plan (the points-only launches); CUDA-event and
-           profiler times of both versions, and of the one library call for
-           the same function (torch.sparse CSR complex64 @ x).
+           offset-group plan (group_span=512), which must make one launch
+           per call, like the default plan, and give the same bits; device
+           times of the kernel alone and of the plain version (CUDA events
+           around calls queued behind a spin kernel), the kernel's time
+           with a cold L2, and the one library call for the same function
+           (torch.sparse CSR complex64 @ x).
 5. dia:    the DIA SpMV on the RCM-ordered 200k-bus Ybus (D = 1885
            diagonals), float32: ``SplitDIA`` and ``SplitSymDIA``, whose two
            real slab sets share an occupancy index and go through the
@@ -68,7 +71,10 @@ seconds):
            the pattern equal to scipy's exactly; ``GramPlan.numeric``,
            ``spgemm_device`` and the host products agree; times of kernel,
            plain version and the library call (torch.sparse.mm of two CSR
-           tensors, symbolic and numeric together).
+           tensors, symbolic and numeric together) beside the kernel's byte
+           bound, the least-bytes bound of any layout and the launch floor
+           (the kernel on a one-output plan); wall and queued times of the
+           device ESC product (``ESCSpGEMM``).
 10. bsr:   the block product ``Y = A @ X``: the 16384^2 matrix of 32 x 32
            blocks (6 per block row) with X (16384, 1024), and
            ``spmm(B, X, block=(8, 128))`` for B = imag(Ybus) of the 200k-bus
@@ -304,6 +310,8 @@ def library_spmv_ms(Y, xr_t, xi_t, yk, reps=50):
 
 
 def kernel_phase(dev):
+    """The band+points SpMV at 200k buses: the default plan and an offset-
+    group plan, each one launch per call.  Returns {label: record}."""
     import torch
 
     from csparse3_tpu_torch import SplitBandPoints
@@ -317,67 +325,94 @@ def kernel_phase(dev):
     z = Y.to_scipy() @ (xr.astype(np.float64) + 1j * xi)
     z2 = np.stack([z.real, z.imag])
     xr_t, xi_t = torch.as_tensor(xr, device=dev), torch.as_tensor(xi, device=dev)
+    x2 = torch.stack([xr_t, xi_t])
     out = {}
     for label, kw in (("default", {}), ("groups", dict(group_span=512))):
         plan = SplitBandPoints(Y, device=dev, **kw)
         yk = torch.stack(plan(xr_t, xi_t))
         torch.cuda.synchronize()
-        if plan.kernel_launches != plan.n_groups:
+        if plan.kernel_launches != 1:
             raise AssertionError(f"{label}: {plan.kernel_launches} launches "
-                                 f"for {plan.n_groups} groups")
-        if label == "groups" and plan.n_groups < 2:
-            raise AssertionError("groups: no points-only launch")
+                                 f"for one call ({plan.n_groups} groups)")
+        if label == "groups":
+            # the groups ride in the one launch over the default plan's
+            # lists: the same bits
+            if plan.n_groups < 2:
+                raise AssertionError("groups: one offset group only")
+            if not torch.equal(yk, out["default"]["y"]):
+                raise AssertionError("groups: the grouped plan's result "
+                                     "differs from the default plan's")
         yp = torch.stack(plan.plain(xr_t, xi_t))
         scale = float(yp.abs().max())
         abs_plain = float((yk - yp).abs().max())
         abs_scipy = float(np.abs(yk.cpu().numpy() - z2).max())
         log(f"kernel[{label}]: n={n} nnz={Y.nnz} heavy_diagonals="
-            f"{plan.core_ndiag} groups={plan.n_groups} "
-            f"rel_err_vs_plain={abs_plain / scale:.3e} "
+            f"{plan.core_ndiag} groups={plan.n_groups} launches_per_call="
+            f"{plan.kernel_launches} rel_err_vs_plain={abs_plain / scale:.3e} "
             f"rel_err_vs_scipy_c128={abs_scipy / scale:.3e} "
-            f"bound={SPMV_REL:.0e}")
+            f"bound={SPMV_REL:.0e}"
+            + (" equal_to_default=True" if label == "groups" else ""))
         if abs_plain > SPMV_REL * scale or abs_scipy > SPMV_REL * scale:
             raise AssertionError(f"{label}: kernel disagrees")
-        for _ in range(20):
-            plan(xr_t, xi_t)
+        y = torch.empty_like(yk)
+
+        def kernel():  # one launch on a prepared x (2, n): the kernel alone
+            plan._launch(x2, y)
+
+        def plain():
             plan.plain(xr_t, xi_t)
+
+        for _ in range(20):
+            kernel()
+            plain()
         # plain, kernel, kernel, plain: one card, one call
-        t = [cuda_ms(lambda: plan.plain(xr_t, xi_t), 200),
-             cuda_ms(lambda: plan(xr_t, xi_t), 200),
-             cuda_ms(lambda: plan(xr_t, xi_t), 200),
-             cuda_ms(lambda: plan.plain(xr_t, xi_t), 200)]
-        log(f"kernel[{label}]: wrapper_ms_per_call={min(t[1], t[2]):.6f} "
-            f"plain_ms_per_call={min(t[0], t[3]):.6f} (cuda events over "
-            f"200 back-to-back calls, best of 2, host overhead included; "
-            f"runs plain,kernel,kernel,plain = {t})")
-        # device time alone, from the profiler's kernel records
-        _, kbusy, klaunch, kby = device_profile(lambda: plan(xr_t, xi_t), 50)
-        ms, kcount = kernel_ms(kby, "band_points_kernel", plan.n_groups)
-        _, pbusy, plaunch, _ = device_profile(
-            lambda: plan.plain(xr_t, xi_t), 50)
-        plain_ms = pbusy / 50 * 1e3
-        log(f"kernel[{label}]: kernel_device_ms_per_call={ms:.6f} "
-            f"({kcount / 50:.0f} launches) plain_device_ms_per_call="
-            f"{plain_ms:.6f} ({plaunch / 50:.0f} kernels) wrapper_device_"
-            f"ms_per_call={kbusy / 50 * 1e3:.6f} ({klaunch / 50:.0f} "
-            f"kernels) (torch.profiler, 50 calls)")
-        out[label] = dict(abs_err=abs_plain, ms=ms, plain_ms=plain_ms)
+        t = [queued_ms(plain, 200), queued_ms(kernel, 400),
+             queued_ms(kernel, 400), queued_ms(plain, 200)]
+        ms, plain_ms = min(t[1], t[2]), min(t[0], t[3])
+        wrapper_ms = cuda_ms(lambda: plan(xr_t, xi_t), 200)
+        note = profiler_note(kernel, 50, "band_points_kernel")
+        # what the kernel reads (slabs, offsets, point lists, x) and writes
+        # (y), each once; 8 float operations per complex nonzero
+        ptr, col, val = plan._kernel_lists()
+        nbytes = sum(x.numel() * x.element_size() for x in (
+            plan.slabs, plan.offs_t, ptr, col, val, xr_t, xi_t, yk))
+        flops = 8 * (plan.slabs[0].count_nonzero().item() + col.numel())
+        rec = dict(abs_err=abs_plain, ms=ms, plain_ms=plain_ms,
+                   n_groups=plan.n_groups, launches_per_call=1,
+                   wrapper_ms=wrapper_ms, **bound_record(nbytes, flops))
+        log(f"kernel[{label}]: kernel_device_ms_per_launch={ms:.6f} "
+            f"plain_device_ms_per_call={plain_ms:.6f} (cuda events around "
+            f"calls queued behind a spin kernel; runs plain,kernel,kernel,"
+            f"plain = {t}) wrapper_ms_per_call={wrapper_ms:.6f} (cuda "
+            f"events, host in the way; the wrapper also stacks x) "
+            f"bytes_per_call={nbytes} bound_ms={rec['bound_ms']:.6f} "
+            f"({rec['bound_by']}); {note}")
         if label == "default":
-            # what the kernel reads (slabs, offsets, point tables, x) and
-            # writes (y), each once; 8 float operations per complex nonzero
-            nbytes = sum(t.numel() * t.element_size() for t in (
-                plan.slabs, plan.offs_t, plan.p0_ptr, plan.p0_col,
-                plan.p0_val, xr_t, xi_t, yk))
-            flops = 8 * (plan.slabs[0].count_nonzero().item()
-                         + plan.p0_col.numel())
-            out[label].update(bound_record(nbytes, flops))
-            lib_ms = library_spmv_ms(Y, xr_t, xi_t, yk)
-            out[label]["library_ms"] = lib_ms
-            log(f"kernel[default]: bytes_per_call={nbytes} bound_ms="
-                f"{out[label]['bound_ms']:.6f} ({out[label]['bound_by']}) "
-                f"library_csr_c64_device_ms_per_call={lib_ms:.6f}")
+            rec["library_ms"] = library_spmv_ms(Y, xr_t, xi_t, yk)
+            # cold L2: a write of 128 MB (2.5x the L2) before each launch,
+            # less the write's own time
+            flush = torch.empty(32 * 2 ** 20, device=dev)
+            for _ in range(3):
+                flush.fill_(1.0)
+                kernel()
+            both = min(queued_ms(lambda: (flush.fill_(1.0), kernel()), 100)
+                       for _ in range(2))
+            fill = min(queued_ms(lambda: flush.fill_(1.0), 100)
+                       for _ in range(2))
+            rec["cold_l2_ms"] = both - fill
+            log(f"kernel[default]: library_csr_c64_device_ms_per_call="
+                f"{rec['library_ms']:.6f} cold_l2_kernel_ms="
+                f"{rec['cold_l2_ms']:.6f} (a 128 MB write before each "
+                f"launch: {both:.6f} ms, the write alone {fill:.6f} ms)")
+            del flush
+        else:
+            rec["library_ms"] = out["default"]["library_ms"]
+        rec["y"] = yk
+        out[label] = rec
+    for rec in out.values():
+        del rec["y"]
     log(f"kernel: phase seconds {time.perf_counter() - t0:.1f}")
-    return out["default"]
+    return out
 
 
 def build_phase():
@@ -1087,6 +1122,17 @@ def spgemm_phase(dev):
         raise AssertionError(f"spgemm: {launches} launches for "
                              f"{2 * len(cases)} numeric calls")
 
+    # ---- the launch floor: the kernel on a plan of one output
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    ptr1 = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    v1 = torch.ones(1, device=dev)
+    if float(kspg.spgemm_numeric_cuda(ptr1, one, one, v1, 2 * v1)[0]) != 2:
+        raise AssertionError("spgemm: the one-output plan disagrees")
+    floor_ms = min(queued_ms(lambda: kspg.spgemm_numeric_cuda(
+        ptr1, one, one, v1, v1), 400) for _ in range(2))
+    log(f"spgemm: launch_floor_ms={floor_ms:.6f} (the kernel on a plan of "
+        f"one output, queued behind a spin kernel)")
+
     # ---- checks and times
     out = {}
     for label, c in cases.items():
@@ -1159,12 +1205,27 @@ def spgemm_phase(dev):
         ev = [cuda_ms(plain_fn, 50), cuda_ms(kernel, 200)]
         note = profiler_note(kernel, 50, "spgemm_numeric_kernel")
         # what the kernel reads (the three maps, both value arrays) and
-        # writes (data), each once; one multiply-add per product
+        # writes (data), each once; one multiply-add per product.  The
+        # least any layout needs: the two maps, the values, the output and
+        # one bit per product for the segment boundaries
         nbytes = sum(x.numel() * x.element_size() for x in (
             plan.seg_ptr, plan.pa_s, plan.pb_s, a32, b32, data))
+        least = nbytes - plan.seg_ptr.numel() * 4 + -(-plan.n_products // 8)
         rec = dict(abs_err=abs_plain, ms=ms, plain_ms=plain_ms,
                    products=plan.n_products, outputs=n_out,
+                   outputs_per_thread=kspg.outputs_per_thread(n_out),
+                   least_bytes=least,
+                   least_bytes_bound_ms=least / HBM_BYTES_PER_S * 1e3,
+                   launch_floor_ms=floor_ms,
                    **bound_record(nbytes, 2 * plan.n_products))
+        # the device ESC product (expand, sort, compress per call): its
+        # bincount reads the output size back, so the queued time holds
+        # the host's gap after that read
+        esc = pt.ESCSpGEMM(c["A"], c["B"], device=dev)
+        esc(a32, b32)
+        rec["esc_wall_ms"] = wall_ms(lambda: esc(a32, b32), 5)
+        rec["esc_queued_ms"] = queued_ms(lambda: esc(a32, b32), 5)
+        del esc
         # the library call: symbolic and numeric phase together
         try:
             La = _csr_tensor(c["A"].to_scipy(), dev, np.float32)
@@ -1194,7 +1255,12 @@ def spgemm_phase(dev):
             f"kernel,plain = {t}); with the host in the way: plain "
             f"{ev[0]:.6f} kernel {ev[1]:.6f} ms per call; {note}; "
             f"bytes_per_launch={nbytes} bound_ms={rec['bound_ms']:.6f} "
-            f"({rec['bound_by']}) {lib_note}")
+            f"({rec['bound_by']}) least_bytes={least} least_bytes_bound_ms="
+            f"{rec['least_bytes_bound_ms']:.6f} launch_floor_ms="
+            f"{floor_ms:.6f} outputs_per_thread={rec['outputs_per_thread']} "
+            f"share_of_bound={rec['bound_ms'] / ms:.4f} {lib_note}; "
+            f"ESCSpGEMM wall_ms_per_call={rec['esc_wall_ms']:.6f} "
+            f"queued_ms_per_call={rec['esc_queued_ms']:.6f} (5 calls)")
         out[label] = rec
     # where the time goes on this path: the entry point, host included
     big = cases["conn200k"]
@@ -1526,8 +1592,8 @@ def newton_case(name, grid, dev, solves=1, profile_solve=False):
         raise AssertionError(f"{name}: did not converge ({it} its, {res})")
     if hm > HOST_MISMATCH:
         raise AssertionError(f"{name}: host mismatch {hm} > {HOST_MISMATCH}")
-    # one launch per point group per mismatch evaluation: it + 1 of them
-    if launches == 0 or launches != (it + 1) * plan.n_groups:
+    # one launch per mismatch evaluation: it + 1 of them
+    if launches == 0 or launches != it + 1:
         raise AssertionError(f"{name}: {launches} launches for {it + 1} "
                              f"mismatch evaluations")
     # the float64 'ell' solve: the same solver with the gather plan in place
@@ -1596,8 +1662,20 @@ def main():
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
     log(json.dumps({"kernels": [
-        record("bandpoints_spmv", "bandpoints",
-               "csparse3_tpu/kernels/bandpoints.py:546", launches, k),
+        # the top-level numbers are one launch of the default plan at 200k
+        # buses (K1; K2 is the same kernel); points_groups is the plan with
+        # group_span=512 (K3's offset groups), one launch per call over the
+        # groups' joined lists, equal to the default plan's result; its
+        # library call is the same complex64 CSR product
+        dict(record("bandpoints_spmv", "bandpoints",
+                    "csparse3_tpu/kernels/bandpoints.py:546", launches,
+                    k["default"]),
+             cold_l2_ms=k["default"]["cold_l2_ms"],
+             points_groups=dict(
+                 replaces="csparse3_tpu/kernels/bandpoints.py:266",
+                 **{key: k["groups"][key] for key in (
+                     "n_groups", "launches_per_call", "ms", "plain_ms",
+                     "bound_ms", "bound_by", "library_ms", "abs_err")})),
         # the top-level numbers are one launch of the split-complex run
         # kernel at the shape the banded solves give it (float64, D=473,
         # n=10k, both real slab sets through the occupancy index they share,
@@ -1640,7 +1718,13 @@ def main():
                     spg["conn200k"]),
              shape=f"float32, C @ C.T of the {N_KERNEL}-bus grid's "
                    "connectivity matrix, per launch; library_ms is "
-                   "torch.sparse.mm (symbolic and numeric together)",
+                   "torch.sparse.mm (symbolic and numeric together); "
+                   "least_bytes_bound_ms counts the maps, values, output "
+                   "and one bit per product; launch_floor_ms is the kernel "
+                   "on a plan of one output; esc_* the device ESC product",
+             **{k: spg["conn200k"][k] for k in (
+                 "outputs_per_thread", "least_bytes_bound_ms",
+                 "launch_floor_ms", "esc_wall_ms", "esc_queued_ms")},
              conn3000=spg["conn3000"], rand10k=spg["rand10k"]),
         # the top-level numbers are spmm(B, X, block=(8, 128)) on the
         # 200k-bus susceptance matrix, through its column lists; the

@@ -5,15 +5,22 @@
 //   band_points_spmv_pallas      (K2, pallas_call in _fused_call, :366),
 //   points_spmv_pallas           (K3, pallas_call in _points_call, :266).
 // The three differ only in how they budget the TPU's VMEM; here they are one
-// kernel, and K3 (points only, for offset groups past the first) is the same
-// launch with D = 0 that adds into y.
+// kernel and one launch per matvec.  K3 served the offset groups past the
+// first: the TPU partitions the scattered entries by offset so that each
+// call gathers x from a VMEM window of its group's span, one call per
+// group, each adding into y.  Hopper gathers through L1/L2 with no window,
+// so the groups are bookkeeping of the plan's build: SplitBandPoints joins
+// their per-row lists, in group order, into the lists this kernel walks.
+// The groups partition the offsets into ascending ranges, so the joined
+// lists are exactly those of the ungrouped plan, and a grouped plan gives
+// the same bits in the same one launch.
 //
 // What it computes, for a square complex A split into
 //   * D heavy diagonals: slab_{re,im}[d * m + i] = A[i, i + offs[d]], and
 //   * the scattered "wash" entries as per-row lists sorted by row: entries
 //     ptr[i] .. ptr[i+1] of (col, val_re, val_im) belong to row i,
 // is y = A x with x = x_re + i x_im:
-//   y[i] (+)= sum_e val_e * x[col_e] + sum_d slab_d[i] * x[i + offs[d]]
+//   y[i] = sum_e val_e * x[col_e] + sum_d slab_d[i] * x[i + offs[d]]
 // in float32, complex arithmetic written out on (re, im) pairs.
 //
 // What bounds it on an H100: device-memory bytes.  Each nonzero costs 8
@@ -31,7 +38,7 @@
 // emulated the gather with one-hot matrix products (bf16-split for f32
 // exactness); Hopper gathers natively, so x[col] is a direct load, no
 // operand is split and every product is plain f32.  Each thread writes only
-// its own row: no atomics, so the result is deterministic run to run.
+// its own row, once: no atomics, so the result is deterministic run to run.
 
 #include <cuda_runtime.h>
 
@@ -43,7 +50,7 @@ __global__ void band_points_kernel(
     const int* __restrict__ ptr, const int* __restrict__ col,
     const float* __restrict__ val_re, const float* __restrict__ val_im,
     const float* __restrict__ x_re, const float* __restrict__ x_im,
-    float* __restrict__ y_re, float* __restrict__ y_im, int accumulate) {
+    float* __restrict__ y_re, float* __restrict__ y_im) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
   float ar = 0.f, ai = 0.f;
@@ -65,13 +72,8 @@ __global__ void band_points_kernel(
       ai += sr * xi + si * xr;
     }
   }
-  if (accumulate) {
-    y_re[i] += ar;
-    y_im[i] += ai;
-  } else {
-    y_re[i] = ar;
-    y_im[i] = ai;
-  }
+  y_re[i] = ar;
+  y_im[i] = ai;
 }
 
 }  // namespace
@@ -85,13 +87,12 @@ int bandpoints_spmv(int m, int n, int D, const int* offs,
                     const int* ptr, const int* col,
                     const float* val_re, const float* val_im,
                     const float* x_re, const float* x_im,
-                    float* y_re, float* y_im, int accumulate, int tile,
-                    void* stream) {
+                    float* y_re, float* y_im, int tile, void* stream) {
   if (m <= 0) return 0;
   const int grid = (m + tile - 1) / tile;
   band_points_kernel<<<grid, tile, 0, static_cast<cudaStream_t>(stream)>>>(
       m, n, D, offs, slab_re, slab_im, ptr, col, val_re, val_im, x_re, x_im,
-      y_re, y_im, accumulate);
+      y_re, y_im);
   return static_cast<int>(cudaGetLastError());
 }
 

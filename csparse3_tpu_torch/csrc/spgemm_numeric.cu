@@ -11,70 +11,236 @@
 // B's, and the products of output o are t in [seg_ptr[o], seg_ptr[o + 1]):
 //   data[o] = sum_{t = seg_ptr[o]}^{seg_ptr[o+1] - 1} a[pa[t]] * b[pb[t]].
 //
-// What bounds it on an H100: device-memory bytes.  A product costs two
-// 4-byte map reads, two gathered values and one multiply-add; the card does
-// ~20 float32 operations in the time of one byte.  On the power-grid and
-// random patterns this serves the mean segment holds 1.1-1.2 products, so
-// the segment pointers and the output weigh as much as the maps.
+// What bounds it on an H100: the latency of dependent loads, then bytes.
+// On the power-grid and random patterns this serves a segment holds 1.1
+// products on the mean (88-98% of the outputs hold one; the longest seen
+// holds 24), so there is no long segment to split: the work is ~1 product
+// per output, and each product is a chain of three dependent loads (the
+// segment bounds, then the two map entries, then the two value gathers)
+// ending in one small write.  One thread per output, as the first version
+// had it, keeps one 4-byte load in flight per thread at each step of that
+// chain: too little to cover device-memory latency (it reached ~60% of the
+// byte bound at 1M+ outputs, 11% at 54k outputs).
 //
-// What the design does about it: one pass, one thread per output, the sum
-// kept in a register and written once.  Neighbouring threads own
-// neighbouring outputs, so seg_ptr and data are coalesced and, segments
-// being short, so are pa and pb nearly; the two value gathers a[pa[t]],
-// b[pb[t]] are what the card's caches are for (the TPU kernel had to emulate
-// them with one-hot matrix products over values resident in its fast memory,
-// which capped both value arrays at ~32k entries, re-tiled the products into
-// blocks of 256 outputs padded to a common length, and took float32 only:
-// none of that is carried over, and there is no size cap here).  Each output
-// is summed by one thread in product order: no atomics, the result is
-// deterministic.  A hub output with a long segment serializes on its thread;
-// a warp per long segment is the remedy when a pattern needs it.
+// What the design does about it:
+//  * An output tile per CTA: 256 threads own 256 * V consecutive outputs
+//    (V a compile-time constant, the size rule below), whose products are
+//    one contiguous range [seg_ptr[o0], seg_ptr[o0 + 256 V]).  The CTA
+//    copies its seg_ptr slice into shared memory with coalesced loads; the
+//    range's two ends are read by every thread directly, so the map loads
+//    wait for those two reads only.
+//  * Staging, all loads of a chunk issued before any is used: the threads
+//    stride over the tile's product range in chunks of 1024 or 2048
+//    products, loading pa[t] and pb[t] as 16-byte vectors (scalar loads at
+//    the range's ragged ends; nothing past it is read), then gathering
+//    a[pa[t]] and b[pb[t]] through the read-only path, and storing each
+//    product in shared memory.  A thread has 4 to 8 products' loads in
+//    flight at each step where it had one.
+//  * Segmented sums in a fixed order: after a barrier each thread walks
+//    its V outputs in order and sums each output's staged products in
+//    product order.  An output whose products straddle two chunks carries
+//    its running sum in a register into the next chunk, so a hub output of
+//    any length takes the same loop: no size cap, no atomics, and the
+//    result is the same bits on every run.  Each output is written once;
+//    a thread's V outputs go out as 16-byte vector stores where their bytes
+//    fill whole vectors.
+// The segment pointers stay (14.7 of the 69.7 MB moved at the 200k-bus
+// connectivity product); a layout without them would change the plan.
+// The TPU kernel emulated the gathers with one-hot matrix products over
+// values resident in its fast memory (both value arrays capped at ~32k
+// entries, float32 only, products re-tiled and padded per 256 outputs):
+// none of that is carried over.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <cstring>
 
 namespace {
 
 constexpr int kThreads = 256;
+
+// Outputs per thread.  V = 4 unless the plan is too small to give the 132
+// SMs two tiles each; then the largest of 2 or 1 that does, else 1.
+// Measured on an H100 80GB HBM3 (700 W) by csparse3_tpu_torch/tune_spgemm.py
+// (see PERF.md): V = 1 / 2 / 4 at 53,645 outputs (conn3000), 1,004,426
+// (rand10k) and 3,683,865 (conn200k) -- filled in from the measurement.
+int outputs_per_thread(int out_nnz) {
+  for (int v = 4; v > 1; v /= 2) {
+    const long long tiles = (out_nnz + kThreads * v - 1LL) / (kThreads * v);
+    if (tiles >= 2 * 132) return v;
+  }
+  return 1;
+}
 
 template <typename R>
 struct Cx {
   R re, im;
 };
 
-__device__ inline float madd(float acc, float a, float b) { return acc + a * b; }
-__device__ inline double madd(double acc, double a, double b) { return acc + a * b; }
+__device__ inline float mul(float a, float b) { return a * b; }
+__device__ inline double mul(double a, double b) { return a * b; }
 template <typename R>
-__device__ inline Cx<R> madd(Cx<R> acc, Cx<R> a, Cx<R> b) {
-  acc.re += a.re * b.re - a.im * b.im;
-  acc.im += a.re * b.im + a.im * b.re;
-  return acc;
+__device__ inline Cx<R> mul(Cx<R> a, Cx<R> b) {
+  return {a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re};
 }
 
-template <typename T>
-__global__ void spgemm_numeric_kernel(int out_nnz,
-                                      const int* __restrict__ seg_ptr,
-                                      const int* __restrict__ pa,
-                                      const int* __restrict__ pb,
-                                      const T* __restrict__ a,
-                                      const T* __restrict__ b,
-                                      T* __restrict__ data) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= out_nnz) return;
-  const int t1 = seg_ptr[o + 1];
+__device__ inline float add(float a, float b) { return a + b; }
+__device__ inline double add(double a, double b) { return a + b; }
+template <typename R>
+__device__ inline Cx<R> add(Cx<R> a, Cx<R> b) {
+  return {a.re + b.re, a.im + b.im};
+}
+
+// loads through the read-only data path
+__device__ inline float ld(const float* p) { return __ldg(p); }
+__device__ inline double ld(const double* p) { return __ldg(p); }
+__device__ inline Cx<float> ld(const Cx<float>* p) {
+  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+  return {v.x, v.y};
+}
+__device__ inline Cx<double> ld(const Cx<double>* p) {
+  const double2 v = __ldg(reinterpret_cast<const double2*>(p));
+  return {v.x, v.y};
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    spgemm_numeric_kernel(int out_nnz, const int* __restrict__ seg_ptr,
+                          const int* __restrict__ pa,
+                          const int* __restrict__ pb,
+                          const T* __restrict__ a, const T* __restrict__ b,
+                          T* __restrict__ data) {
+  constexpr int kTile = kThreads * V;
+  // quads of products a thread stages per chunk: 8 products, 4 for the
+  // 16-byte complex128 (its 8 gathered pairs would take 64 registers); a
+  // chunk is then 2048 (1024) products, 8 KB to 16 KB of shared memory
+  constexpr int kQ = sizeof(T) >= 16 ? 1 : 2;
+  constexpr int kChunk = 4 * kThreads * kQ;
+  __shared__ int s_ptr[kTile + 1];
+  __shared__ T s_prod[kChunk];
+
+  const int tid = threadIdx.x;
+  const int o0 = blockIdx.x * kTile;
+  const int n = min(kTile, out_nnz - o0);
+  const int p0 = __ldg(seg_ptr + o0), p1 = __ldg(seg_ptr + o0 + n);
+  for (int i = tid; i <= n; i += kThreads) s_ptr[i] = __ldg(seg_ptr + o0 + i);
+
+  // this thread's outputs: o0 + first + [0, nv)
+  const int first = tid * V;
+  const int nv = max(0, min(V, n - first));
+  T res[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) res[k] = T();
   T acc = T();
-  for (int t = seg_ptr[o]; t < t1; ++t) acc = madd(acc, a[pa[t]], b[pb[t]]);
-  data[o] = acc;
+  int j = 0;  // the thread's next output to finish
+  int t = 0;  // its next product to add (set in the first chunk)
+
+  // chunks start on multiples of 4 products: the map quads are aligned
+  int base = p0 & ~3;
+  while (base < p1) {
+    const int lo = max(p0, base);
+    const int hi = p1 - base > kChunk ? base + kChunk : p1;
+    // ---- stage: map quads, then the gathers, then the products
+    int ia[kQ][4], ib[kQ][4];
+#pragma unroll
+    for (int k = 0; k < kQ; ++k) {
+      const int q = base + 4 * (tid + k * kThreads);
+      if (q >= lo && q + 4 <= hi) {
+        const int4 x = __ldg(reinterpret_cast<const int4*>(pa + q));
+        const int4 y = __ldg(reinterpret_cast<const int4*>(pb + q));
+        ia[k][0] = x.x, ia[k][1] = x.y, ia[k][2] = x.z, ia[k][3] = x.w;
+        ib[k][0] = y.x, ib[k][1] = y.y, ib[k][2] = y.z, ib[k][3] = y.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ia[k][i] = -1, ib[k][i] = 0;
+          if (q + i >= lo && q + i < hi) {
+            ia[k][i] = __ldg(pa + q + i);
+            ib[k][i] = __ldg(pb + q + i);
+          }
+        }
+      }
+    }
+    T va[kQ][4], vb[kQ][4];
+#pragma unroll
+    for (int k = 0; k < kQ; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (ia[k][i] >= 0) {
+          va[k][i] = ld(a + ia[k][i]);
+          vb[k][i] = ld(b + ib[k][i]);
+        }
+#pragma unroll
+    for (int k = 0; k < kQ; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (ia[k][i] >= 0)
+          s_prod[4 * (tid + k * kThreads) + i] = mul(va[k][i], vb[k][i]);
+    __syncthreads();  // the products, and s_ptr on the first chunk
+    // ---- sum: this thread's outputs in order, each in product order
+    if (base == (p0 & ~3)) t = s_ptr[min(first, n)];
+    while (j < nv) {
+      const int e = s_ptr[first + j + 1];
+      const int stop = min(e, hi);
+      for (; t < stop; ++t) acc = add(acc, s_prod[t - base]);
+      if (e > hi) break;  // carried into the next chunk
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        if (k == j) res[k] = acc;
+      acc = T();
+      ++j;
+    }
+    if (p1 - base <= kChunk) break;
+    base += kChunk;
+    __syncthreads();  // s_prod is restaged
+  }
+
+  // ---- write: outputs of empty segments stay 0
+  T* out = data + o0 + first;
+  if constexpr ((V * sizeof(T)) % 16 == 0) {
+    if (nv == V) {
+      // o0 + first is a multiple of V and data is 16-byte aligned
+      int4 pk[V * sizeof(T) / 16];
+      memcpy(pk, res, sizeof(res));
+#pragma unroll
+      for (int u = 0; u < int(V * sizeof(T) / 16); ++u)
+        reinterpret_cast<int4*>(out)[u] = pk[u];
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k)
+    if (k < nv) out[k] = res[k];
+}
+
+template <typename T, int V>
+int launch_v(int out_nnz, const void* seg_ptr, const void* pa, const void* pb,
+             const void* a, const void* b, void* data, cudaStream_t stream) {
+  const int grid =
+      static_cast<int>((out_nnz + kThreads * V - 1LL) / (kThreads * V));
+  spgemm_numeric_kernel<T, V><<<grid, kThreads, 0, stream>>>(
+      out_nnz, static_cast<const int*>(seg_ptr), static_cast<const int*>(pa),
+      static_cast<const int*>(pb), static_cast<const T*>(a),
+      static_cast<const T*>(b), static_cast<T*>(data));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(int out_nnz, const void* seg_ptr, const void* pa, const void* pb,
            const void* a, const void* b, void* data, cudaStream_t stream) {
-  const int grid = (out_nnz + kThreads - 1) / kThreads;
-  spgemm_numeric_kernel<T><<<grid, kThreads, 0, stream>>>(
-      out_nnz, static_cast<const int*>(seg_ptr), static_cast<const int*>(pa),
-      static_cast<const int*>(pb), static_cast<const T*>(a),
-      static_cast<const T*>(b), static_cast<T*>(data));
-  return static_cast<int>(cudaGetLastError());
+  switch (outputs_per_thread(out_nnz)) {
+    case 4:
+      return launch_v<T, 4>(out_nnz, seg_ptr, pa, pb, a, b, data, stream);
+    case 2:
+      return launch_v<T, 2>(out_nnz, seg_ptr, pa, pb, a, b, data, stream);
+    default:
+      return launch_v<T, 1>(out_nnz, seg_ptr, pa, pb, a, b, data, stream);
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -85,11 +251,12 @@ extern "C" {
 // the launch was accepted, -1 for arguments the kernel does not take.
 // itemsize is the size of one real component, 4 (float) or 8 (double);
 // is_complex selects interleaved (re, im) values.  seg_ptr (out_nnz + 1), pa
-// and pb are int32.
+// and pb are int32; pa, pb and data must be 16-byte aligned.
 int spgemm_numeric(int itemsize, int is_complex, int out_nnz,
                    const void* seg_ptr, const void* pa, const void* pb,
                    const void* a, const void* b, void* data, void* stream) {
   if ((itemsize != 4 && itemsize != 8) || out_nnz < 0) return -1;
+  if (!aligned16(pa) || !aligned16(pb) || !aligned16(data)) return -1;
   if (out_nnz == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_complex)
@@ -99,6 +266,12 @@ int spgemm_numeric(int itemsize, int is_complex, int out_nnz,
   return itemsize == 4
              ? launch<float>(out_nnz, seg_ptr, pa, pb, a, b, data, st)
              : launch<double>(out_nnz, seg_ptr, pa, pb, a, b, data, st);
+}
+
+// The outputs each thread owns for a plan of out_nnz outputs (the size rule
+// above), for the tests and the measurements to name the tile they run.
+int spgemm_numeric_outputs_per_thread(int out_nnz) {
+  return outputs_per_thread(out_nnz);
 }
 
 const char* spgemm_numeric_error_string(int code) {

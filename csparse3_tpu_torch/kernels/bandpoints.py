@@ -9,11 +9,19 @@ Grid admittance matrices in natural order have two kinds of structure
 
 ``SplitBandPoints`` stores the heavy diagonals as dense slabs and the wash
 as per-row point lists, and computes y = A x for split-complex x in one
-hand-written CUDA kernel per matvec (``csrc/bandpoints.cu``), which stands
-for the three Pallas kernels of the JAX module.  Beside it, in this module,
-is the plain PyTorch version of the same function: the wrapper runs it for
-a CPU tensor, and only there.  A CUDA tensor launches the kernel (built
-with nvcc at first use) or raises.
+launch of one hand-written CUDA kernel per matvec (``csrc/bandpoints.cu``),
+which stands for the three Pallas kernels of the JAX module.  Beside it, in
+this module, is the plain PyTorch version of the same function: the wrapper
+runs it for a CPU tensor, and only there.  A CUDA tensor launches the
+kernel (built with nvcc at first use) or raises.
+
+On an H100 the kernel is bound by device-memory bytes: one thread per row
+reads each slab value, point entry and x value once and writes its row of
+y once.  The offset groups of ``group_span`` bound the TPU's VMEM window of
+x, one Pallas call per group; Hopper gathers x through its caches with no
+window, so here the groups are build-time bookkeeping: the plan joins
+their per-row lists in group order into the one set of lists the kernel
+walks, which are the lists of the ungrouped plan (asserted at build).
 
 What the TPU needed and Hopper does not is left out: the one-hot "gather"
 products (``_dot_onehot`` and its bf16 split), the VMEM window and
@@ -130,7 +138,7 @@ def load_cuda_library():
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.bandpoints_spmv.restype = ci
-    lib.bandpoints_spmv.argtypes = [ci, ci, ci] + [vp] * 11 + [ci, ci, vp]
+    lib.bandpoints_spmv.argtypes = [ci, ci, ci] + [vp] * 11 + [ci, vp]
     lib.bandpoints_error_string.restype = ctypes.c_char_p
     lib.bandpoints_error_string.argtypes = [ci]
     return lib
@@ -141,13 +149,15 @@ class SplitBandPoints(nn.Module):
 
     ``forward(xr, xi) -> (yr, yi)``, float32.  Built on the host from a
     complex (or real) square CSC and placed on ``device`` (None: the CUDA
-    card, ``config.default_device()``).  On a CUDA
-    device every matvec launches the CUDA kernel once per point group and
-    counts it in ``kernel_launches``; on the CPU it runs ``plain``.
+    card, ``config.default_device()``).  On a CUDA device every matvec
+    launches the CUDA kernel once and counts it in ``kernel_launches``; on
+    the CPU it runs ``plain``.
 
-    ``group_span`` partitions the points into offset groups spanning that
-    many diagonals each, as in the JAX package; group 0 rides with the
-    slabs, every later group is a points-only launch that adds into y.
+    ``group_span`` partitions the points into ``n_groups`` offset groups
+    spanning that many diagonals each, as in the JAX package.  ``plain``
+    walks them group by group; the kernel walks their lists joined in
+    group order (``_kernel_lists``), which equal the lists of
+    ``group_span=None``, in the same one launch.
     ``tile`` is the number of rows per CTA (a multiple of 32, <= 1024).
     """
 
@@ -192,7 +202,7 @@ class SplitBandPoints(nn.Module):
         self.register_buffer("offs_t", torch.as_tensor(
             np.asarray(self.offs, dtype=np.int32), device=device))
         self.register_buffer("slabs", torch.as_tensor(slabs, device=device))
-        # point entries by offset group; group 0 is fused with the slabs
+        # point entries by offset group (ascending offset ranges)
         pr, pc, pvr = rows[pts], cols[pts], vr[pts]
         pvi = vi[pts] if vi is not None else None
         dd = pc - pr
@@ -202,11 +212,26 @@ class SplitBandPoints(nn.Module):
             gid = (dd - int(dd.min())) // group_span
             gids = [gid == g for g in np.unique(gid)]
         self.n_groups = len(gids)
-        for g, sel in enumerate(gids):
-            packed = _pack_points(m, pr[sel], pc[sel], pvr[sel],
-                                  pvi[sel] if pvi is not None else None)
+        groups = [_pack_points(m, pr[sel], pc[sel], pvr[sel],
+                               pvi[sel] if pvi is not None else None)
+                  for sel in gids]
+        for g, packed in enumerate(groups):
             for name, arr in zip(("ptr", "col", "row", "val"), packed):
                 self.register_buffer(f"p{g}_{name}",
+                                     torch.as_tensor(arr, device=device))
+        if self.n_groups > 1:
+            # the kernel's lists: the groups' rows joined in group order,
+            # which within a row is column order, so the ungrouped lists
+            _, col, row, val = (np.concatenate(k, axis=-1)
+                                 for k in zip(*groups))
+            joined = _pack_points(m, row, col, val[0], val[1])
+            whole = _pack_points(m, pr, pc, pvr, pvi)
+            if not all(np.array_equal(x, y) for x, y in zip(joined, whole)):
+                raise AssertionError("joined offset groups differ from the "
+                                     "ungrouped point lists")
+            for name, arr in zip(("ptr", "col", "val"),
+                                 (joined[0], joined[1], joined[3])):
+                self.register_buffer(f"k_{name}",
                                      torch.as_tensor(arr, device=device))
         self.kernel_launches = 0
 
@@ -217,6 +242,12 @@ class SplitBandPoints(nn.Module):
     def _group(self, g):
         return tuple(getattr(self, f"p{g}_{k}")
                      for k in ("ptr", "col", "row", "val"))
+
+    def _kernel_lists(self):
+        """(ptr, col, val) the kernel walks: group 0's lists, or the groups'
+        joined in group order."""
+        pre = "p0" if self.n_groups == 1 else "k"
+        return tuple(getattr(self, f"{pre}_{k}") for k in ("ptr", "col", "val"))
 
     def _x2(self, xr, xi):
         # (2, n) float32: the kernel's input dtype, as bandpoints.py casts
@@ -247,8 +278,8 @@ class SplitBandPoints(nn.Module):
 
     @torch.inference_mode()
     def cuda_kernel(self, xr, xi):
-        """The CUDA kernel, one launch per point group; raises for input
-        that is not on this plan's CUDA device."""
+        """The CUDA kernel, one launch; raises for input that is not on
+        this plan's CUDA device."""
         dev = self.slabs.device
         if dev.type != "cuda" or xr.device != dev or xi.device != dev:
             raise ValueError(
@@ -257,27 +288,29 @@ class SplitBandPoints(nn.Module):
         if xr.shape != (self.n,) or xi.shape != (self.n,):
             raise ValueError(f"x parts must have shape ({self.n},), got "
                              f"{tuple(xr.shape)} / {tuple(xi.shape)}")
-        lib = load_cuda_library()
-        x2 = self._x2(xr, xi).contiguous()
         y = torch.empty((2, self.m), dtype=torch.float32, device=dev)
+        self._launch(self._x2(xr, xi).contiguous(), y)
+        return y[0], y[1]
+
+    def _launch(self, x2, y):
+        """One launch of the kernel on the plan's device: y (2, m) = A x
+        for x2 (2, n), both contiguous float32 (re, im) rows there."""
+        lib = load_cuda_library()
+        ptr, col, val = self._kernel_lists()
+        nnz = col.numel()
         D = len(self.offs)
         slab_re = self.slabs.data_ptr()
         slab_im = slab_re + D * self.m * 4
+        dev = self.slabs.device
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            for g in range(self.n_groups):
-                ptr, col, _, val = self._group(g)
-                nnz = col.numel()
-                err = lib.bandpoints_spmv(
-                    self.m, self.n, D if g == 0 else 0,
-                    self.offs_t.data_ptr(), slab_re, slab_im,
-                    ptr.data_ptr(), col.data_ptr(), val.data_ptr(),
-                    val.data_ptr() + nnz * 4, x2.data_ptr(),
-                    x2.data_ptr() + self.n * 4, y.data_ptr(),
-                    y.data_ptr() + self.m * 4, int(g > 0), self.tile, stream)
-                if err:
-                    raise RuntimeError(
-                        "bandpoints_spmv launch failed: "
-                        f"{lib.bandpoints_error_string(err).decode()}")
-                self.kernel_launches += 1
-        return y[0], y[1]
+            err = lib.bandpoints_spmv(
+                self.m, self.n, D, self.offs_t.data_ptr(), slab_re, slab_im,
+                ptr.data_ptr(), col.data_ptr(), val.data_ptr(),
+                val.data_ptr() + nnz * 4, x2.data_ptr(),
+                x2.data_ptr() + self.n * 4, y.data_ptr(),
+                y.data_ptr() + self.m * 4, self.tile,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError("bandpoints_spmv launch failed: "
+                               f"{lib.bandpoints_error_string(err).decode()}")
+        self.kernel_launches += 1

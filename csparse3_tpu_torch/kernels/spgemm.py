@@ -14,6 +14,16 @@ entry ``pb[t]`` of B's; the products of output o are those with
 the Pallas kernel of the JAX package's ``csparse3_tpu/kernels/
 spgemm_pallas.py``; ``spgemm_numeric_plain`` is the same function in plain
 PyTorch: two gathers, a product and ``index_add_`` over ``gid``.
+
+On an H100 the kernel is bound by the latency of its dependent loads: the
+patterns it serves hold ~1.1 products per output, each a chain of segment
+bounds, map entries and value gathers.  So a CTA owns a tile of 256 x V
+consecutive outputs (V by a size rule in the source, ``outputs_per_thread``
+reads it), stages the tile's products in shared memory with every load of
+a chunk in flight before any is used (the maps as 16-byte vectors), then
+each thread sums its V outputs in product order, carrying a sum that
+straddles two chunks in a register: no size cap, no atomics, the same bits
+on every run.
 ``spgemm_numeric`` picks between them.  By dtype: float32, float64,
 complex64 and complex128 values are the kernel's; any other dtype
 (integers, which the sum must keep exact in their own type) takes the plain
@@ -33,7 +43,8 @@ import torch
 from ..utils.build import build_cuda_library
 
 __all__ = ["spgemm_numeric", "spgemm_numeric_cuda", "spgemm_numeric_plain",
-           "load_cuda_library", "LAUNCHES", "KERNEL_DTYPES"]
+           "load_cuda_library", "outputs_per_thread", "LAUNCHES",
+           "KERNEL_DTYPES"]
 
 #: kernel launches made by ``spgemm_numeric_cuda`` since import (or since a
 #: caller set it to 0): one per launch, nowhere else
@@ -53,9 +64,24 @@ def load_cuda_library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.spgemm_numeric.restype = ci
     lib.spgemm_numeric.argtypes = [ci] * 3 + [vp] * 7
+    lib.spgemm_numeric_outputs_per_thread.restype = ci
+    lib.spgemm_numeric_outputs_per_thread.argtypes = [ci]
     lib.spgemm_numeric_error_string.restype = ctypes.c_char_p
     lib.spgemm_numeric_error_string.argtypes = [ci]
     return lib
+
+
+def outputs_per_thread(out_nnz: int) -> int:
+    """V, the outputs each thread of the kernel owns for a plan of
+    ``out_nnz`` outputs (the source's size rule; builds the library)."""
+    return load_cuda_library().spgemm_numeric_outputs_per_thread(out_nnz)
+
+
+def _aligned(t):
+    """``t`` contiguous at a 16-byte aligned address (the kernel's vector
+    loads): a copy only for a view that starts elsewhere."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(seg_ptr, pa, pb, a_vals, b_vals):
@@ -102,7 +128,7 @@ def spgemm_numeric_cuda(seg_ptr, pa, pb, a_vals, b_vals):
         raise TypeError("spgemm_numeric_cuda takes int32 seg_ptr, pa and pb; "
                         f"got {seg_ptr.dtype}, {pa.dtype}, {pb.dtype}")
     lib = load_cuda_library()
-    seg_ptr, pa, pb = seg_ptr.contiguous(), pa.contiguous(), pb.contiguous()
+    seg_ptr, pa, pb = seg_ptr.contiguous(), _aligned(pa), _aligned(pb)
     a = a_vals.to(dtype).contiguous()
     b = b_vals.to(dtype).contiguous()
     out_nnz = seg_ptr.numel() - 1

@@ -70,6 +70,28 @@ def test_plain_matches_jax(case):
         <= REL * scale
 
 
+@pytest.mark.parametrize("span", [40, 100])
+def test_grouped_kernel_lists_equal_ungrouped(span):
+    """The kernel walks the offset groups' lists joined in group order:
+    exactly the lists of the ungrouped plan, so one launch serves both.
+    The grouped plain version still walks group by group, as the JAX plan
+    does, and matches it."""
+    Yj = _ybus(900, 9)
+    Yp = csc_from_arrays(Yj.m, Yj.n, *Yj.np_arrays())
+    grouped = pbp.SplitBandPoints(Yp, tile=128, group_span=span,
+                                  device="cpu")
+    whole = pbp.SplitBandPoints(Yp, tile=128, device="cpu")
+    assert grouped.n_groups >= 2 and whole.n_groups == 1
+    for a, b in zip(grouped._kernel_lists(), whole._kernel_lists()):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    jplan = jbp.SplitBandPoints(Yj, tile=128, group_span=span)
+    assert jplan.n_groups == grouped.n_groups
+    xr, xi = _x(Yj.n, 5)
+    yj = np.stack([np.asarray(y) for y in jplan(xr, xi)])
+    yp = torch.stack(grouped(torch.as_tensor(xr), torch.as_tensor(xi)))
+    assert np.abs(yp.numpy() - yj).max() <= REL * np.abs(yj).max()
+
+
 def test_cpu_input_runs_plain_version_without_launching():
     Yj = _ybus(300, 1)
     plan = pt.SplitBandPoints(csc_from_arrays(Yj.m, Yj.n, *Yj.np_arrays()),

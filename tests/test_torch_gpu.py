@@ -80,28 +80,51 @@ def test_cuda_kernel_matches_plain(cuda, case):
               for _ in range(2))
     yk = torch.stack(plan(xr, xi))
     torch.cuda.synchronize()
-    assert plan.kernel_launches == plan.n_groups
+    assert plan.kernel_launches == 1  # whatever the number of groups
     yp = torch.stack(plan.plain(xr, xi))
-    assert plan.kernel_launches == plan.n_groups
+    assert plan.kernel_launches == 1
     scale = yp.abs().max().item()
     assert (yk - yp).abs().max().item() <= REL * scale
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,span", [(900, 40), (900, 100), (20_000, 512)])
+def test_grouped_plan_is_one_launch_equal_to_default(cuda, n, span):
+    """The offset groups ride in the one launch over their joined lists,
+    which are the default plan's: the same bits."""
+    Y = ybus(synthetic_grid(n, seed=9))[0]
+    grouped = pt.SplitBandPoints(Y, group_span=span, device=cuda)
+    default = pt.SplitBandPoints(Y, device=cuda)
+    assert grouped.n_groups >= 2
+    rng = np.random.RandomState(5)
+    xr, xi = (torch.as_tensor(rng.rand(n).astype(np.float32), device=cuda)
+              for _ in range(2))
+    for k in range(1, 3):
+        yg, yd = grouped(xr, xi), default(xr, xi)
+        assert grouped.kernel_launches == k
+        assert torch.equal(yg[0], yd[0]) and torch.equal(yg[1], yd[1])
+    yp = torch.stack(grouped.plain(xr, xi))
+    assert grouped.kernel_launches == 2
+    assert (torch.stack(yg) - yp).abs().max().item() \
+        <= REL * yp.abs().max().item()
+
+
+@pytest.mark.gpu
 def test_cuda_input_never_reaches_plain_version(cuda, monkeypatch):
-    plan = pt.SplitBandPoints(ybus(synthetic_grid(1037, seed=3))[0],
-                              device=cuda)
+    Y = ybus(synthetic_grid(1037, seed=3))[0]
 
     def refuse(*a):
         raise AssertionError("plain version ran on a CUDA input")
 
-    monkeypatch.setattr(plan, "plain", refuse)
     x = torch.rand(1037, device=cuda)
-    for k in range(1, 4):
-        plan(x, x)
-        assert plan.kernel_launches == k
-    with pytest.raises(ValueError, match="CUDA device"):
-        plan(x.cpu(), x)
+    for kw in ({}, dict(group_span=40)):
+        plan = pt.SplitBandPoints(Y, device=cuda, **kw)
+        monkeypatch.setattr(plan, "plain", refuse)
+        for k in range(1, 4):
+            plan(x, x)
+            assert plan.kernel_launches == k
+        with pytest.raises(ValueError, match="CUDA device"):
+            plan(x.cpu(), x)
 
 
 @pytest.mark.gpu
@@ -422,7 +445,22 @@ def _conn(n):
     return Cf - Ct
 
 
+def _dense_row_matrix(dtype):
+    """600 x 3000 at 0.2% density plus one dense row: the diagonal output
+    of that row in A @ A.T is one segment of 3000 products, more than one
+    chunk of the kernel's staging."""
+    rng = np.random.RandomState(11)
+    a = sp.random(600, 3000, density=2e-3, format="csc", random_state=rng)
+    a = (a + sp.csc_matrix((rng.rand(3000), (np.full(3000, 17),
+                                              np.arange(3000))),
+                           shape=a.shape)).tocsc()
+    if np.issubdtype(dtype, np.complexfloating):
+        a = a + 1j * a.multiply(a)
+    return pt.CSC.from_scipy(a.astype(dtype))
+
+
 SPGEMM_CASES = {"hub": _hub_matrix,
+                "dense_row": _dense_row_matrix,
                 "conn3000": lambda dt: pt.CSC.from_scipy(
                     _conn(3000).to_scipy().astype(dt))}
 
@@ -463,6 +501,83 @@ def test_spgemm_numeric_kernel_matches_plain_and_scipy(cuda, case, dtype):
     np.testing.assert_array_equal(ix, ref.indices)
     assert (np.abs(dt - ref.data) <= bound.cpu().numpy()
             + np.finfo(np.float64).tiny).all()
+
+
+def _segment_maps(out_nnz, seed, hubs=()):
+    """A product stream of ``out_nnz`` outputs with 0 to 3 products each
+    (empty segments included), ``hubs`` = {output: products} on top: int32
+    seg_ptr, pa, pb and gid as a symbolic phase lays them out."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.choice([0, 1, 1, 1, 1, 1, 2, 3], out_nnz)
+    for o, L in hubs:
+        lengths[o] = L
+    seg_ptr = np.zeros(out_nnz + 1, dtype=np.int32)
+    seg_ptr[1:] = np.cumsum(lengths)
+    P = int(seg_ptr[-1])
+    gid = np.repeat(np.arange(out_nnz, dtype=np.int32), lengths)
+    return (seg_ptr, rng.randint(0, 5000, P).astype(np.int32),
+            rng.randint(0, 7000, P).astype(np.int32), gid)
+
+
+def _values(n, dtype, seed):
+    rng = np.random.RandomState(seed)
+    v = rng.rand(n) - 0.5
+    if np.issubdtype(dtype, np.complexfloating):
+        v = v + 1j * (rng.rand(n) - 0.5)
+    return v.astype(dtype)
+
+
+# the kernel's tiles are 256 x V outputs, V by the source's size rule: 1
+# below 134,657 outputs, 2 below 269,313, then 4.  Sizes at each tile edge:
+SEGMENT_SIZES = [(0, 1), (1, 1), (255, 1), (256, 1), (257, 1),
+                 (134_655, 1), (134_657, 2), (135_168, 2), (269_313, 4),
+                 (270_335, 4), (270_336, 4), (270_337, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64,
+                                   np.complex128])
+@pytest.mark.parametrize("out_nnz,V", SEGMENT_SIZES + [("hubs", 1)])
+def test_spgemm_numeric_kernel_tiles_match_plain_and_repeat(cuda, out_nnz, V,
+                                                            dtype):
+    """The kernel on product streams cut at every tile edge, and on hub
+    outputs longer than a staging chunk (2048 products; 1024 for
+    complex128) that start and end mid-chunk: within the per-output bound
+    of the plain version and of a float64 sum, bit-equal on a second
+    launch."""
+    if out_nnz == "hubs":
+        out_nnz = 3000
+        maps = _segment_maps(out_nnz, 3, hubs=((17, 5000), (18, 1), (700,
+                                                                     2100)))
+    else:
+        maps = _segment_maps(out_nnz, out_nnz % 97)
+    if out_nnz:
+        assert kspg.outputs_per_thread(out_nnz) == V
+    seg_ptr, pa, pb, gid = (torch.as_tensor(m, device=cuda) for m in maps)
+    av = torch.as_tensor(_values(5000, dtype, 1), device=cuda)
+    bv = torch.as_tensor(_values(7000, dtype, 2), device=cuda)
+    before = kspg.LAUNCHES["spgemm_numeric"]
+    got = kspg.spgemm_numeric_cuda(seg_ptr, pa, pb, av, bv)
+    again = kspg.spgemm_numeric_cuda(seg_ptr, pa, pb, av, bv)
+    torch.cuda.synchronize()
+    assert kspg.LAUNCHES["spgemm_numeric"] == before + 2 * (out_nnz > 0)
+    assert got.shape == (out_nnz,) and got.dtype == av.dtype
+    assert torch.equal(got, again)
+    plain = kspg.spgemm_numeric_plain(gid, pa, pb, av, bv, out_nnz)
+    wide = torch.complex128 if av.dtype.is_complex else torch.float64
+    exact = kspg.spgemm_numeric_plain(gid, pa, pb, av.to(wide), bv.to(wide),
+                                      out_nnz)
+    absum = kspg.spgemm_numeric_plain(gid, pa, pb, av.abs().double(),
+                                      bv.abs().double(), out_nnz)
+    L = seg_ptr.diff().double()
+    u = torch.finfo(av.dtype).eps / 2 * (4 if av.dtype.is_complex else 1)
+    bound = (L + 1) * u * absum
+    assert ((got - plain).abs() <= 2 * bound).all()
+    # a sum in the wider type is exact to the bound's scale; in the same
+    # type it rounds like the kernel: two versions within twice the bound
+    k = 2 if wide == av.dtype else 1
+    assert ((got.to(wide) - exact).abs() <= k * bound).all()
+    assert (got[L == 0] == 0).all()
 
 
 @pytest.mark.gpu
@@ -515,6 +630,15 @@ def test_spgemm_cuda_input_never_reaches_plain_version(cuda, monkeypatch):
     with pytest.raises(TypeError, match="int32"):
         kspg.spgemm_numeric_cuda(plan.seg_ptr.long(), plan.pa_s, plan.pb_s,
                                  av, bv)
+    # a stream of 4-output tiles and one with a hub, through the dispatcher
+    for n_out, hubs in ((270_337, ()), (3000, ((17, 5000),))):
+        seg_ptr, pa, pb, gid = (torch.as_tensor(m, device=cuda) for m in
+                                _segment_maps(n_out, 4, hubs))
+        a = torch.rand(5000, device=cuda)
+        b = torch.rand(7000, device=cuda)
+        before = kspg.LAUNCHES["spgemm_numeric"]
+        kspg.spgemm_numeric(seg_ptr, gid, pa, pb, a, b)
+        assert kspg.LAUNCHES["spgemm_numeric"] == before + 1
 
 
 # -- K5: the BSR SpMM kernel -----------------------------------------------------

@@ -103,6 +103,40 @@ def test_spgemm_symbolic_numeric_matches_jax(dtype):
                                rtol=10 * rtol, atol=10 * rtol * ref.data.max())
 
 
+def _dense_row(dtype):
+    """600 x 3000 at 0.2% density plus one dense row: in A @ A.T the
+    diagonal output of that row is one segment of 3000 products.  The values
+    are multiples of 1/8 in (0, 1], so every product and every partial sum
+    is exact in float32 and any summation order gives the same bits."""
+    rng = np.random.RandomState(11)
+    a = sp.random(600, 3000, density=2e-3, format="csc", random_state=rng)
+    a = (a + sp.csc_matrix((np.ones(3000), (np.full(3000, 17),
+                                            np.arange(3000))),
+                           shape=a.shape)).tocsc()
+    a.sort_indices()
+    a.data = rng.randint(1, 9, a.nnz) / 8.0
+    return jt.CSC.from_scipy(a.astype(dtype)), a
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_hub_output_numeric_matches_jax(dtype):
+    Aj, a = _dense_row(dtype)
+    Bj = Aj.t()
+    pj = jsp.spgemm_symbolic(Aj, Bj)
+    pp = psp.spgemm_symbolic(_port(Aj), _port(Bj), device="cpu")
+    assert int(pp.seg_ptr.diff().max()) == 3000
+    np.testing.assert_array_equal(pp.gid.numpy(), np.asarray(pj.gid))
+    av, bv = Aj.np_arrays()[2], Bj.np_arrays()[2]
+    Cp = pp.numeric(av, bv)
+    rtol = 1e-6 if dtype == np.float32 else 1e-12
+    _same(Cp, pj.numeric(jnp.asarray(av), jnp.asarray(bv)), rtol=rtol)
+    ref = (a @ a.T).tocsc()
+    ref.sort_indices()
+    np.testing.assert_array_equal(Cp.np_arrays()[1], ref.indices)
+    np.testing.assert_allclose(Cp.np_arrays()[2], ref.data, rtol=rtol,
+                               atol=rtol * ref.data.max())
+
+
 def test_numeric_dtype_rule_integers_and_mixed_and_complex():
     Aj, a = _hub()
     Ap = _port(Aj)
