@@ -51,6 +51,7 @@
 // entries, float32 only, products re-tiled and padded per 256 outputs):
 // none of that is carried over.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -112,11 +113,11 @@ __global__ void __launch_bounds__(kThreads)
                           const T* __restrict__ a, const T* __restrict__ b,
                           T* __restrict__ data) {
   constexpr int kTile = kThreads * V;
-  // quads of products a thread stages per chunk: 8 products, 4 for the
-  // 16-byte complex128 (its 8 gathered pairs would take 64 registers); a
-  // chunk is then 2048 (1024) products, 8 KB to 16 KB of shared memory
-  constexpr int kQ = sizeof(T) >= 16 ? 1 : 2;
-  constexpr int kChunk = 4 * kThreads * kQ;
+  // products a thread stages per chunk: 8, or 4 for the 16-byte complex128
+  // (its 8 gathered pairs would take 64 registers); a chunk is then 2048
+  // (1024) products, 8 KB to 16 KB of shared memory
+  constexpr int kS = sizeof(T) >= 16 ? 4 : 8;
+  constexpr int kChunk = kS * kThreads;
   __shared__ int s_ptr[kTile + 1];
   __shared__ T s_prod[kChunk];
 
@@ -124,7 +125,11 @@ __global__ void __launch_bounds__(kThreads)
   const int o0 = blockIdx.x * kTile;
   const int n = min(kTile, out_nnz - o0);
   const int p0 = __ldg(seg_ptr + o0), p1 = __ldg(seg_ptr + o0 + n);
-  for (int i = tid; i <= n; i += kThreads) s_ptr[i] = __ldg(seg_ptr + o0 + i);
+  // the seg_ptr slice, copied without passing through registers: no
+  // thread waits for it before the first barrier
+  for (int i = tid; i <= n; i += kThreads)
+    __pipeline_memcpy_async(s_ptr + i, seg_ptr + o0 + i, sizeof(int));
+  __pipeline_commit();
 
   // this thread's outputs: o0 + first + [0, nv)
   const int first = tid * V;
@@ -136,50 +141,28 @@ __global__ void __launch_bounds__(kThreads)
   int j = 0;  // the thread's next output to finish
   int t = 0;  // its next product to add (set in the first chunk)
 
-  // chunks start on multiples of 4 products: the map quads are aligned
-  int base = p0 & ~3;
-  while (base < p1) {
-    const int lo = max(p0, base);
+  for (int base = p0; base < p1;) {
     const int hi = p1 - base > kChunk ? base + kChunk : p1;
-    // ---- stage: map quads, then the gathers, then the products
-    int ia[kQ][4], ib[kQ][4];
+    // ---- stage: the maps, then the gathers, then the products; lane by
+    // lane over consecutive products, whose value gathers are close
+    int ia[kS], ib[kS];
 #pragma unroll
-    for (int k = 0; k < kQ; ++k) {
-      const int q = base + 4 * (tid + k * kThreads);
-      if (q >= lo && q + 4 <= hi) {
-        const int4 x = __ldg(reinterpret_cast<const int4*>(pa + q));
-        const int4 y = __ldg(reinterpret_cast<const int4*>(pb + q));
-        ia[k][0] = x.x, ia[k][1] = x.y, ia[k][2] = x.z, ia[k][3] = x.w;
-        ib[k][0] = y.x, ib[k][1] = y.y, ib[k][2] = y.z, ib[k][3] = y.w;
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ia[k][i] = -1, ib[k][i] = 0;
-          if (q + i >= lo && q + i < hi) {
-            ia[k][i] = __ldg(pa + q + i);
-            ib[k][i] = __ldg(pb + q + i);
-          }
-        }
-      }
+    for (int s = 0; s < kS; ++s) {
+      const int q = base + tid + s * kThreads;
+      ia[s] = -1, ib[s] = 0;
+      if (q < hi) ia[s] = __ldg(pa + q), ib[s] = __ldg(pb + q);
     }
-    T va[kQ][4], vb[kQ][4];
+    T va[kS], vb[kS];
 #pragma unroll
-    for (int k = 0; k < kQ; ++k)
+    for (int s = 0; s < kS; ++s)
+      if (ia[s] >= 0) va[s] = ld(a + ia[s]), vb[s] = ld(b + ib[s]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (ia[k][i] >= 0) {
-          va[k][i] = ld(a + ia[k][i]);
-          vb[k][i] = ld(b + ib[k][i]);
-        }
-#pragma unroll
-    for (int k = 0; k < kQ; ++k)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (ia[k][i] >= 0)
-          s_prod[4 * (tid + k * kThreads) + i] = mul(va[k][i], vb[k][i]);
+    for (int s = 0; s < kS; ++s)
+      if (ia[s] >= 0) s_prod[tid + s * kThreads] = mul(va[s], vb[s]);
+    if (base == p0) __pipeline_wait_prior(0);
     __syncthreads();  // the products, and s_ptr on the first chunk
     // ---- sum: this thread's outputs in order, each in product order
-    if (base == (p0 & ~3)) t = s_ptr[min(first, n)];
+    if (base == p0) t = s_ptr[min(first, n)];
     while (j < nv) {
       const int e = s_ptr[first + j + 1];
       const int stop = min(e, hi);
@@ -191,10 +174,11 @@ __global__ void __launch_bounds__(kThreads)
       acc = T();
       ++j;
     }
-    if (p1 - base <= kChunk) break;
-    base += kChunk;
+    if (hi == p1) break;
+    base = hi;
     __syncthreads();  // s_prod is restaged
   }
+  if (p0 == p1) __pipeline_wait_prior(0);  // no chunk waited for s_ptr
 
   // ---- write: outputs of empty segments stay 0
   T* out = data + o0 + first;
@@ -251,12 +235,12 @@ extern "C" {
 // the launch was accepted, -1 for arguments the kernel does not take.
 // itemsize is the size of one real component, 4 (float) or 8 (double);
 // is_complex selects interleaved (re, im) values.  seg_ptr (out_nnz + 1), pa
-// and pb are int32; pa, pb and data must be 16-byte aligned.
+// and pb are int32; data must be 16-byte aligned.
 int spgemm_numeric(int itemsize, int is_complex, int out_nnz,
                    const void* seg_ptr, const void* pa, const void* pb,
                    const void* a, const void* b, void* data, void* stream) {
   if ((itemsize != 4 && itemsize != 8) || out_nnz < 0) return -1;
-  if (!aligned16(pa) || !aligned16(pb) || !aligned16(data)) return -1;
+  if (!aligned16(data)) return -1;
   if (out_nnz == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_complex)

@@ -77,12 +77,6 @@ def outputs_per_thread(out_nnz: int) -> int:
     return load_cuda_library().spgemm_numeric_outputs_per_thread(out_nnz)
 
 
-def _aligned(t):
-    """``t`` contiguous at a 16-byte aligned address (the kernel's vector
-    loads): a copy only for a view that starts elsewhere."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
 
 def _check(seg_ptr, pa, pb, a_vals, b_vals):
     if not (seg_ptr.ndim == pa.ndim == pb.ndim == a_vals.ndim
@@ -128,7 +122,7 @@ def spgemm_numeric_cuda(seg_ptr, pa, pb, a_vals, b_vals):
         raise TypeError("spgemm_numeric_cuda takes int32 seg_ptr, pa and pb; "
                         f"got {seg_ptr.dtype}, {pa.dtype}, {pb.dtype}")
     lib = load_cuda_library()
-    seg_ptr, pa, pb = seg_ptr.contiguous(), _aligned(pa), _aligned(pb)
+    seg_ptr, pa, pb = seg_ptr.contiguous(), pa.contiguous(), pb.contiguous()
     a = a_vals.to(dtype).contiguous()
     b = b_vals.to(dtype).contiguous()
     out_nnz = seg_ptr.numel() - 1

@@ -38,11 +38,10 @@ from .build import BUILD_DIR, CSRC_DIR, build_cuda_library
 SOURCE = os.path.join(CSRC_DIR, "spgemm_numeric.cu")
 OUT_DIR = os.path.join(BUILD_DIR, "tune")
 RULE = "int outputs_per_thread(int out_nnz) {\n"
-GATHER = ("va[k][i] = ld(a + ia[k][i]);\n"
-          "          vb[k][i] = ld(b + ib[k][i]);")
+GATHER = "va[s] = ld(a + ia[s]), vb[s] = ld(b + ib[s]);"
 # name -> [(text in the source, its replacement)]: V forced to 1, 2 or 4,
 # then probes of what bounds the kernel, at the source's own V: at most 32
-# registers (8 CTAs per SM), one map quad per thread per chunk, the value
+# registers (8 CTAs per SM), 4 products per thread per chunk, the value
 # gathers confined to the first 1024 entries (L1 hits, the same
 # instructions), and no value gathers at all
 VARIANTS = {f"V={v}": [(RULE, f"{RULE}  if ({v}) return {v};\n")]
@@ -50,11 +49,10 @@ VARIANTS = {f"V={v}": [(RULE, f"{RULE}  if ({v}) return {v};\n")]
 VARIANTS.update({
     "probe_occupancy8": [("__launch_bounds__(kThreads)",
                           "__launch_bounds__(kThreads, 8)")],
-    "probe_one_quad": [("sizeof(T) >= 16 ? 1 : 2", "1")],
+    "probe_four_per_thread": [("sizeof(T) >= 16 ? 4 : 8", "4")],
     "probe_local_gathers": [(GATHER, GATHER.replace(
-        "ia[k][i])", "(ia[k][i] & 1023))").replace(
-        "ib[k][i])", "(ib[k][i] & 1023))"))],
-    "probe_no_gathers": [(GATHER, "va[k][i] = vb[k][i] = T();")],
+        "ia[s])", "(ia[s] & 1023))").replace("ib[s])", "(ib[s] & 1023))"))],
+    "probe_no_gathers": [(GATHER, "va[s] = vb[s] = T();")],
 })
 
 
