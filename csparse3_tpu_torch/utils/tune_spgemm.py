@@ -38,20 +38,18 @@ from .build import BUILD_DIR, CSRC_DIR, build_cuda_library
 SOURCE = os.path.join(CSRC_DIR, "spgemm_numeric.cu")
 OUT_DIR = os.path.join(BUILD_DIR, "tune")
 RULE = "int outputs_per_thread(int out_nnz) {\n"
-GATHER = "va[s] = ld(a + ia[s]), vb[s] = ld(b + ib[s]);"
+GATHER = "va[s] = ld(a + ma[i]), vb[s] = ld(b + ma[kCap + i]);"
 # name -> [(text in the source, its replacement)]: V forced to 1, 2 or 4,
-# then probes of what bounds the kernel, at the source's own V: at most 32
-# registers (8 CTAs per SM), 4 products per thread per chunk, the value
-# gathers confined to the first 1024 entries (L1 hits, the same
-# instructions), and no value gathers at all
+# then probes of what bounds the kernel, at the source's own V: buffers of
+# 2 products per output instead of 1.5, the value gathers confined to the
+# first 1024 entries (L1 hits, the same instructions), no value gathers
 VARIANTS = {f"V={v}": [(RULE, f"{RULE}  if ({v}) return {v};\n")]
             for v in (1, 2, 4)}
 VARIANTS.update({
-    "probe_occupancy8": [("__launch_bounds__(kThreads)",
-                          "__launch_bounds__(kThreads, 8)")],
-    "probe_four_per_thread": [("sizeof(T) >= 16 ? 4 : 8", "4")],
+    "probe_capacity2": [("kThreads * V * 3 / 2", "kThreads * V * 2")],
     "probe_local_gathers": [(GATHER, GATHER.replace(
-        "ia[s])", "(ia[s] & 1023))").replace("ib[s])", "(ib[s] & 1023))"))],
+        "ma[i])", "(ma[i] & 1023))").replace(
+        "ma[kCap + i])", "(ma[kCap + i] & 1023))"))],
     "probe_no_gathers": [(GATHER, "va[s] = vb[s] = T();")],
 })
 

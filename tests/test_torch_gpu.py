@@ -534,21 +534,27 @@ SEGMENT_SIZES = [(0, 1), (1, 1), (255, 1), (256, 1), (257, 1),
                  (270_335, 4), (270_336, 4), (270_337, 4)]
 
 
+# hub outputs: more products than a tile's buffers hold (1.5 per output),
+# starting and ending mid-chunk; the last output of the 4-output plan is
+# its last tile's only one
+HUBS = {"hubs": (3000, ((17, 5000), (18, 1), (700, 2100))),
+        "hubs4": (270_337, ((5, 3000), (100_000, 1600), (270_336, 2000)))}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64,
                                    np.complex128])
-@pytest.mark.parametrize("out_nnz,V", SEGMENT_SIZES + [("hubs", 1)])
+@pytest.mark.parametrize("out_nnz,V", SEGMENT_SIZES + [("hubs", 1),
+                                                       ("hubs4", 4)])
 def test_spgemm_numeric_kernel_tiles_match_plain_and_repeat(cuda, out_nnz, V,
                                                             dtype):
     """The kernel on product streams cut at every tile edge, and on hub
-    outputs longer than a staging chunk (2048 products; 1024 for
-    complex128) that start and end mid-chunk: within the per-output bound
-    of the plain version and of a float64 sum, bit-equal on a second
-    launch."""
-    if out_nnz == "hubs":
-        out_nnz = 3000
-        maps = _segment_maps(out_nnz, 3, hubs=((17, 5000), (18, 1), (700,
-                                                                     2100)))
+    outputs whose products take several chunks of a tile's buffers: within
+    the per-output bound of the plain version and of a wider sum, bit-equal
+    on a second launch."""
+    if out_nnz in HUBS:
+        out_nnz, hubs = HUBS[out_nnz]
+        maps = _segment_maps(out_nnz, 3, hubs)
     else:
         maps = _segment_maps(out_nnz, out_nnz % 97)
     if out_nnz:
