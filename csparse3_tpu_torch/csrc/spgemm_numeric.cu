@@ -11,67 +11,61 @@
 // B's, and the products of output o are t in [seg_ptr[o], seg_ptr[o + 1]):
 //   data[o] = sum_{t = seg_ptr[o]}^{seg_ptr[o+1] - 1} a[pa[t]] * b[pb[t]].
 //
-// What bounds it on an H100: the latency of dependent loads, then bytes.
-// On the power-grid and random patterns this serves a segment holds 1.1
-// products on the mean (88-98% of the outputs hold one; the longest seen
-// holds 24), so there is no long segment to split: the work is ~1 product
-// per output, and each product is a chain of three dependent loads (the
-// segment bounds, then the two map entries, then the two value gathers)
-// ending in one small write.  One thread per output, as the first version
-// had it, keeps one 4-byte load in flight per thread at each step of that
-// chain: too little to cover device-memory latency (it reached ~60% of the
-// byte bound at 1M+ outputs, 11% at 54k outputs).
+// What bounds it on an H100.  The patterns it serves hold 1.09-1.12
+// products per output (88-98% of the outputs hold one, the longest segment
+// 24), so the work is about one product per output, each a chain of three
+// dependent loads (the segment bounds, the two map entries, the two value
+// gathers) ending in one small write.  It is bound by how many such chains
+// are in flight, then by the bytes of its streams (seg_ptr, the maps and
+// the output: 62.5 of the 69.7 MB it moves at the 200k-bus connectivity
+// product; the gathered values stay in L2).  One thread per output, as the
+// first version had it, keeps one chain per thread in flight and reached
+// 60% of the byte bound.
 //
 // What the design does about it:
-//  * An output tile per CTA: 256 threads own 256 * V consecutive outputs
-//    (V a compile-time constant, the size rule below), whose products are
-//    one contiguous range [seg_ptr[o0], seg_ptr[o0 + 256 V]).  The CTA
-//    copies its seg_ptr slice into shared memory with coalesced loads; the
-//    range's two ends are read by every thread directly, so the map loads
-//    wait for those two reads only.
-//  * Staging, all loads of a chunk issued before any is used: the threads
-//    stride over the tile's product range in chunks of 1024 or 2048
-//    products, loading pa[t] and pb[t] as 16-byte vectors (scalar loads at
-//    the range's ragged ends; nothing past it is read), then gathering
-//    a[pa[t]] and b[pb[t]] through the read-only path, and storing each
-//    product in shared memory.  A thread has 4 to 8 products' loads in
-//    flight at each step where it had one.
-//  * Segmented sums in a fixed order: after a barrier each thread walks
-//    its V outputs in order and sums each output's staged products in
-//    product order.  An output whose products straddle two chunks carries
-//    its running sum in a register into the next chunk, so a hub output of
-//    any length takes the same loop: no size cap, no atomics, and the
-//    result is the same bits on every run.  Each output is written once;
-//    a thread's V outputs go out as 16-byte vector stores where their bytes
-//    fill whole vectors.
-// The segment pointers stay (14.7 of the 69.7 MB moved at the 200k-bus
-// connectivity product); a layout without them would change the plan.
+//  * An output tile per CTA: 256 threads own 256 V consecutive outputs,
+//    thread t the outputs o0 + t + 256 k for k < V, so that at every step a
+//    warp's lanes take consecutive outputs (coalesced segment bounds and
+//    maps, value gathers that fall on few cache lines).  V = 2 on all but
+//    small plans: twice the chains in flight at 32 registers a thread.
+//  * Every load of a step is issued before any is used: the 2V segment
+//    bounds, then the maps of each output's first two products (all but a
+//    few segments hold one or two), then their value gathers through the
+//    read-only path.  A longer segment's further products follow in turn
+//    on its thread: no size cap.
+//  * seg_ptr, pa and pb are read once and streamed with evict-first loads,
+//    the output written with evict-first stores, so that they do not push
+//    the gathered value arrays out of L1 and L2.
+//  * Each output is summed by one thread in product order and written once:
+//    no atomics, the same bits on every run.
+// Measured and left (csparse3_tpu_torch/utils/tune_spgemm.py): staging a
+// tile's products in shared memory behind a barrier (maps as 16-byte
+// vectors, or lane by lane, or prefetched a tile ahead by cp.async in
+// persistent CTAs) beat one thread per output by at most 5%: the barrier
+// and 48-80 registers a thread left fewer chains in flight.
+// The segment pointers stay (14.7 MB at the 200k-bus product); a layout
+// without them would change the plan.
 // The TPU kernel emulated the gathers with one-hot matrix products over
 // values resident in its fast memory (both value arrays capped at ~32k
 // entries, float32 only, products re-tiled and padded per 256 outputs):
 // none of that is carried over.
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
-
-#include <cstdint>
-#include <cstring>
 
 namespace {
 
 constexpr int kThreads = 256;
 
-// Outputs per thread.  V = 4 unless the plan is too small to give the 132
-// SMs two tiles each; then the largest of 2 or 1 that does, else 1.
-// Measured on an H100 80GB HBM3 (700 W) by csparse3_tpu_torch/tune_spgemm.py
-// (see PERF.md): V = 1 / 2 / 4 at 53,645 outputs (conn3000), 1,004,426
-// (rand10k) and 3,683,865 (conn200k) -- filled in from the measurement.
+// Outputs per thread: 2, unless the plan is too small to give the 132 SMs
+// two tiles each; then 1.  Float32 C @ C.T on an H100 80GB HBM3 (700 W),
+// device us per launch for V = 1 / 2 / 4 (utils/tune_spgemm.py, before the
+// evict-first stores): 53,645 outputs 2.44 / 2.58 / 3.24; 1,004,426 outputs
+// 11.4 / 8.6 / 11.5; 3,683,865 outputs 31.9 / 23.9 / 25.4.  At V = 4 a
+// thread takes 54-62 registers, so an SM holds half the threads and no more
+// outputs than at V = 2; the launch keeps it for the measurement.
 int outputs_per_thread(int out_nnz) {
-  for (int v = 4; v > 1; v /= 2) {
-    const long long tiles = (out_nnz + kThreads * v - 1LL) / (kThreads * v);
-    if (tiles >= 2 * 132) return v;
-  }
-  return 1;
+  const long long tiles = (out_nnz + 2LL * kThreads - 1) / (2 * kThreads);
+  return tiles >= 2 * 132 ? 2 : 1;
 }
 
 template <typename R>
@@ -105,20 +99,14 @@ __device__ inline Cx<double> ld(const Cx<double>* p) {
   return {v.x, v.y};
 }
 
-// Products a tile's buffers hold: 1.5 per output (the patterns served hold
-// 1.09-1.12 on the mean, at most 1.72 over any 32 outputs); a tile with
-// more takes its products in further chunks of the same size.
-template <int V>
-__host__ __device__ constexpr int capacity() {
-  return kThreads * V * 3 / 2;
+// evict-first stores of the output
+__device__ inline void st(float* p, float v) { __stcs(p, v); }
+__device__ inline void st(double* p, double v) { __stcs(p, v); }
+__device__ inline void st(Cx<float>* p, Cx<float> v) {
+  __stcs(reinterpret_cast<float2*>(p), make_float2(v.re, v.im));
 }
-
-// Dynamic shared memory of one CTA: the products of a chunk, then two
-// buffers each of a tile's seg_ptr slice and of a chunk's two maps.
-template <typename T, int V>
-constexpr int shared_bytes() {
-  return capacity<V>() * sizeof(T) +
-         2 * (kThreads * V + 1 + 2 * capacity<V>()) * sizeof(int);
+__device__ inline void st(Cx<double>* p, Cx<double> v) {
+  __stcs(reinterpret_cast<double2*>(p), make_double2(v.re, v.im));
 }
 
 template <typename T, int V>
@@ -128,164 +116,56 @@ __global__ void __launch_bounds__(kThreads)
                           const int* __restrict__ pb,
                           const T* __restrict__ a, const T* __restrict__ b,
                           T* __restrict__ data) {
-  constexpr int kTile = kThreads * V;
-  constexpr int kCap = capacity<V>();
-  constexpr int kS = (kCap + kThreads - 1) / kThreads;  // products a thread
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_prod = reinterpret_cast<T*>(smem);                    // [kCap]
-  int* s_ptr = reinterpret_cast<int*>(s_prod + kCap);        // [2][kTile+1]
-  int* s_map = s_ptr + 2 * (kTile + 1);                      // [2][2][kCap]
-
-  const int tid = threadIdx.x;
-  const int n_tiles = (out_nnz - 1) / kTile + 1;
-  // async copies into buffer `buf`: the seg_ptr slice of tile `tl` and the
-  // maps of its products [q0, q0 + m); then one commit
-  auto stage = [&](int buf, int tl, int q0, int m, bool slice) {
-    if (slice) {
-      const int o0 = tl * kTile, n = min(kTile, out_nnz - o0);
-      for (int i = tid; i <= n; i += kThreads)
-        __pipeline_memcpy_async(s_ptr + buf * (kTile + 1) + i,
-                                seg_ptr + o0 + i, sizeof(int));
-    }
-    int* ma = s_map + buf * 2 * kCap;
-    for (int i = tid; i < m; i += kThreads) {
-      __pipeline_memcpy_async(ma + i, pa + q0 + i, sizeof(int));
-      __pipeline_memcpy_async(ma + kCap + i, pb + q0 + i, sizeof(int));
-    }
-    __pipeline_commit();
-  };
-  auto chunk = [](int q0, int q1) { return q1 - q0 > kCap ? kCap : q1 - q0; };
-
-  int tile = blockIdx.x;
-  if (tile >= n_tiles) return;
-  // the product range of this tile and of the next: read ahead of use
-  int q0 = __ldg(seg_ptr + tile * kTile);
-  int q1 = __ldg(seg_ptr + min(tile * kTile + kTile, out_nnz));
-  int nxt = tile + gridDim.x, n0 = 0, n1 = 0;
-  if (nxt < n_tiles) {
-    n0 = __ldg(seg_ptr + nxt * kTile);
-    n1 = __ldg(seg_ptr + min(nxt * kTile + kTile, out_nnz));
-  }
-  stage(0, tile, q0, chunk(q0, q1), true);
-  for (int buf = 0;; buf ^= 1) {
-    // prefetch the next tile into the other buffer, and read the range of
-    // the one after it; none of this is waited for until its turn
-    if (nxt < n_tiles)
-      stage(buf ^ 1, nxt, n0, chunk(n0, n1), true);
-    else
-      __pipeline_commit();
-    const int after = nxt + gridDim.x;
-    int m0 = 0, m1 = 0;
-    if (after < n_tiles) {
-      m0 = __ldg(seg_ptr + after * kTile);
-      m1 = __ldg(seg_ptr + min(after * kTile + kTile, out_nnz));
-    }
-    __pipeline_wait_prior(1);  // this tile's copies
-    __syncthreads();
-
-    const int o0 = tile * kTile, n = min(kTile, out_nnz - o0);
-    const int* sp = s_ptr + buf * (kTile + 1);
-    const int* ma = s_map + buf * 2 * kCap;
-    const int first = tid * V;  // this thread's outputs: o0 + first + [0, nv)
-    const int nv = max(0, min(V, n - first));
-    T res[V];
+  // the CTA's tile: 256 V consecutive outputs; the thread's: o + 256 k for
+  // k < V, so that a warp's lanes take consecutive outputs at every step
+  const int o = blockIdx.x * (kThreads * V) + threadIdx.x;
+  // ---- the segment bounds of all V outputs (seg_ptr, pa and pb streamed)
+  int s[V], e[V];
 #pragma unroll
-    for (int k = 0; k < V; ++k) res[k] = T();
+  for (int k = 0; k < V; ++k) {
+    const int ok = o + k * kThreads;
+    s[k] = e[k] = 0;
+    if (ok < out_nnz)
+      s[k] = __ldcs(seg_ptr + ok), e[k] = __ldcs(seg_ptr + ok + 1);
+  }
+  // ---- the maps of their first two products (all but a few segments
+  // hold one or two), then the value gathers: all loads issued before any
+  // is used
+  int ia0[V], ib0[V], ia1[V], ib1[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    ia0[k] = ib0[k] = ia1[k] = ib1[k] = 0;
+    if (s[k] < e[k]) ia0[k] = __ldcs(pa + s[k]), ib0[k] = __ldcs(pb + s[k]);
+    if (s[k] + 1 < e[k])
+      ia1[k] = __ldcs(pa + s[k] + 1), ib1[k] = __ldcs(pb + s[k] + 1);
+  }
+  T va0[V], vb0[V], va1[V], vb1[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    va0[k] = vb0[k] = va1[k] = vb1[k] = T();
+    if (s[k] < e[k]) va0[k] = ld(a + ia0[k]), vb0[k] = ld(b + ib0[k]);
+    if (s[k] + 1 < e[k]) va1[k] = ld(a + ia1[k]), vb1[k] = ld(b + ib1[k]);
+  }
+  // ---- each output summed in product order, written once
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int ok = o + k * kThreads;
+    if (ok >= out_nnz) break;
     T acc = T();
-    int j = 0;                      // the thread's next output to finish
-    int t = sp[min(first, n)];      // its next product to add
-    for (int c0 = q0;;) {
-      const int m = chunk(c0, q1);
-      if (c0 != q0) {  // a tile of more than kCap products: its next chunk
-        stage(buf, tile, c0, m, false);
-        __pipeline_wait_prior(0);
-        __syncthreads();
-      }
-      // ---- the chunk's value gathers, all issued before any is used;
-      // lane by lane over consecutive products, whose gathers are close
-      T va[kS], vb[kS];
-#pragma unroll
-      for (int s = 0; s < kS; ++s) {
-        const int i = tid + s * kThreads;
-        if (i < m) va[s] = ld(a + ma[i]), vb[s] = ld(b + ma[kCap + i]);
-      }
-#pragma unroll
-      for (int s = 0; s < kS; ++s) {
-        const int i = tid + s * kThreads;
-        if (i < m) s_prod[i] = mul(va[s], vb[s]);
-      }
-      __syncthreads();
-      // ---- sum: this thread's outputs in order, each in product order
-      const int c1 = c0 + m;
-      while (j < nv) {
-        const int e = sp[first + j + 1];
-        const int stop = min(e, c1);
-        for (; t < stop; ++t) acc = add(acc, s_prod[t - c0]);
-        if (e > c1) break;  // carried into the next chunk
-#pragma unroll
-        for (int k = 0; k < V; ++k)
-          if (k == j) res[k] = acc;
-        acc = T();
-        ++j;
-      }
-      if (c1 == q1) break;
-      c0 = c1;
-      __syncthreads();  // s_prod and the maps are restaged
-    }
-
-    // ---- write: outputs of empty segments stay 0
-    T* out = data + o0 + first;
-    bool done = false;
-    if constexpr ((V * sizeof(T)) % 16 == 0) {
-      if (nv == V) {
-        // o0 + first is a multiple of V and data is 16-byte aligned
-        int4 pk[V * sizeof(T) / 16];
-        memcpy(pk, res, sizeof(res));
-#pragma unroll
-        for (int u = 0; u < int(V * sizeof(T) / 16); ++u)
-          reinterpret_cast<int4*>(out)[u] = pk[u];
-        done = true;
-      }
-    }
-    if (!done) {
-#pragma unroll
-      for (int k = 0; k < V; ++k)
-        if (k < nv) out[k] = res[k];
-    }
-
-    if (nxt >= n_tiles) break;
-    tile = nxt, q0 = n0, q1 = n1;
-    nxt = after, n0 = m0, n1 = m1;
-    __syncthreads();  // this buffer is the next prefetch's
+    if (s[k] < e[k]) acc = add(acc, mul(va0[k], vb0[k]));
+    if (s[k] + 1 < e[k]) acc = add(acc, mul(va1[k], vb1[k]));
+    for (int t = s[k] + 2; t < e[k]; ++t)  // a longer segment, in turn
+      acc = add(acc, mul(ld(a + __ldcs(pa + t)), ld(b + __ldcs(pb + t))));
+    st(data + ok, acc);
   }
-  __pipeline_wait_prior(0);
 }
 
 template <typename T, int V>
 int launch_v(int out_nnz, const void* seg_ptr, const void* pa, const void* pb,
              const void* a, const void* b, void* data, cudaStream_t stream) {
-  // persistent CTAs: as many as fit on the card at once, each walking the
-  // tiles blockIdx.x, blockIdx.x + gridDim.x, ...
-  static int per_sm = 0;
-  constexpr int bytes = shared_bytes<T, V>();
-  if (per_sm == 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        spgemm_numeric_kernel<T, V>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, spgemm_numeric_kernel<T, V>, kThreads, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles = (out_nnz + kThreads * V - 1LL) / (kThreads * V);
-  const int grid = static_cast<int>(
-      tiles < 1LL * per_sm * sms ? tiles : 1LL * per_sm * sms);
-  spgemm_numeric_kernel<T, V><<<grid, kThreads, bytes, stream>>>(
+  const int grid =
+      static_cast<int>((out_nnz + kThreads * V - 1LL) / (kThreads * V));
+  spgemm_numeric_kernel<T, V><<<grid, kThreads, 0, stream>>>(
       out_nnz, static_cast<const int*>(seg_ptr), static_cast<const int*>(pa),
       static_cast<const int*>(pb), static_cast<const T*>(a),
       static_cast<const T*>(b), static_cast<T*>(data));
@@ -305,10 +185,6 @@ int launch(int out_nnz, const void* seg_ptr, const void* pa, const void* pb,
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -317,12 +193,11 @@ extern "C" {
 // the launch was accepted, -1 for arguments the kernel does not take.
 // itemsize is the size of one real component, 4 (float) or 8 (double);
 // is_complex selects interleaved (re, im) values.  seg_ptr (out_nnz + 1), pa
-// and pb are int32; data must be 16-byte aligned.
+// and pb are int32.
 int spgemm_numeric(int itemsize, int is_complex, int out_nnz,
                    const void* seg_ptr, const void* pa, const void* pb,
                    const void* a, const void* b, void* data, void* stream) {
   if ((itemsize != 4 && itemsize != 8) || out_nnz < 0) return -1;
-  if (!aligned16(data)) return -1;
   if (out_nnz == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_complex)

@@ -14,16 +14,6 @@ entry ``pb[t]`` of B's; the products of output o are those with
 the Pallas kernel of the JAX package's ``csparse3_tpu/kernels/
 spgemm_pallas.py``; ``spgemm_numeric_plain`` is the same function in plain
 PyTorch: two gathers, a product and ``index_add_`` over ``gid``.
-
-On an H100 the kernel is bound by the latency of its dependent loads: the
-patterns it serves hold ~1.1 products per output, each a chain of segment
-bounds, map entries and value gathers.  So a CTA owns a tile of 256 x V
-consecutive outputs (V by a size rule in the source, ``outputs_per_thread``
-reads it), stages the tile's products in shared memory with every load of
-a chunk in flight before any is used (the maps as 16-byte vectors), then
-each thread sums its V outputs in product order, carrying a sum that
-straddles two chunks in a register: no size cap, no atomics, the same bits
-on every run.
 ``spgemm_numeric`` picks between them.  By dtype: float32, float64,
 complex64 and complex128 values are the kernel's; any other dtype
 (integers, which the sum must keep exact in their own type) takes the plain
@@ -31,6 +21,16 @@ route on whatever device it lies.  By device, for the kernel's dtypes: a
 CPU tensor runs the plain version, a CUDA tensor launches the kernel or
 raises.  Nothing else decides: not the size (the TPU kernel's cap on the
 value arrays has no counterpart) and never a failed build or launch.
+
+On an H100 the kernel is bound by the dependent loads in flight: the
+patterns it serves hold ~1.1 products per output, each a chain of segment
+bounds, map entries and value gathers.  So a CTA owns a tile of 256 x V
+consecutive outputs (V by a size rule in the source, ``outputs_per_thread``
+reads it), a thread V of them 256 apart, so that a warp's lanes take
+consecutive outputs, and it issues every load of a step for all V before
+it uses any; the streams (segment bounds, maps, output) go evict-first so
+that the gathered values stay cached.  Each output is summed by one thread
+in product order: no size cap, no atomics, the same bits on every run.
 """
 
 from __future__ import annotations
@@ -75,7 +75,6 @@ def outputs_per_thread(out_nnz: int) -> int:
     """V, the outputs each thread of the kernel owns for a plan of
     ``out_nnz`` outputs (the source's size rule; builds the library)."""
     return load_cuda_library().spgemm_numeric_outputs_per_thread(out_nnz)
-
 
 
 def _check(seg_ptr, pa, pb, a_vals, b_vals):

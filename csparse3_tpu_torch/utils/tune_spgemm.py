@@ -38,20 +38,22 @@ from .build import BUILD_DIR, CSRC_DIR, build_cuda_library
 SOURCE = os.path.join(CSRC_DIR, "spgemm_numeric.cu")
 OUT_DIR = os.path.join(BUILD_DIR, "tune")
 RULE = "int outputs_per_thread(int out_nnz) {\n"
-GATHER = "va[s] = ld(a + ma[i]), vb[s] = ld(b + ma[kCap + i]);"
 # name -> [(text in the source, its replacement)]: V forced to 1, 2 or 4,
-# then probes of what bounds the kernel, at the source's own V: buffers of
-# 2 products per output instead of 1.5, the value gathers confined to the
-# first 1024 entries (L1 hits, the same instructions), no value gathers
+# then probes of what bounds the kernel, at the source's own V: the value
+# gathers confined to the first 1024 entries (L1 hits, the same
+# instructions and registers); seg_ptr and the maps read through the
+# caches like the values instead of streamed; the output stored through
+# the caches
 VARIANTS = {f"V={v}": [(RULE, f"{RULE}  if ({v}) return {v};\n")]
             for v in (1, 2, 4)}
-VARIANTS.update({
-    "probe_capacity2": [("kThreads * V * 3 / 2", "kThreads * V * 2")],
-    "probe_local_gathers": [(GATHER, GATHER.replace(
-        "ma[i])", "(ma[i] & 1023))").replace(
-        "ma[kCap + i])", "(ma[kCap + i] & 1023))"))],
-    "probe_no_gathers": [(GATHER, "va[s] = vb[s] = T();")],
-})
+VARIANTS["probe_local_gathers"] = [
+    (f"ld({x} + {i}[k])", f"ld({x} + ({i}[k] & 1023))")
+    for x, i in (("a", "ia0"), ("b", "ib0"), ("a", "ia1"), ("b", "ib1"))]
+VARIANTS["probe_cached_maps"] = [
+    (f"__ldcs({x} + {t})", f"__ldg({x} + {t})") for x, t in (
+        ("seg_ptr", "ok"), ("seg_ptr", "ok + 1"), ("pa", "s[k]"),
+        ("pb", "s[k]"), ("pa", "s[k] + 1"), ("pb", "s[k] + 1"))]
+VARIANTS["probe_cached_store"] = [("st(data + ok, acc);", "data[ok] = acc;")]
 
 
 def variant_source(text, subs):

@@ -528,30 +528,29 @@ def _values(n, dtype, seed):
 
 
 # the kernel's tiles are 256 x V outputs, V by the source's size rule: 1
-# below 134,657 outputs, 2 below 269,313, then 4.  Sizes at each tile edge:
+# below 134,657 outputs, then 2.  Sizes at each tile edge:
 SEGMENT_SIZES = [(0, 1), (1, 1), (255, 1), (256, 1), (257, 1),
-                 (134_655, 1), (134_657, 2), (135_168, 2), (269_313, 4),
-                 (270_335, 4), (270_336, 4), (270_337, 4)]
+                 (134_655, 1), (134_657, 2), (135_167, 2), (135_168, 2),
+                 (135_169, 2), (270_337, 2)]
 
 
-# hub outputs: more products than a tile's buffers hold (1.5 per output),
-# starting and ending mid-chunk; the last output of the 4-output plan is
-# its last tile's only one
+# hub outputs, longer than anything else in their tile, next to outputs of
+# one product; the last output of the 2-output plan is its last tile's only
+# one
 HUBS = {"hubs": (3000, ((17, 5000), (18, 1), (700, 2100))),
-        "hubs4": (270_337, ((5, 3000), (100_000, 1600), (270_336, 2000)))}
+        "hubs2": (270_337, ((5, 3000), (100_000, 1600), (270_336, 2000)))}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64,
                                    np.complex128])
 @pytest.mark.parametrize("out_nnz,V", SEGMENT_SIZES + [("hubs", 1),
-                                                       ("hubs4", 4)])
+                                                       ("hubs2", 2)])
 def test_spgemm_numeric_kernel_tiles_match_plain_and_repeat(cuda, out_nnz, V,
                                                             dtype):
     """The kernel on product streams cut at every tile edge, and on hub
-    outputs whose products take several chunks of a tile's buffers: within
-    the per-output bound of the plain version and of a wider sum, bit-equal
-    on a second launch."""
+    outputs of thousands of products: within the per-output bound of the
+    plain version and of a wider sum, bit-equal on a second launch."""
     if out_nnz in HUBS:
         out_nnz, hubs = HUBS[out_nnz]
         maps = _segment_maps(out_nnz, 3, hubs)
@@ -636,7 +635,7 @@ def test_spgemm_cuda_input_never_reaches_plain_version(cuda, monkeypatch):
     with pytest.raises(TypeError, match="int32"):
         kspg.spgemm_numeric_cuda(plan.seg_ptr.long(), plan.pa_s, plan.pb_s,
                                  av, bv)
-    # a stream of 4-output tiles and one with a hub, through the dispatcher
+    # a stream of 2-output tiles and one with a hub, through the dispatcher
     for n_out, hubs in ((270_337, ()), (3000, ((17, 5000),))):
         seg_ptr, pa, pb, gid = (torch.as_tensor(m, device=cuda) for m in
                                 _segment_maps(n_out, 4, hubs))
