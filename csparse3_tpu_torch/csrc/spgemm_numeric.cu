@@ -62,7 +62,7 @@ constexpr int kThreads = 256;
 // evict-first stores): 53,645 outputs 2.44 / 2.58 / 3.24; 1,004,426 outputs
 // 11.4 / 8.6 / 11.5; 3,683,865 outputs 31.9 / 23.9 / 25.4.  At V = 4 a
 // thread takes 54-62 registers, so an SM holds half the threads and no more
-// outputs than at V = 2; the launch keeps it for the measurement.
+// outputs than at V = 2.
 int outputs_per_thread(int out_nnz) {
   const long long tiles = (out_nnz + 2LL * kThreads - 1) / (2 * kThreads);
   return tiles >= 2 * 132 ? 2 : 1;
@@ -100,12 +100,12 @@ __device__ inline Cx<double> ld(const Cx<double>* p) {
 }
 
 // evict-first stores of the output
-__device__ inline void st(float* p, float v) { __stcs(p, v); }
-__device__ inline void st(double* p, double v) { __stcs(p, v); }
-__device__ inline void st(Cx<float>* p, Cx<float> v) {
+__device__ inline void store(float* p, float v) { __stcs(p, v); }
+__device__ inline void store(double* p, double v) { __stcs(p, v); }
+__device__ inline void store(Cx<float>* p, Cx<float> v) {
   __stcs(reinterpret_cast<float2*>(p), make_float2(v.re, v.im));
 }
-__device__ inline void st(Cx<double>* p, Cx<double> v) {
+__device__ inline void store(Cx<double>* p, Cx<double> v) {
   __stcs(reinterpret_cast<double2*>(p), make_double2(v.re, v.im));
 }
 
@@ -156,7 +156,7 @@ __global__ void __launch_bounds__(kThreads)
     if (s[k] + 1 < e[k]) acc = add(acc, mul(va1[k], vb1[k]));
     for (int t = s[k] + 2; t < e[k]; ++t)  // a longer segment, in turn
       acc = add(acc, mul(ld(a + __ldcs(pa + t)), ld(b + __ldcs(pb + t))));
-    st(data + ok, acc);
+    store(data + ok, acc);
   }
 }
 
@@ -175,14 +175,9 @@ int launch_v(int out_nnz, const void* seg_ptr, const void* pa, const void* pb,
 template <typename T>
 int launch(int out_nnz, const void* seg_ptr, const void* pa, const void* pb,
            const void* a, const void* b, void* data, cudaStream_t stream) {
-  switch (outputs_per_thread(out_nnz)) {
-    case 4:
-      return launch_v<T, 4>(out_nnz, seg_ptr, pa, pb, a, b, data, stream);
-    case 2:
-      return launch_v<T, 2>(out_nnz, seg_ptr, pa, pb, a, b, data, stream);
-    default:
-      return launch_v<T, 1>(out_nnz, seg_ptr, pa, pb, a, b, data, stream);
-  }
+  if (outputs_per_thread(out_nnz) == 2)
+    return launch_v<T, 2>(out_nnz, seg_ptr, pa, pb, a, b, data, stream);
+  return launch_v<T, 1>(out_nnz, seg_ptr, pa, pb, a, b, data, stream);
 }
 
 }  // namespace

@@ -44,8 +44,12 @@ RULE = "int outputs_per_thread(int out_nnz) {\n"
 # instructions and registers); seg_ptr and the maps read through the
 # caches like the values instead of streamed; the output stored through
 # the caches
+LAUNCH = "  if (outputs_per_thread(out_nnz) == 2)\n"
 VARIANTS = {f"V={v}": [(RULE, f"{RULE}  if ({v}) return {v};\n")]
-            for v in (1, 2, 4)}
+            for v in (1, 2)}
+VARIANTS["V=4"] = [(RULE, f"{RULE}  if (4) return 4;\n"), (LAUNCH, (
+    "  if (outputs_per_thread(out_nnz) == 4)\n    return launch_v<T, 4>"
+    "(out_nnz, seg_ptr, pa, pb, a, b, data, stream);\n" + LAUNCH))]
 VARIANTS["probe_local_gathers"] = [
     (f"ld({x} + {i}[k])", f"ld({x} + ({i}[k] & 1023))")
     for x, i in (("a", "ia0"), ("b", "ib0"), ("a", "ia1"), ("b", "ib1"))]
@@ -53,7 +57,8 @@ VARIANTS["probe_cached_maps"] = [
     (f"__ldcs({x} + {t})", f"__ldg({x} + {t})") for x, t in (
         ("seg_ptr", "ok"), ("seg_ptr", "ok + 1"), ("pa", "s[k]"),
         ("pb", "s[k]"), ("pa", "s[k] + 1"), ("pb", "s[k] + 1"))]
-VARIANTS["probe_cached_store"] = [("st(data + ok, acc);", "data[ok] = acc;")]
+VARIANTS["probe_cached_store"] = [("store(data + ok, acc);",
+                                   "data[ok] = acc;")]
 
 
 def variant_source(text, subs):
