@@ -231,17 +231,6 @@ def device_profile(fn, reps):
     return wall, busy * 1e-6, len(spans), by_name
 
 
-def kernel_ms(by_name, pattern, launches_per_call):
-    """Device ms per call of the kernels whose name holds ``pattern``: the
-    mean over the launches the profiler recorded (it may drop a few at the
-    edges of its window) times the launches one call makes."""
-    recs = [v for k, v in by_name.items() if pattern in k]
-    count = sum(c for c, _ in recs)
-    if count == 0:
-        raise AssertionError(f"the profiler recorded no {pattern} launch")
-    return sum(t for _, t in recs) / count * launches_per_call * 1e3, count
-
-
 def host_mismatch(grid, Y, vm, va):
     from csparse3_tpu_torch.models.powerflow import sbus
 
