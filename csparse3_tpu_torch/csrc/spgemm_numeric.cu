@@ -12,15 +12,15 @@
 //   data[o] = sum_{t = seg_ptr[o]}^{seg_ptr[o+1] - 1} a[pa[t]] * b[pb[t]].
 //
 // What bounds it on an H100.  The patterns it serves hold 1.09-1.12
-// products per output (88-98% of the outputs hold one, the longest segment
-// 24), so the work is about one product per output, each a chain of three
-// dependent loads (the segment bounds, the two map entries, the two value
-// gathers) ending in one small write.  It is bound by how many such chains
-// are in flight, then by the bytes of its streams (seg_ptr, the maps and
-// the output: 62.5 of the 69.7 MB it moves at the 200k-bus connectivity
-// product; the gathered values stay in L2).  One thread per output, as the
-// first version had it, keeps one chain per thread in flight and reached
-// 60% of the byte bound.
+// products per output (the longest segment 24), so the work is about one
+// product per output, each a chain of three dependent loads (the segment
+// bounds, the two map entries, the two value gathers) ending in one small
+// write.  It is bound by how many such chains are in flight, then by the
+// bytes of its streams (seg_ptr, the maps and the output: 62.5 of the 69.7
+// MB it moves at the 200k-bus connectivity product; the gathered values
+// stay in L2).  One thread per output, as the first version had it, keeps
+// one chain per thread in flight and reached 60% of the byte bound; this
+// design reaches 93% there (PERF.md).
 //
 // What the design does about it:
 //  * An output tile per CTA: 256 threads own 256 V consecutive outputs,
