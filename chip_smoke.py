@@ -43,7 +43,24 @@ seconds):
            float64 spmv='ell' solve (the same solver with the 'ell' plan in
            place of the kernel's: the Jacobian pattern and so the host
            factorization and refactor plan are the same, built once).
-7. banded: the same grid in RCM order (``rcm_grid``):
+7. multifrontal: the same grid and tolerance with solver='multifrontal'
+           (``MultifrontalLU``: a from-scratch front factorization with
+           partial pivoting inside each front, every iteration): build
+           seconds (the generic-value splu and the front build apart), three
+           warm solves, the front statistics and one solve under
+           torch.profiler (idle share, launches per iteration, top device
+           ops).  It must converge without the pivot-growth gate engaging,
+           give a host float64 mismatch <= 1e-4, launch K1 once per mismatch
+           evaluation and agree with phase 6's 'ell' state within 1e-4; the
+           same front plan with spmv='ell' must converge to 1e-10 in
+           float64.  Then the refactorizations alone on the JAX bench's
+           B + 3I system (``MultifrontalRefactor`` at 10k buses,
+           ``SupernodalRefactor`` at 3000; float32 and float64; the level
+           ``RefactorPlan`` at 10k in float64): ms per
+           ``factor_values`` call, wall and queued, the factors against the
+           host's and a solve's relative residual (< 1e-3 in float32,
+           < 1e-10 in float64).  Last, IEEE-14 with solver='multifrontal'.
+8. banded: the same grid in RCM order (``rcm_grid``):
            NewtonPowerFlow(spmv='dia') in float64 must converge to 1e-10,
            give a host float64 mismatch <= 1e-8, launch the DIA kernel once
            per slab set per mismatch evaluation and agree with the 'ell'
@@ -58,8 +75,8 @@ seconds):
            and scipy row by row within the rounding bound, with their
            times, the dense kernel's on the raw slabs, the plain versions'
            and the library call's.
-8. ieee14: phase 6 on ieee14().
-9. spgemm: the sparse-product path on three matrices: C = Cf - Ct of
+9. ieee14: phase 6 on ieee14().
+10. spgemm: the sparse-product path on three matrices: C = Cf - Ct of
            synthetic_grid(3000, seed=1) (the GridCal flow), the random
            10k x 10k matrix at 0.1% density of BASELINE config 2, and C of
            the 200k-bus grid.  Host: ``Cf - Ct``, ``C @ C.T``, ``gram``,
@@ -75,7 +92,7 @@ seconds):
            bound, the least-bytes bound of any layout and the launch floor
            (the kernel on a one-output plan); wall and queued times of the
            device ESC product (``ESCSpGEMM``).
-10. bsr:   the block product ``Y = A @ X``: the 16384^2 matrix of 32 x 32
+11. bsr:   the block product ``Y = A @ X``: the 16384^2 matrix of 32 x 32
            blocks (6 per block row) with X (16384, 1024), and
            ``spmm(B, X, block=(8, 128))`` for B = imag(Ybus) of the 200k-bus
            grid in float32 with X (200000, 1024); the BSR SpMM kernel
@@ -85,8 +102,9 @@ seconds):
            the rounding bound, bit-equal on a second launch, k = 1 and
            k = 130 and empty block rows at a small shape,
            ``BSRMatMatPlan(A, A).numeric`` against scipy's
-           ``A @ A``; times of kernel, plain version, the library call
-           (torch.sparse BSR ``@ X``) and the entry-stream ``spmm``.
+           ``A @ A``, with its wall and queued ms per call; times of kernel,
+           plain version, the library call (torch.sparse BSR ``@ X``) and
+           the entry-stream ``spmm``.
 
 Prints one JSON line of kernel records, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -153,19 +171,22 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def queued_ms(fn, reps):
+def queued_ms(fn, reps, spin_ms=0.0):
     """Device ms per call of ``reps`` back-to-back calls, without the host
     in the way: the calls are enqueued while a spin kernel keeps the card
     busy, so they run one behind the other, and CUDA events on the stream
     bracket them.  For a call of one short kernel this is its device time
     plus the gap between two launches.  Only for calls that do not wait for
-    the device themselves: such a call would sit out the spin kernel."""
+    the device themselves: such a call would sit out the spin kernel.  A
+    call of many launches needs ``spin_ms`` above the host's time to
+    enqueue all ``reps`` calls."""
     import torch
 
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
-    # ~20 ms, or 0.25 ms for every call: the host gets ahead meanwhile
-    torch.cuda._sleep(int(max(40e6, reps * 5e5)))
+    # ~20 ms, or 0.25 ms for every call, or spin_ms (~2e6 cycles a ms): the
+    # host gets ahead meanwhile
+    torch.cuda._sleep(int(max(40e6, reps * 5e5, spin_ms * 2e6)))
     start.record()
     for _ in range(reps):
         fn()
@@ -1512,6 +1533,11 @@ def bsr_phase(dev):
         f"included)")
     if not r_mm <= 1:
         raise AssertionError("bsr: BSRMatMatPlan disagrees with scipy")
+    # F2: the numeric pass alone (torch.bmm + index_add_, no kernel of ours)
+    mm_wall = wall_ms(lambda: mm.numeric(A.data, A.data), 20)
+    mm_queued = queued_ms(lambda: mm.numeric(A.data, A.data), 20)
+    log(f"bsr[block32]: BSRMatMatPlan.numeric wall_ms={mm_wall:.4f} "
+        f"queued_ms={mm_queued:.4f} per call (20 calls each)")
     del C, mm
 
     # ---- ragged k and empty block rows at a small shape
@@ -1603,6 +1629,186 @@ def newton_case(name, grid, dev, solves=1, profile_solve=False):
         raise AssertionError(f"{name}: bandpoints and ell disagree")
     return launches, (vm_e, va_e)
 
+def _gate_engaged(caught):
+    return any("pivot-growth gate" in str(w.message) for w in caught)
+
+
+def refactor_system(ng):
+    """The JAX bench's ``run_refactor_general`` matrix (``bench.py:588-620``):
+    B + 3I for the series susceptances B of synthetic_grid(ng, seed=1)."""
+    import csparse3_tpu_torch as pt
+    from csparse3_tpu_torch.models.grids import synthetic_grid
+
+    g = synthetic_grid(ng, seed=1)
+    bp = 1.0 / g.x
+    diag = np.arange(ng)
+    return pt.from_triplets(
+        np.concatenate([g.f, g.t, g.f, g.t, diag]),
+        np.concatenate([g.f, g.t, g.t, g.f, diag]),
+        np.concatenate([bp, bp, -bp, -bp, np.full(ng, 3.0)]), (ng, ng))
+
+
+def refactor_case(name, make_plan, ng, dev, dtypes=("float32", "float64")):
+    """A frozen-pivot refactorization alone on ``refactor_system(ng)``
+    (``splu(..., ordering='nd', tol=0.0)``): build seconds, then per dtype
+    the ms per ``factor_values`` call by the host clock and by queued CUDA
+    events, Lx / Ux against the host factors (largest error over the largest
+    factor entry) and the relative residual of a solve through
+    ``refactor``.  Returns {dtype: record}."""
+    import torch
+
+    from csparse3_tpu_torch.linalg import splu
+
+    A = refactor_system(ng)
+    t0 = time.perf_counter()
+    lu = splu(A, ordering="nd", tol=0.0)
+    t_splu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = make_plan(lu._h, A)
+    t_build = time.perf_counter() - t0
+    h = lu._h
+    S = A.to_scipy().tocsc()
+    b = np.random.RandomState(2).rand(ng)
+    out = {}
+    for dt, limit in ((getattr(torch, t), {"float32": 1e-3,
+                                           "float64": 1e-10}[t])
+                      for t in dtypes):
+        d = torch.as_tensor(A.np_arrays()[2], dtype=dt, device=dev)
+        Lx, Ux = plan.factor_values(d)
+        wall = wall_ms(lambda: plan.factor_values(d), 5)
+        queued = queued_ms(lambda: plan.factor_values(d), 5,
+                           spin_ms=2 * 5 * wall)
+        err = max(float(np.abs(F.double().cpu().numpy() - R).max()
+                        / np.abs(R).max()) for F, R in ((Lx, h.Lx),
+                                                        (Ux, h.Ux)))
+        x = plan.refactor(d)(torch.as_tensor(b, dtype=dt, device=dev))
+        x = x.double().cpu().numpy()
+        res = float(np.linalg.norm(S @ x - b) / np.linalg.norm(b))
+        out[str(dt).split(".")[1]] = dict(wall_ms=wall, queued_ms=queued,
+                                          factor_err=err, rel_residual=res)
+        log(f"refactor[{name}]: n={ng} {dt} factor_values wall_ms={wall:.3f} "
+            f"queued_ms={queued:.3f} factors_err_over_max={err:.3e} "
+            f"solve_rel_residual={res:.3e} (limit {limit:.0e})")
+        if not res < limit:
+            raise AssertionError(f"refactor[{name}]: residual {res}")
+    log(f"refactor[{name}]: splu_s={t_splu:.3f} build_s={t_build:.3f} "
+        f"lnz={h.Lx.size} unz={h.Ux.size} " + " ".join(
+            f"{k}={getattr(plan, k)}" for k in ("nlevels", "ngroups",
+                                                "nsnodes", "front_floats")
+            if hasattr(plan, k)))
+    return out
+
+
+def multifrontal_phase(dev, level_state):
+    """The Newton main path with solver='multifrontal' on the 10k grid
+    (spmv='bandpoints', tol=5e-5, the JAX bench's newton10k), checked
+    against the host float64 mismatch, K1's launch count, the growth gate
+    (it must never engage) and the solver='level' float64 state
+    ``level_state``; the same front plan with spmv='ell' in float64; the
+    refactorizations alone; IEEE-14.  Returns K1's launches over the three
+    timed solves."""
+    import warnings
+
+    import torch
+
+    from csparse3_tpu_torch.linalg import (MultifrontalRefactor,
+                                           RefactorPlan, SupernodalRefactor)
+    from csparse3_tpu_torch.models.grids import ieee14, synthetic_grid
+    from csparse3_tpu_torch.models.powerflow import (NewtonPowerFlow,
+                                                     _make_yplan)
+
+    t_phase = time.perf_counter()
+    grid = synthetic_grid(N_SOLVE, seed=3)
+    t0 = time.perf_counter()
+    pf = NewtonPowerFlow(grid, spmv="bandpoints", solver="multifrontal",
+                         tol=5e-5, device=dev)
+    t_build = time.perf_counter() - t0
+    rp, plan = pf._rp, pf._yplan
+    times, launches = [], []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pf.solve()  # warm-up: first-use allocations
+        for _ in range(3):
+            plan.kernel_launches = 0
+            t0 = time.perf_counter()
+            vm, va, it, res = pf.solve()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches.append(plan.kernel_launches)
+        wall, busy, nk, by = device_profile(pf.solve, 1)
+    hm = host_mismatch(grid, pf.Y, vm, va)
+    diff = max(np.abs(vm - level_state[0]).max(),
+               np.abs(va - level_state[1]).max())
+    log(f"multifrontal[synthetic10k]: buses={grid.n_bus} iterations={it} "
+        f"residual={res:.3e} host_f64_mismatch={hm:.3e} "
+        f"kernel_launches_per_solve={launches} build_s={t_build:.3f} "
+        f"(splu_generic_s={rp.build_s['splu']:.3f} "
+        f"fronts_s={rp.build_s['fronts']:.3f}) "
+        f"solve_s={[round(t, 4) for t in times]} "
+        f"max_state_diff_vs_level_ell_f64={diff:.3e} bound={STATE_ATOL:.0e}")
+    log(f"multifrontal[synthetic10k]: jacobian_dim={rp.n} lnz={rp.lnz} "
+        f"unz={rp.unz} nsnodes={rp.nsnodes} nlevels={rp.nlevels} "
+        f"ngroups={rp.ngroups} max_rmax="
+        f"{max(g[3] for g in rp.group_static)} padded_front_floats="
+        f"{rp.front_floats} (the JAX bench's note: 28.8M floats at 10k)")
+    top = sorted(by.items(), key=lambda kv: -kv[1][1])[:8]
+    log(f"multifrontal[synthetic10k]: profiled solve wall_s={wall:.4f} "
+        f"device_busy_s={busy:.4f} idle_share={1 - busy / wall:.4f} "
+        f"kernels={nk} kernels_per_iteration={nk / max(it, 1):.0f} "
+        f"top_by_device_s=" + "; ".join(
+            f"{k[:60]} x{c} {t:.4f}" for k, (c, t) in top))
+    if _gate_engaged(caught):
+        raise AssertionError("multifrontal: the pivot-growth gate engaged")
+    if not res <= pf.tol or it >= pf.max_iter:
+        raise AssertionError(f"multifrontal: did not converge ({it}, {res})")
+    if hm > HOST_MISMATCH:
+        raise AssertionError(f"multifrontal: host mismatch {hm}")
+    if any(k != it + 1 for k in launches):
+        raise AssertionError(f"multifrontal: {launches} launches for "
+                             f"{it + 1} mismatch evaluations per solve")
+    if diff > STATE_ATOL:
+        raise AssertionError("multifrontal: state differs from 'level'")
+
+    # float64 'ell' on the same front plan (the Jacobian pattern does not
+    # depend on the SpMV plan)
+    t0 = time.perf_counter()
+    pf_ell = copy.copy(pf)
+    pf_ell._yplan = _make_yplan(pf.Y, "ell", dev)
+    pf_ell.tol = 1e-10
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        vm_e, va_e, it_e, res_e = pf_ell.solve()
+    diff_e = max(np.abs(vm_e - level_state[0]).max(),
+                 np.abs(va_e - level_state[1]).max())
+    log(f"multifrontal[synthetic10k]: ell_f64 iterations={it_e} "
+        f"residual={res_e:.3e} max_state_diff_vs_level_ell_f64={diff_e:.3e} "
+        f"seconds={time.perf_counter() - t0:.3f}")
+    if _gate_engaged(caught) or not res_e < 1e-8:
+        raise AssertionError("multifrontal: ell f64 solve failed")
+
+    # the refactorizations alone (the JAX bench's refactor_general system)
+    refactor_case("multifrontal10k", lambda h, A: MultifrontalRefactor(
+        h, A, device=dev), N_SOLVE, dev)
+    refactor_case("supernodal3000", lambda h, A: SupernodalRefactor(
+        h, A, device=dev), 3000, dev)
+    # the level plan on the same 10k system (its build fits the phase:
+    # ~10 s); it factors in the host factors' float64 whatever it is given
+    refactor_case("level10k", lambda h, A: RefactorPlan(h, A, device=dev),
+                  N_SOLVE, dev, dtypes=("float64",))
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        g14 = ieee14()
+        pf14 = NewtonPowerFlow(g14, solver="multifrontal", device=dev)
+        vm14, va14, it14, res14 = pf14.solve()
+    hm14 = host_mismatch(g14, pf14.Y, vm14, va14)
+    log(f"multifrontal[ieee14]: iterations={it14} residual={res14:.3e} "
+        f"host_f64_mismatch={hm14:.3e}")
+    if _gate_engaged(caught) or not res14 <= pf14.tol or hm14 > 1e-8:
+        raise AssertionError("multifrontal[ieee14]: failed")
+    log(f"multifrontal: phase seconds {time.perf_counter() - t_phase:.1f}")
+    return sum(launches)
+
 
 def main():
     import torch
@@ -1635,6 +1841,7 @@ def main():
             profile_solve=True)
         log(f"newton[synthetic10k]: phase seconds "
             f"{time.perf_counter() - t0:.1f}")
+        launches += multifrontal_phase(dev, ell_state)
         dia_launches, band = banded_phase(dev, ell_state)
         newton_case("ieee14", ieee14(), dev)
         # last: these phases time with CUDA events alone, so torch.profiler
@@ -1652,7 +1859,9 @@ def main():
 
     log(json.dumps({"kernels": [
         # the top-level numbers are one launch of the default plan at 200k
-        # buses (K1; K2 is the same kernel); points_groups is the plan with
+        # buses (K1; K2 is the same kernel); the launches counted are those
+        # of the timed 10k Newton solves, solver='level' (one) and
+        # 'multifrontal' (three); points_groups is the plan with
         # group_span=512 (K3's offset groups), one launch per call over the
         # groups' joined lists, equal to the default plan's result; its
         # library call is the same complex64 CSR product

@@ -8,7 +8,9 @@ torch, plus hand-written CUDA kernels (``csrc/``) where the JAX package had
 a Pallas kernel on the path.
 
 Ported so far: the Newton power flow (``NewtonPowerFlow(spmv='ell' |
-'bandpoints' | 'dia' | 'symdia', solver='level')``), and the banded path:
+'bandpoints' | 'dia' | 'symdia', solver='level' | 'multifrontal')``, the
+latter on ``linalg.MultifrontalLU`` with its pivot-growth gate; the
+supernodal and multifrontal refactorizations), and the banded path:
 ``rcm_grid``, the DIA SpMV family with its CUDA kernel, ``FastDecoupled``,
 ``dc_power_flow`` and the dense-tail triangular solves; and the sparse-
 product path: CSC ``+ - *`` and ``@``, ``spgemm`` / ``gram`` with their

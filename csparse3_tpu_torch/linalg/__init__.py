@@ -1,5 +1,6 @@
 """Sparse LU (host factorization), level-scheduled and dense-tail
-triangular solves and device refactorization."""
+triangular solves, device refactorization (level-scheduled, supernodal and
+multifrontal) and the from-scratch multifrontal device LU."""
 
 from .lu_host import HostLU, lu_factor_host  # noqa: F401
 from .trisolve import (  # noqa: F401
@@ -13,3 +14,5 @@ from .trisolve import (  # noqa: F401
 from .lu import SolvePlan, SparseLU, splu, spsolve  # noqa: F401
 from .refactor import RefactorPlan, retarget_solve_plan  # noqa: F401
 from .ordering import amd, get_ordering, natural, nd, rcm  # noqa: F401
+from .supernodal import SupernodalRefactor  # noqa: F401
+from .multifrontal import MultifrontalLU, MultifrontalRefactor  # noqa: F401

@@ -35,7 +35,7 @@ from .lu import SolvePlan
 from .lu_host import HostLU
 from .trisolve import TriSolvePlan
 
-__all__ = ["RefactorPlan", "retarget_solve_plan"]
+__all__ = ["RefactorPlan", "attach_solve_templates", "retarget_solve_plan"]
 
 
 def _level_ptr(lev, nlev):
@@ -64,14 +64,9 @@ class RefactorPlan(nn.Module):
         # within a column -> key stream is globally sorted)
         key = n + 1
         colsL = np.repeat(np.arange(n), np.diff(Lp))
-        colsU = np.repeat(np.arange(n), np.diff(Up))
         keysL = colsL * key + Li
-        keysU = colsU * key + Ui
         diag = np.arange(n)
         l_unit = np.searchsorted(keysL, diag * key + diag)
-        u_diagpos = lnz + np.searchsorted(keysU, diag * key + diag)
-        l_off_pos = np.flatnonzero(Li != colsL)
-        u_off_pos = np.flatnonzero(Ui != colsU) + lnz
 
         ip, rows, _ = a_csc.np_arrays()
         built = host_ext.refactor_build(
@@ -84,12 +79,7 @@ class RefactorPlan(nn.Module):
         self.lnz, self.unz = lnz, unz
         self.dtype = torch.as_tensor(host.Lx[:0]).dtype
 
-        # solve-plan templates: their index layout is fixed by the pattern;
-        # refactor() hands them values gathered from X
-        self._ltpl = TriSolvePlan(n, host.Lp, host.Li, host.Lx, lower=True,
-                                  device=device)
-        self._utpl = TriSolvePlan(n, host.Up, host.Ui, host.Ux, lower=False,
-                                  device=device)
+        attach_solve_templates(self, host, device)
 
         # X positions fit int32 (as in the JAX plan's slabs), which halves
         # the index bytes of the level loop, the bulk of its traffic (the
@@ -108,10 +98,6 @@ class RefactorPlan(nn.Module):
             buf(name, built[name], idx)
         buf("perm_r", host.perm_r)
         buf("perm_c", host.perm_c)
-        # X positions of the templates' level-ordered off-diagonal entries
-        buf("_l_epos", l_off_pos[self._ltpl.e_order])
-        buf("_u_epos", u_off_pos[self._utpl.e_order])
-        buf("_u_diagpos", u_diagpos)
 
     @property
     def nlevels(self):
@@ -152,6 +138,30 @@ class RefactorPlan(nn.Module):
         zero-or-noise pivot, NOT necessarily inf/nan output)."""
         Lx, Ux = self.factor_values(new_data)
         return retarget_solve_plan(self, Lx, Ux, with_diag)
+
+
+def attach_solve_templates(obj: nn.Module, host: HostLU, device):
+    """Give ``obj`` what ``retarget_solve_plan`` reads: level solve-plan
+    templates of the host factors (their index layout is fixed by the
+    pattern; a refactorization hands them values gathered from X =
+    [Lx | Ux]) and the X positions of the templates' level-ordered
+    off-diagonal entries and of U's diagonal."""
+    n = host.n
+    colsL = np.repeat(np.arange(n), np.diff(host.Lp))
+    colsU = np.repeat(np.arange(n), np.diff(host.Up))
+    Li, Ui = host.Li.astype(np.int64), host.Ui.astype(np.int64)
+    lnz, key, diag = len(Li), n + 1, np.arange(n)
+    obj._ltpl = TriSolvePlan(n, host.Lp, host.Li, host.Lx, lower=True,
+                             device=device)
+    obj._utpl = TriSolvePlan(n, host.Up, host.Ui, host.Ux, lower=False,
+                             device=device)
+    for name, pos in (
+            ("_l_epos", np.flatnonzero(Li != colsL)[obj._ltpl.e_order]),
+            ("_u_epos", (np.flatnonzero(Ui != colsU) + lnz)[
+                obj._utpl.e_order]),
+            ("_u_diagpos", lnz + np.searchsorted(colsU * key + Ui,
+                                                 diag * key + diag))):
+        obj.register_buffer(name, torch.as_tensor(pos, device=device))
 
 
 def retarget_solve_plan(obj, Lx, Ux, with_diag: bool = False):

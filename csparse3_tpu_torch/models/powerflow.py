@@ -8,13 +8,16 @@
 * ``NewtonPowerFlow`` / ``newton_raphson``  full Newton, below.
 
 ``NewtonPowerFlow`` (the JAX package's ``csparse3_tpu/models/powerflow.py``
-class of the same name, ``solver='level'``): the Jacobian pattern is fixed
-by the Ybus pattern, so the host factors it once (symbolic work and
-pivoting, native C++), and every Newton iteration then runs on the device:
-split-complex Ybus SpMV for the mismatch, Jacobian values on the frozen
-pattern, numeric refactorization (``linalg.RefactorPlan``), level-scheduled
-triangular solves, state update.  The JAX ``lax.while_loop`` is a Python
-loop here, with one host read of the residual norm per iteration.
+class of the same name): the Jacobian pattern is fixed by the Ybus
+pattern, so the host does the symbolic work once, and every Newton
+iteration then runs on the device: split-complex Ybus SpMV for the
+mismatch, Jacobian values on the frozen pattern, numeric factorization and
+solve, state update.  ``solver='level'`` freezes a host LU's pivots and
+refactors with ``linalg.RefactorPlan`` and level-scheduled triangular
+solves; ``solver='multifrontal'`` factors from scratch every iteration in
+dense fronts (``linalg.MultifrontalLU``) with partial pivoting inside each
+front, gated on pivot growth.  The JAX ``lax.while_loop`` is a Python loop
+here, with one host read per iteration (the residual norm, and the gate).
 
 ``newton_raphson`` is the host reference (``splu`` per iteration).
 
@@ -22,9 +25,9 @@ Every entry point runs on ``device``; None is ``config.default_device()``,
 the CUDA card, and a caller without one passes ``device="cpu"``.
 
 Not ported yet, and refused with ``NotImplementedError``: the Newton
-solvers 'blocklu' / 'multifrontal' (with the multifrontal pivot-growth
-gate and its host fallback) and the fast-decoupled solvers 'banded' /
-'blocklu', which wait for ``BandedLU`` (see ROADMAP.md).
+solver 'blocklu' and the fast-decoupled solvers 'banded' / 'blocklu',
+which wait for ``BandedLU``, and ``NewtonPowerFlow.solve_batch`` (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..linalg import splu
+from ..linalg import MultifrontalLU, splu
 from ..ops import construct, matvec
 from ..types import CSC
 from .grids import SLACK, Grid, ybus
@@ -273,31 +276,56 @@ def _jacobian(Y: CSC, v, ibus, pvpq, pq):
     return construct.from_triplets(jr, jc, jv, (dim, dim))
 
 
+def _growth_gate(jd, stats, growth_limit, piv_rtol):
+    """The pivot-growth gate of a front factorization (0-d bool tensor):
+    within-front pivoting cannot reach rows outside the front, so a
+    factorization is suspect when (a) a pivot collapses relative to the
+    factor's magnitude, (b) its element growth against the input Jacobian
+    exceeds ``growth_limit``, or (c) its factors are not finite.
+
+    The zero-scale guard is the tiny of ``jd``'s own dtype.  The JAX
+    package adds float64's tiny cast to ``jd``'s dtype, which is 0 in
+    float32, so its guard does nothing there."""
+    scale = jd.abs().max() + torch.finfo(jd.dtype).tiny
+    return ((stats["min_pivot"] < piv_rtol * stats["max_u"])
+            | (stats["max_u"] > growth_limit * scale)
+            | ~torch.isfinite(stats["max_u"]))
+
+
 class NewtonPowerFlow:
-    """Newton power flow with device refactorization, on ``device``.
+    """Newton power flow with device factorization, on ``device``.
 
     Construction is host work: Ybus, the SpMV plan, the fixed Jacobian
-    structure, one host LU of the flat-start Jacobian (pattern and
-    pivots), and the device refactorization plan.  ``run`` / ``solve``
-    iterate on the device.
+    structure, the symbolic factorization of the flat-start Jacobian and
+    the device plan.  ``run`` / ``solve`` iterate on the device.
     """
 
     def __init__(self, grid: Grid, tol=1e-10, max_iter=20, ordering="auto",
-                 spmv="ell", solver="level", device=None):
+                 spmv="ell", solver="level", growth_limit=1e7,
+                 piv_rtol=1e-10, device=None):
         """spmv: 'ell' (float64 gathers), 'dia' / 'symdia' (float64 banded
         slabs, for a grid reordered with models.grids.rcm_grid; the DIA
         CUDA kernel on a GPU) or 'bandpoints' (float32 slabs + points, its
         CUDA kernel on a GPU).  solver: 'level' (KLU-style RefactorPlan +
-        level-scheduled solves)."""
-        if solver in ("blocklu", "multifrontal"):
+        level-scheduled solves) or 'multifrontal' (``MultifrontalLU``: a
+        from-scratch front factorization per iteration with partial
+        pivoting inside each front, ND-ordered under ordering='auto', and
+        the front-form solve).  ``growth_limit`` / ``piv_rtol`` set the
+        'multifrontal' pivot-growth gate (``_growth_gate``): a gated
+        iteration is not applied, and ``solve`` continues on the host with
+        true partial pivoting."""
+        if solver == "blocklu":
             raise NotImplementedError(
-                f"solver={solver!r} is not ported yet (ROADMAP: the banded "
-                "and multifrontal solvers in the modules still to come)")
-        if solver != "level":
-            raise ValueError(f"unknown solver {solver!r}; have 'level'")
+                "solver='blocklu' is not ported yet (ROADMAP: the banded "
+                "solvers in the modules still to come)")
+        if solver not in ("level", "multifrontal"):
+            raise ValueError(f"unknown solver {solver!r}; have 'level', "
+                             "'multifrontal'")
         self.grid = grid
         self.tol = tol
         self.max_iter = max_iter
+        self.growth_limit = float(growth_limit)
+        self.piv_rtol = float(piv_rtol)
         self.device = resolve_device(device)
         n = grid.n_bus
         self.Y, _, _ = ybus(grid)
@@ -355,8 +383,13 @@ class NewtonPowerFlow:
         v0 = grid.vm0.astype(np.complex128)
         ibus0 = self.Y.to_scipy().tocsr() @ v0
         J0 = _jacobian(self.Y, v0, ibus0, pvpq, pq)
-        lu = splu(J0, ordering=ordering)
-        self._rp = lu.refactor_plan(J0, device=self.device)
+        if solver == "multifrontal":
+            self._rp = MultifrontalLU.from_matrix(
+                J0, ordering="nd" if ordering == "auto" else ordering,
+                device=self.device)
+        else:
+            lu = splu(J0, ordering=ordering)
+            self._rp = lu.refactor_plan(J0, device=self.device)
 
     # -- device Jacobian values (fixed pattern, split-complex real math) ----
     def _jac_data(self, vr, vi, vm, ir, ii):
@@ -404,35 +437,87 @@ class NewtonPowerFlow:
 
     @torch.inference_mode()
     def run(self, vm0, va0, sbr=None, sbi=None):
-        """Iterate from (vm0, va0) until the mismatch max-norm is <= tol or
-        ``max_iter`` iterations ran; returns (vm, va, iterations, residual)
-        with vm, va on the device.  One mismatch evaluation (one Ybus
-        SpMV) per iteration plus the final one."""
+        """Iterate from (vm0, va0) until the mismatch max-norm is <= tol,
+        ``max_iter`` iterations ran or the pivot-growth gate engaged;
+        returns (vm, va, iterations, residual, bad) with vm, va on the
+        device.  ``bad`` is True iff a 'multifrontal' factorization tripped
+        the gate: that iteration counts but leaves the state unchanged,
+        and the caller falls back to a true-pivoting host factorization
+        (``solve`` does).  One mismatch evaluation (one Ybus SpMV) per
+        iteration plus the final one, and one host read per evaluation."""
         sbr = self._sbr if sbr is None else sbr
         sbi = self._sbi if sbi is None else sbi
         vm = vm0.to(self.device, torch.float64, copy=True)
         va = va0.to(self.device, torch.float64, copy=True)
+        front = isinstance(self._rp, MultifrontalLU)
+        bad = torch.zeros((), dtype=torch.bool, device=self.device)
         it = 0
         while True:
             f, (vr, vi), (ir, ii) = self._mismatch_f(vm, va, sbr, sbi)
-            nrm = float(f.abs().max()) if f.numel() else 0.0
-            if not (nrm > self.tol and it < self.max_iter):
-                return vm, va, it, nrm
+            nrm = f.abs().max() if f.numel() else f.new_zeros(())
+            nrm, gated = torch.stack([nrm, bad.to(nrm.dtype)]).tolist()
+            if gated or not (nrm > self.tol and it < self.max_iter):
+                return vm, va, it, nrm, bool(gated)
             jd = self._jac_data(vr, vi, vm, ir, ii)
-            dx = self._rp.refactor(jd)(-f)
+            if front:
+                fac, stats = self._rp.factor_piv(jd)
+                bad = _growth_gate(jd, stats, self.growth_limit,
+                                   self.piv_rtol)
+                # a gated iteration must not move the state
+                dx = self._rp.solve_piv(fac, -f).masked_fill_(bad, 0)
+            else:
+                dx = self._rp.refactor(jd)(-f)
             va.index_add_(0, self._pvpq, dx[: self._npvpq])
             vm.index_add_(0, self._pq, dx[self._npvpq:])
             it += 1
 
+    def _host_newton(self, vm, va):
+        """Continue Newton on the host with TRUE partial pivoting (``splu``
+        per iteration) from (vm, va): the growth-gate fallback.  Returns
+        (vm, va, iterations, residual)."""
+        import warnings
+
+        warnings.warn(
+            "multifrontal pivot-growth gate engaged: falling back to "
+            "host factorization with true partial pivoting",
+            RuntimeWarning, stacklevel=3)
+        vm = np.array(vm, dtype=np.float64)
+        va = np.array(va, dtype=np.float64)
+        y_csr = self.Y.to_scipy().tocsr()
+        sb = sbus(self.grid)
+        pvpq = np.concatenate([self.grid.pv, self.grid.pq])
+        pq = self.grid.pq
+        it = 0
+        nrm = np.inf
+        for it in range(self.max_iter):
+            v = vm * np.exp(1j * va)
+            ibus = y_csr @ v
+            mis = v * np.conj(ibus) - sb
+            f = np.concatenate([mis.real[pvpq], mis.imag[pq]])
+            nrm = np.max(np.abs(f)) if f.size else 0.0
+            if nrm < self.tol:
+                break
+            J = _jacobian(self.Y, v, ibus, pvpq, pq)
+            dx = np.asarray(splu(J, ordering="auto").solve_host(-f))
+            va[pvpq] += dx[: self._npvpq]
+            vm[pq] += dx[self._npvpq:]
+        return vm, va, it, nrm
+
     def solve(self, flat_start=True):
         """Solve from the grid's flat start; returns host numpy (vm, va),
-        the iteration count and the final mismatch max-norm."""
+        the iteration count and the final mismatch max-norm.  When the
+        'multifrontal' growth gate engages, the solve continues on the host
+        with true partial pivoting and warns (RuntimeWarning)."""
         n = self.grid.n_bus
         vm0 = torch.as_tensor(self.grid.vm0.astype(np.float64),
                               device=self.device)
         va0 = torch.zeros(n, dtype=torch.float64, device=self.device)
-        vm, va, it, res = self.run(vm0, va0)
-        return vm.cpu().numpy(), va.cpu().numpy(), int(it), float(res)
+        vm, va, it, res, bad = self.run(vm0, va0)
+        vm, va = vm.cpu().numpy(), va.cpu().numpy()
+        if bad:
+            vm, va, it2, res = self._host_newton(vm, va)
+            it += it2
+        return vm, va, int(it), float(res)
 
 
 @torch.inference_mode()

@@ -1,6 +1,8 @@
 """The port on a CUDA card: the band+points, DIA, triad, SpGEMM-numeric and
-BSR SpMM kernels against their plain PyTorch versions, and the device
-solvers against the same solves on the CPU.
+BSR SpMM kernels against their plain PyTorch versions, the device solvers
+against the same solves on the CPU, and the supernodal / multifrontal
+fronts (torch ops, no kernel of ours) against the CPU, the host factors
+and scipy.
 
 Every test here needs a card and skips without one.  The file imports
 neither jax nor the JAX package, so it runs where only torch is installed:
@@ -858,3 +860,125 @@ def test_banded_solvers_on_cuda_match_cpu(cuda, spmv):
     np.testing.assert_allclose(dc_power_flow(g),
                                dc_power_flow(g, device="cpu"), rtol=0,
                                atol=1e-10)
+
+
+# -- the multifrontal path: torch ops on the card -----------------------------
+
+def _shifted_susceptance(n, seed=1):
+    """B + 3I for the series susceptances B of synthetic_grid(n, seed): the
+    JAX bench's refactorization matrix."""
+    g = synthetic_grid(n, seed=seed)
+    bp = 1.0 / g.x
+    d = np.arange(n)
+    return pt.from_triplets(np.concatenate([g.f, g.t, g.f, g.t, d]),
+                            np.concatenate([g.f, g.t, g.t, g.f, d]),
+                            np.concatenate([bp, bp, -bp, -bp,
+                                            np.full(n, 3.0)]), (n, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [5, 32, 70])
+def test_dense_lu_nopiv_on_cuda_matches_cpu(cuda, w):
+    """The torch-ops no-pivot LU (70 crosses the 32-wide panel) on the card
+    against the same function on the CPU, float64: 1e-12 of max|M|."""
+    from csparse3_tpu_torch.linalg.supernodal import _dense_lu_nopiv
+
+    D = (np.random.RandomState(w).standard_normal((3, w, w))
+         + 2 * w * np.eye(w))
+    got = _dense_lu_nopiv(torch.as_tensor(D, device=cuda)).cpu().numpy()
+    ref = _dense_lu_nopiv(torch.as_tensor(D)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-12 * np.abs(ref).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cls", ["MultifrontalRefactor", "SupernodalRefactor"])
+def test_front_refactor_on_cuda_float32_and_float64(cuda, cls):
+    """factor_values on the card against the host factors: float64 within
+    1e-12 of the largest factor entry; float32 within 2e-5 of it and a
+    solve's relative residual below 1e-4.  TF32 products (10-bit
+    mantissas) miss both float32 limits: the fronts run without TF32."""
+    A = _shifted_susceptance(2000)
+    lu = pt.splu(A, ordering="nd", tol=0.0)
+    plan = getattr(pt.linalg, cls)(lu._h, A, device=cuda)
+    b = np.random.RandomState(2).rand(A.n)
+    for dt, tol, res_tol in ((torch.float32, 2e-5, 1e-4),
+                             (torch.float64, 1e-12, 1e-12)):
+        d = torch.as_tensor(A.np_arrays()[2], dtype=dt, device=cuda)
+        Lx, Ux = plan.factor_values(d)
+        assert Lx.dtype == dt and Lx.device == d.device
+        for got, ref in ((Lx, lu._h.Lx), (Ux, lu._h.Ux)):
+            err = np.abs(got.double().cpu().numpy() - ref).max()
+            assert err <= tol * np.abs(ref).max()
+        x = plan.refactor(d)(torch.as_tensor(b, dtype=dt, device=cuda))
+        x = x.double().cpu().numpy()
+        res = np.linalg.norm(A.to_scipy() @ x - b) / np.linalg.norm(b)
+        assert res < res_tol
+
+
+@pytest.mark.gpu
+def test_multifrontal_lu_on_cuda_matches_scipy_and_cpu(cuda):
+    """factor_piv / solve_piv on the card: one and three right-hand sides
+    against scipy (1e-8), the factors against the same factorization on
+    the CPU (1e-12 of each factor's max), a row exchange forced inside a
+    dense front, and the growth stats flagging a singular matrix."""
+    import scipy.sparse.linalg as spla
+
+    A = _shifted_susceptance(2000)
+    data = A.np_arrays()[2]
+    mf = pt.linalg.MultifrontalLU.from_matrix(A, device=cuda)
+    mf_cpu = pt.linalg.MultifrontalLU.from_matrix(A, device="cpu")
+    fac, stats = mf.factor_piv(torch.as_tensor(data, device=cuda))
+    fac_c, stats_c = mf_cpu.factor_piv(torch.as_tensor(data))
+    for f, fc in zip(fac, fac_c):
+        assert torch.equal(f[3].cpu(), fc[3])
+        for t, tc in zip(f[:3], fc[:3]):
+            np.testing.assert_allclose(
+                t.cpu().numpy(), tc.numpy(), rtol=0,
+                atol=1e-12 * max(float(tc.abs().max()), 1.0))
+    for k in stats:
+        assert abs(float(stats[k]) - float(stats_c[k])) <= 1e-12 * abs(
+            float(stats_c[k]))
+    B = np.random.RandomState(4).rand(A.n, 3)
+    X = mf.solve_piv(fac, torch.as_tensor(B, device=cuda)).cpu().numpy()
+    x = mf.solve_piv(fac, torch.as_tensor(B[:, 0], device=cuda)).cpu().numpy()
+    ref = spla.spsolve(A.to_scipy().tocsc(), B)
+    np.testing.assert_allclose(X, ref, rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(x, ref[:, 0], rtol=1e-8, atol=1e-10)
+
+    rng = np.random.RandomState(5)
+    D = rng.rand(40, 40) + np.eye(40) * 0.1
+    D[3, 3] = 1e-300
+    Ad = pt.CSC.from_scipy(sp.csc_matrix(D))
+    md = pt.linalg.MultifrontalLU.from_matrix(Ad, ordering=None, device=cuda)
+    fd, _ = md.factor_piv(torch.as_tensor(Ad.np_arrays()[2], device=cuda))
+    b = rng.rand(40)
+    xd = md.solve_piv(fd, torch.as_tensor(b, device=cuda)).cpu().numpy()
+    np.testing.assert_allclose(xd, np.linalg.solve(D, b), rtol=1e-9,
+                               atol=1e-9)
+    D[5] = D[4]
+    _, sb = md.factor_piv(torch.as_tensor(
+        pt.CSC.from_scipy(sp.csc_matrix(D)).np_arrays()[2], device=cuda))
+    assert float(sb["min_pivot"]) < 1e-10 * float(sb["max_u"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spmv", ["ell", "bandpoints"])
+def test_newton_multifrontal_on_cuda_matches_level(cuda, spmv):
+    """solver='multifrontal' on the card reaches the solver='level' state
+    of the same grid (float64 'ell' at 1e-10: 1e-9; 'bandpoints' at the
+    float32 floor: 1e-4), with no gate and one K1 launch per mismatch."""
+    g = synthetic_grid(2000, seed=3)
+    tol = 5e-5 if spmv == "bandpoints" else 1e-10
+    pf = NewtonPowerFlow(g, spmv=spmv, solver="multifrontal", tol=tol,
+                         device=cuda)
+    vm0 = torch.as_tensor(g.vm0, dtype=torch.float64, device=cuda)
+    vm, va, it, res, bad = pf.run(vm0, torch.zeros_like(vm0))
+    assert not bad and res <= tol
+    if spmv == "bandpoints":
+        assert pf._yplan.kernel_launches == it + 1
+    vm_l, va_l, it_l, res_l = NewtonPowerFlow(g, spmv=spmv, tol=tol,
+                                              device=cuda).solve()
+    atol = 1e-4 if spmv == "bandpoints" else 1e-9
+    np.testing.assert_allclose(vm.cpu().numpy(), vm_l, rtol=0, atol=atol)
+    np.testing.assert_allclose(va.cpu().numpy(), va_l, rtol=0, atol=atol)

@@ -67,12 +67,12 @@ def test_device_jacobian_values_match_host_jacobian():
 
 @pytest.mark.parametrize("kw", [dict(cls="FastDecoupled", solver="banded"),
                                 dict(cls="FastDecoupled", solver="blocklu"),
-                                dict(solver="blocklu"),
-                                dict(solver="multifrontal")])
+                                dict(solver="blocklu")])
 def test_options_of_later_slices_are_refused(kw):
-    """spmv='dia' / 'symdia' are ported now (tests/test_torch_fdpf.py); the
-    solvers that need BandedLU or the multifrontal refactorization are
-    still refused, for both solver classes."""
+    """spmv='dia' / 'symdia' are ported (tests/test_torch_fdpf.py), and so
+    is solver='multifrontal' (tests/test_torch_multifrontal.py); the
+    solvers that need BandedLU are still refused, for both solver
+    classes."""
     kw = dict(kw)
     cls = getattr(ppf, kw.pop("cls", "NewtonPowerFlow"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
