@@ -75,8 +75,25 @@ seconds):
            and scipy row by row within the rounding bound, with their
            times, the dense kernel's on the raw slabs, the plain versions'
            and the library call's.
-9. ieee14: phase 6 on ieee14().
-10. spgemm: the sparse-product path on three matrices: C = Cf - Ct of
+9. blocklu: the banded block-Thomas solvers on the same RCM-ordered grid:
+           FastDecoupled(spmv='symdia', solver='blocklu') and ('banded')
+           must converge to 1e-8, agree with phase 8's Newton state within
+           1e-6 and launch the DIA kernel 3 it + 2 times; their build and
+           warm solve seconds beside 'level''s, and one profiled solve each
+           (launches, idle share).  NewtonPowerFlow(spmv='dia',
+           solver='blocklu') in float64: host mismatch <= 1e-8, state within
+           1e-8 of phase 6's 'ell' state, one DIA launch per mismatch.
+           BASELINE config 3 (B + 3I of synthetic_grid(10_000, seed=1),
+           1024 right-hand sides, float64): ``splu(A, 'rcm', tol=0)
+           .banded_solve_plan()`` and ``BandedLU(A)``, relative residual
+           <= 1e-10 and scipy's splu on 16 columns within 1e-10; BASELINE
+           config 4 (the same at 100k buses): ``BandedRefactor.from_matrix``
+           then the device factor in float32 and float64 and a 1024-RHS
+           solve, on 16 columns within 1e-3 (float32) and 1e-10 (float64)
+           of the host float64 ``BandedLU.solve_host``.  Wall and queued ms
+           of each solve and factor beside its flop bound.
+10. ieee14: phase 6 on ieee14().
+11. spgemm: the sparse-product path on three matrices: C = Cf - Ct of
            synthetic_grid(3000, seed=1) (the GridCal flow), the random
            10k x 10k matrix at 0.1% density of BASELINE config 2, and C of
            the 200k-bus grid.  Host: ``Cf - Ct``, ``C @ C.T``, ``gram``,
@@ -92,7 +109,7 @@ seconds):
            bound, the least-bytes bound of any layout and the launch floor
            (the kernel on a one-output plan); wall and queued times of the
            device ESC product (``ESCSpGEMM``).
-11. bsr:   the block product ``Y = A @ X``: the 16384^2 matrix of 32 x 32
+12. bsr:   the block product ``Y = A @ X``: the 16384^2 matrix of 32 x 32
            blocks (6 per block row) with X (16384, 1024), and
            ``spmm(B, X, block=(8, 128))`` for B = imag(Ybus) of the 200k-bus
            grid in float32 with X (200000, 1024); the BSR SpMM kernel
@@ -128,6 +145,8 @@ N_SOLVE = 10_000      # buses of the solver phases
 HBM_BYTES_PER_S = None
 F32_FLOP_PER_S = 67e12
 F64_FLOP_PER_S = 34e12
+# float64 matrix products on the tensor cores (DGEMM), the same sheet
+F64_TENSOR_FLOP_PER_S = 67e12
 
 # kernel vs plain / scipy: float32 sums of a handful of complex products
 # per row, in different orders; 5e-6 of max|y| is ~40 float32 ulps
@@ -145,6 +164,15 @@ DIA_STATE_ATOL = 1e-8
 FDPF_STATE_ATOL = 1e-6
 # dc_power_flow against scipy spsolve, both float64 direct solves
 DC_RTOL = 1e-9
+# banded float64 solves: the relative residual ||AX - B|| / ||B|| and the
+# gap to scipy's splu (or the host BandedLU) over max|x|
+BANDED_RESIDUAL = 1e-10
+BANDED_RTOL = 1e-10
+# the float32 device factor and solve against the host float64 solve, over
+# max|x| (the JAX bench's gate for its float32 banded solves, bench.py:308)
+BANDED_F32_RTOL = 1e-3
+N_BANDED_LARGE = 100_000  # buses of BASELINE config 4
+N_RHS = 1024              # right-hand sides of BASELINE configs 3 and 4
 
 
 def log(*a):
@@ -916,8 +944,10 @@ def main_shape_records(dev, n, plans):
 def banded_phase(dev, ell_state):
     """The banded power flow at 10k buses, RCM order: Newton on the DIA
     kernel, fast-decoupled on the symmetric and the general DIA kernel, DC
-    flow.  Returns the DIA kernel's launches over the three solves and its
-    records at this path's shape."""
+    flow.  Returns the DIA kernel's launches over the three solves, its
+    records at this path's shape, and the grid, its RCM permutation, the
+    Newton state and the 'symdia' fast-decoupled solver for the blocklu
+    phase."""
     import scipy.sparse.linalg as spla
     import torch
 
@@ -1024,7 +1054,217 @@ def banded_phase(dev, ell_state):
     if not err <= DC_RTOL:
         raise AssertionError("dc_power_flow disagrees with scipy")
     log(f"banded: phase seconds {time.perf_counter() - t0:.1f}")
-    return launches, recs
+    return launches, recs, dict(grid=g, perm=perm, newton=(vm, va),
+                                level=fds["symdia"])
+
+
+def _sweep_record(name, plan, solve, X, ref, limit, dtype, flops, nbytes):
+    """Wall and queued ms of ``solve`` (a call of many launches), its
+    error on the first columns against ``ref`` over max|ref|, and the bound
+    of ``flops`` and ``nbytes``."""
+    cols = ref.shape[1]
+    err = float(np.abs(X[:, :cols].double().cpu().numpy() - ref).max()
+                / np.abs(ref).max())
+    wall = wall_ms(solve, 3)
+    queued = queued_ms(solve, 3, spin_ms=2 * 3 * wall)
+    rate = F64_TENSOR_FLOP_PER_S if dtype == "float64" else F32_FLOP_PER_S
+    rec = dict(s=plan.s, nb=plan.nblocks, wall_ms=wall, queued_ms=queued,
+               err=err, flops=flops, bytes=nbytes,
+               **bound_record(nbytes, flops, rate))
+    log(f"blocklu: {name} {dtype} s={plan.s} nb={plan.nblocks} "
+        f"rhs={X.shape[1]} solve wall_ms={wall:.3f} queued_ms={queued:.3f} "
+        f"flops={flops:.4g} bytes={nbytes:.4g} bound_ms={rec['bound_ms']:.3f}"
+        f" ({rec['bound_by']}) share_of_bound={rec['bound_ms'] / queued:.3f} "
+        f"err_vs_reference_over_max={err:.3e} (limit {limit:.0e})")
+    if not err <= limit:
+        raise AssertionError(f"blocklu: {name} {dtype} disagrees ({err})")
+    return rec
+
+
+def blocklu_phase(dev, ctx, ell_state):
+    """The banded block-Thomas solvers at full size: fast-decoupled with
+    solver='blocklu' and 'banded' on the banded phase's 10k grid, Newton
+    'blocklu' on it, then BASELINE configs 3 (B + 3I at 10k buses, 1024
+    right-hand sides: ``banded_solve_plan`` and ``BandedLU``) and 4 (100k
+    buses: ``BandedRefactor`` device factors in float32 and float64, then
+    a 1024-RHS solve).  Returns the DIA kernel's launches over the solves
+    of the main path (the three power-flow solves) and the records."""
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from csparse3_tpu_torch.kernels import dia as kdia
+    from csparse3_tpu_torch.linalg import BandedLU, BandedRefactor, splu
+    from csparse3_tpu_torch.models.powerflow import (FastDecoupled,
+                                                     NewtonPowerFlow)
+
+    t_phase = time.perf_counter()
+    g, perm = ctx["grid"], ctx["perm"]
+    vm_n, va_n = ctx["newton"]
+    out = {}
+
+    # ---- (a) fast-decoupled, 10k buses, RCM order, 'symdia'
+    fds = {"level": (ctx["level"], None)}
+    for solver in ("blocklu", "banded"):
+        t0 = time.perf_counter()
+        fd = FastDecoupled(g, spmv="symdia", solver=solver, device=dev)
+        fds[solver] = (fd, time.perf_counter() - t0)
+        fd.solve()  # warm-up: first-use allocations and uploads
+    # the main path: counts to 0, one solve each, counts read
+    launches = 0
+    for solver in ("blocklu", "banded"):
+        fd = fds[solver][0]
+        for key in kdia.LAUNCHES:
+            kdia.LAUNCHES[key] = 0
+        vm, va, it, res = fd.solve()
+        torch.cuda.synchronize()
+        nl = kdia.LAUNCHES["dia_spmv"]
+        launches += nl
+        diff = max(np.abs(vm - vm_n).max(), np.abs(va - va_n).max())
+        log(f"blocklu: fdpf[{solver}] iterations={it} residual={res:.3e} "
+            f"kernel_launches={nl} max_state_diff_vs_newton={diff:.3e} "
+            f"(bound {FDPF_STATE_ATOL:.0e})")
+        if not res <= fd.tol or it >= fd.max_iter:
+            raise AssertionError(f"fdpf[{solver}]: did not converge")
+        if diff > FDPF_STATE_ATOL:
+            raise AssertionError(f"fdpf[{solver}]: disagrees with Newton")
+        if nl == 0 or nl != 3 * it + 2:
+            raise AssertionError(f"fdpf[{solver}]: {nl} launches for {it} "
+                                 "iterations")
+    # warm solve seconds of the three solvers in turns, then one profiled
+    # solve of each new one ('level''s profile is the banded phase's)
+    times = {k: [] for k in fds}
+    for _ in range(3):
+        for solver, (fd, _) in fds.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fd.solve()
+            torch.cuda.synchronize()
+            times[solver].append(time.perf_counter() - t0)
+    log(f"blocklu: fdpf[level] warm_solve_s="
+        f"{[round(t, 4) for t in times['level']]}")
+    for solver in ("blocklu", "banded"):
+        fd, build = fds[solver]
+        wall, busy, nk, by = device_profile(fd.solve, 1)
+        top = sorted(by.items(), key=lambda kv: -kv[1][1])[:4]
+        log(f"blocklu: fdpf[{solver}] B' s={fd._bp_plan.s} "
+            f"nb={fd._bp_plan.nblocks} B'' s={fd._bpp_plan.s} "
+            f"nb={fd._bpp_plan.nblocks} build_s={build:.3f} warm_solve_s="
+            f"{[round(t, 4) for t in times[solver]]} profiled wall_s="
+            f"{wall:.4f} device_busy_s={busy:.4f} idle_share="
+            f"{1 - busy / wall:.4f} launches_per_solve={nk} top_by_device_s="
+            + "; ".join(f"{k[:50]} x{c} {t:.4f}" for k, (c, t) in top))
+        out[f"fdpf_{solver}"] = dict(solve_s=min(times[solver]),
+                                     idle_share=1 - busy / wall, launches=nk)
+    log(f"blocklu: (a) seconds {time.perf_counter() - t_phase:.1f}")
+
+    # ---- (b) Newton 'blocklu', float64 DIA mismatch
+    t0 = time.perf_counter()
+    pf = NewtonPowerFlow(g, spmv="dia", solver="blocklu", device=dev)
+    t_build = time.perf_counter() - t0
+    pf.solve()  # warm-up
+    for key in kdia.LAUNCHES:
+        kdia.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    vm, va, it, res = pf.solve()
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    nl = kdia.LAUNCHES["dia_spmv"]
+    launches += nl
+    hm = host_mismatch(g, pf.Y, vm, va)
+    vm_e, va_e = ell_state
+    diff = max(np.abs(vm - vm_e[perm]).max(), np.abs(va - va_e[perm]).max())
+    wall, busy, nk, _ = device_profile(pf.solve, 1)
+    n_j, s, nb, bw = pf._rp._aux
+    log(f"blocklu: newton[blocklu] jacobian_dim={n_j} bandwidth={bw} s={s} "
+        f"nb={nb} iterations={it} residual={res:.3e} host_f64_mismatch="
+        f"{hm:.3e} (bound {DIA_HOST_MISMATCH:.0e}) kernel_launches={nl} "
+        f"build_s={t_build:.3f} solve_s={t_solve:.4f} profiled wall_s="
+        f"{wall:.4f} idle_share={1 - busy / wall:.4f} launches_per_iteration="
+        f"{nk / max(it, 1):.0f} max_state_diff_vs_ell_of_natural_order="
+        f"{diff:.3e} (bound {DIA_STATE_ATOL:.0e})")
+    if not res <= pf.tol or it >= pf.max_iter:
+        raise AssertionError(f"newton[blocklu]: did not converge ({it})")
+    if hm > DIA_HOST_MISMATCH or diff > DIA_STATE_ATOL:
+        raise AssertionError("newton[blocklu]: wrong state")
+    if nl == 0 or nl != it + 1:
+        raise AssertionError(f"newton[blocklu]: {nl} launches for {it + 1} "
+                             "mismatch evaluations")
+    out["newton_blocklu"] = dict(solve_s=t_solve, iterations=it, s=s, nb=nb,
+                                 launches_per_iteration=nk / max(it, 1))
+    log(f"blocklu: (b) seconds {time.perf_counter() - t_phase:.1f}")
+
+    # ---- (c) BASELINE config 3: B + 3I at 10k buses, 1024 right-hand sides
+    A = refactor_system(N_SOLVE)
+    S = A.to_scipy().tocsc()
+    Bm = np.random.RandomState(1).rand(A.n, N_RHS)
+    ref = spla.splu(S).solve(Bm[:, :16])
+    Bt = torch.as_tensor(Bm, device=dev)
+    t0 = time.perf_counter()
+    bsp = splu(A, ordering="rcm", tol=0.0).banded_solve_plan(device=dev)
+    t_bsp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blu = BandedLU(A, device=dev)
+    t_blu = time.perf_counter() - t0
+    for name, plan, build, per_block in (("banded_solve_plan", bsp, t_bsp, 4),
+                                         ("BandedLU", blu, t_blu, 3)):
+        X = plan(Bt)
+        res = float(np.linalg.norm(S @ X.cpu().numpy() - Bm)
+                    / np.linalg.norm(Bm))
+        # per block per_block (s, s) @ (s, 1024) products; the stacks read
+        # once, B in, X out
+        nstack = per_block * plan.nblocks * plan.s ** 2
+        rec = _sweep_record(
+            f"config3[{name}]", plan, lambda: plan(Bt), X, ref,
+            BANDED_RTOL, "float64", 2.0 * nstack * N_RHS,
+            8 * (nstack + 2 * A.n * N_RHS))
+        rec.update(build_s=build, rel_residual=res)
+        log(f"blocklu: config3[{name}] build_s={build:.3f} "
+            f"rel_residual={res:.3e} (limit {BANDED_RESIDUAL:.0e})")
+        if not res <= BANDED_RESIDUAL:
+            raise AssertionError(f"config3[{name}]: residual {res}")
+        out[f"config3_{name}"] = rec
+    del X, Bt, bsp, blu
+    log(f"blocklu: (c) seconds {time.perf_counter() - t_phase:.1f}")
+
+    # ---- (d) BASELINE config 4: B + 3I at 100k buses
+    A = refactor_system(N_BANDED_LARGE)
+    data = A.np_arrays()[2]
+    Bm = np.random.RandomState(1).rand(A.n, N_RHS)
+    t0 = time.perf_counter()
+    host = BandedLU(A, device=dev)
+    t_host = time.perf_counter() - t0
+    ref = host.solve_host(Bm[:, :16])
+    for dt, limit in (("float32", BANDED_F32_RTOL), ("float64", BANDED_RTOL)):
+        dtype = getattr(torch, dt)
+        t0 = time.perf_counter()
+        rf = BandedRefactor.from_matrix(A, dtype=dtype, device=dev)
+        t_rf = time.perf_counter() - t0
+        d = torch.as_tensor(data, dtype=dtype, device=dev)
+        lu = rf(d)
+        f_wall = wall_ms(lambda: rf(d), 3)
+        f_queued = queued_ms(lambda: rf(d), 3, spin_ms=2 * 3 * f_wall)
+        n, s, nb, bw = rf._aux
+        f_flops = 8.0 * s ** 3 * nb  # three products and an inverse a block
+        rate = F64_TENSOR_FLOP_PER_S if dt == "float64" else F32_FLOP_PER_S
+        log(f"blocklu: config4 {dt} n={n} bandwidth={bw} s={s} nb={nb} "
+            f"from_matrix_s={t_rf:.3f} host_BandedLU_s={t_host:.3f} "
+            f"device factor wall_ms={f_wall:.3f} queued_ms={f_queued:.3f} "
+            f"factor_flops={f_flops:.4g} factor_bound_ms="
+            f"{f_flops / rate * 1e3:.3f}")
+        Bt = torch.as_tensor(Bm, dtype=dtype, device=dev)
+        X = lu(Bt)
+        nstack = 3 * nb * s ** 2
+        rec = _sweep_record(
+            "config4[BandedRefactor]", lu, lambda: lu(Bt), X, ref, limit, dt,
+            2.0 * nstack * N_RHS,
+            X.element_size() * (nstack + 2 * n * N_RHS))
+        rec.update(factor_wall_ms=f_wall, factor_queued_ms=f_queued,
+                   factor_bound_ms=f_flops / rate * 1e3, from_matrix_s=t_rf)
+        out[f"config4_{dt}"] = rec
+        del X, Bt, lu, rf, d
+        torch.cuda.empty_cache()
+    log(f"blocklu: phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, out
 
 
 def _csr_tensor(S, dev, dtype):
@@ -1842,7 +2082,8 @@ def main():
         log(f"newton[synthetic10k]: phase seconds "
             f"{time.perf_counter() - t0:.1f}")
         launches += multifrontal_phase(dev, ell_state)
-        dia_launches, band = banded_phase(dev, ell_state)
+        dia_launches, band, band_ctx = banded_phase(dev, ell_state)
+        blocklu_launches, _ = blocklu_phase(dev, band_ctx, ell_state)
         newton_case("ieee14", ieee14(), dev)
         # last: these phases time with CUDA events alone, so torch.profiler
         # dropping records late in a long process costs them nothing
@@ -1877,7 +2118,8 @@ def main():
         # the top-level numbers are one launch of the split-complex run
         # kernel at the shape the banded solves give it (float64, D=473,
         # n=10k, both real slab sets through the occupancy index they share,
-        # x (n, 2)): the launches counted are those launches.  bound_ms
+        # x (n, 2)): the launches counted are those of the banded phase's
+        # three solves and of the blocklu phase's three.  bound_ms
         # counts what the route moves: the listed runs (streamed whole, their
         # zeros included), the index, x and y; nonzero_bound_ms the nonzero
         # values, a position for each, x and y: the least any layout needs;
@@ -1887,8 +2129,8 @@ def main():
         # walk of the index; one_slab_set_ms is the run kernel on one slab
         # set and the stacked (2, n) input
         dict(record("dia_spmv", "dia_spmv",
-                    "csparse3_tpu/kernels/dia_pallas.py:67", dia_launches,
-                    band["dia"]),
+                    "csparse3_tpu/kernels/dia_pallas.py:67",
+                    dia_launches + blocklu_launches, band["dia"]),
              shape=f"float64 general form, both slab sets of the {N_SOLVE}"
                    "-bus RCM Ybus through their shared occupancy index, per "
                    "split-complex launch; library_ms is the complex128 CSR "

@@ -8,10 +8,12 @@ torch, plus hand-written CUDA kernels (``csrc/``) where the JAX package had
 a Pallas kernel on the path.
 
 Ported so far: the Newton power flow (``NewtonPowerFlow(spmv='ell' |
-'bandpoints' | 'dia' | 'symdia', solver='level' | 'multifrontal')``, the
-latter on ``linalg.MultifrontalLU`` with its pivot-growth gate; the
-supernodal and multifrontal refactorizations), and the banded path:
-``rcm_grid``, the DIA SpMV family with its CUDA kernel, ``FastDecoupled``,
+'bandpoints' | 'dia' | 'symdia', solver='level' | 'multifrontal' |
+'blocklu')``, 'multifrontal' on ``linalg.MultifrontalLU`` with its
+pivot-growth gate; the supernodal and multifrontal refactorizations), and
+the banded path: ``rcm_grid``, the DIA SpMV family with its CUDA kernel,
+``FastDecoupled(solver='level' | 'banded' | 'blocklu')``, the block-Thomas
+solvers (``BandedLU``, ``BandedRefactor``, ``BandedSolvePlan``),
 ``dc_power_flow`` and the dense-tail triangular solves; and the sparse-
 product path: CSC ``+ - *`` and ``@``, ``spgemm`` / ``gram`` with their
 symbolic plans and the CUDA numeric kernel, the device ESC product, the
@@ -97,6 +99,10 @@ from .kernels.dia import (  # noqa: F401
     SplitPallasDIA,
 )
 from .linalg import (  # noqa: F401
+    BandedLU,
+    BandedRefactor,
+    BandedSolvePlan,
+    ComplexBandedSolve,
     DenseTailTriSolvePlan,
     RefactorPlan,
     SolvePlan,
@@ -115,6 +121,7 @@ from .models import (  # noqa: F401
     reorder_grid,
 )
 from .utils.interop import (  # noqa: F401
+    banded_from_stacks,
     bsr_from_arrays,
     csc_from_arrays,
     dia_from_arrays,

@@ -119,6 +119,16 @@ class SparseLU:
                 factor_plan(h.Up, h.Ui, h.Ux, False), h.perm_r, h.perm_c)
         return self._plans[key]
 
+    def banded_solve_plan(self, s: int | None = None, device=None):
+        """Block-bidiagonal solve plan on ``device`` (``linalg.banded``;
+        None: ``config.default_device()``).  Needs a no-row-exchange banded
+        factorization (ordering='rcm', tol=0 on a diagonally dominant
+        matrix); raises ``ValueError`` if the factors exceed the block
+        bandwidth."""
+        from .banded import BandedSolvePlan
+
+        return BandedSolvePlan(self._h, s=s, device=device)
+
     def refactor_plan(self, a: CSC, device=None):
         """KLU-style device refactorization plan: freeze this
         factorization's pattern and pivoting; ``plan.refactor(data)``

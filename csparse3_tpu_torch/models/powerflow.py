@@ -16,18 +16,22 @@ solve, state update.  ``solver='level'`` freezes a host LU's pivots and
 refactors with ``linalg.RefactorPlan`` and level-scheduled triangular
 solves; ``solver='multifrontal'`` factors from scratch every iteration in
 dense fronts (``linalg.MultifrontalLU``) with partial pivoting inside each
-front, gated on pivot growth.  The JAX ``lax.while_loop`` is a Python loop
-here, with one host read per iteration (the residual norm, and the gate).
+front, gated on pivot growth; ``solver='blocklu'`` refactors the
+RCM-ordered Jacobian as block-Thomas recurrences (``linalg.BandedRefactor``).
+The JAX ``lax.while_loop`` is a Python loop here, with one host read per
+iteration (the residual norm, and the gate).
+
+``FastDecoupled`` solves with level-scheduled triangular solves
+(``solver='level'``), block-bidiagonal sweeps over a no-row-exchange sparse
+LU (``'banded'``) or the block-Thomas ``linalg.BandedLU`` (``'blocklu'``).
 
 ``newton_raphson`` is the host reference (``splu`` per iteration).
 
 Every entry point runs on ``device``; None is ``config.default_device()``,
 the CUDA card, and a caller without one passes ``device="cpu"``.
 
-Not ported yet, and refused with ``NotImplementedError``: the Newton
-solver 'blocklu' and the fast-decoupled solvers 'banded' / 'blocklu',
-which wait for ``BandedLU``, and ``NewtonPowerFlow.solve_batch`` (see
-ROADMAP.md).
+Not ported yet: ``NewtonPowerFlow.solve_batch`` and
+``FastDecoupled.solve_batch`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..linalg import MultifrontalLU, splu
+from ..linalg import BandedLU, MultifrontalLU, splu
 from ..ops import construct, matvec
 from ..types import CSC
 from .grids import SLACK, Grid, ybus
@@ -127,14 +131,14 @@ class FastDecoupled:
         'symdia' (dia with only the upper diagonals stored; valid when
         Ybus is complex symmetric, i.e. no phase shifters) or
         'bandpoints'.  solver: 'level' (``SparseLU.solve_plan``: level
-        schedules with a dense tail where the factor has one)."""
-        if solver in ("banded", "blocklu"):
-            raise NotImplementedError(
-                f"solver={solver!r} is not ported yet: it needs BandedLU "
-                "(ROADMAP.md, the banded solvers in the modules still to "
-                "come)")
-        if solver != "level":
-            raise ValueError(f"unknown solver {solver!r}; have 'level'")
+        schedules with a dense tail where the factor has one), 'banded'
+        (``SparseLU.banded_solve_plan``: block-bidiagonal sweeps over the
+        factors of ``splu(B, ordering='rcm', tol=0)``) or 'blocklu'
+        (``linalg.BandedLU``, block Thomas with its own RCM ordering: no
+        sparse factorization at all).  ``ordering`` applies to 'level'."""
+        if solver not in ("level", "banded", "blocklu"):
+            raise ValueError(f"unknown solver {solver!r}; have 'level', "
+                             "'banded', 'blocklu'")
         self.grid = grid
         self.tol = tol
         self.max_iter = max_iter
@@ -152,10 +156,20 @@ class FastDecoupled:
         colsY = np.repeat(np.arange(n), np.diff(ipY))
         Bpp = construct.from_triplets(ixY, colsY, -dtY.imag,
                                       (n, n))[self.pq, self.pq]
-        self.lu_bp = splu(Bp, ordering=ordering)
-        self.lu_bpp = splu(Bpp, ordering=ordering)
-        self._bp_plan = self.lu_bp.solve_plan(device=self.device)
-        self._bpp_plan = self.lu_bpp.solve_plan(device=self.device)
+        if solver == "blocklu":
+            self.lu_bp = self._bp_plan = BandedLU(Bp, device=self.device)
+            self.lu_bpp = self._bpp_plan = BandedLU(Bpp, device=self.device)
+        elif solver == "banded":
+            self.lu_bp = splu(Bp, ordering="rcm", tol=0.0)
+            self.lu_bpp = splu(Bpp, ordering="rcm", tol=0.0)
+            self._bp_plan = self.lu_bp.banded_solve_plan(device=self.device)
+            self._bpp_plan = self.lu_bpp.banded_solve_plan(
+                device=self.device)
+        else:
+            self.lu_bp = splu(Bp, ordering=ordering)
+            self.lu_bpp = splu(Bpp, ordering=ordering)
+            self._bp_plan = self.lu_bp.solve_plan(device=self.device)
+            self._bpp_plan = self.lu_bpp.solve_plan(device=self.device)
         self._yplan = _make_yplan(self.Y, spmv, self.device)
 
         def f64(a):
@@ -310,17 +324,17 @@ class NewtonPowerFlow:
         level-scheduled solves) or 'multifrontal' (``MultifrontalLU``: a
         from-scratch front factorization per iteration with partial
         pivoting inside each front, ND-ordered under ordering='auto', and
-        the front-form solve).  ``growth_limit`` / ``piv_rtol`` set the
+        the front-form solve) or 'blocklu' (``BandedLU(J0)
+        .refactor_plan(J0)``: the RCM-ordered Jacobian refactored every
+        iteration as block-Thomas recurrences on the device; ``ordering``
+        does not apply, and a Jacobian whose bandwidth exceeds the block
+        size raises here).  ``growth_limit`` / ``piv_rtol`` set the
         'multifrontal' pivot-growth gate (``_growth_gate``): a gated
         iteration is not applied, and ``solve`` continues on the host with
         true partial pivoting."""
-        if solver == "blocklu":
-            raise NotImplementedError(
-                "solver='blocklu' is not ported yet (ROADMAP: the banded "
-                "solvers in the modules still to come)")
-        if solver not in ("level", "multifrontal"):
+        if solver not in ("level", "multifrontal", "blocklu"):
             raise ValueError(f"unknown solver {solver!r}; have 'level', "
-                             "'multifrontal'")
+                             "'multifrontal', 'blocklu'")
         self.grid = grid
         self.tol = tol
         self.max_iter = max_iter
@@ -383,7 +397,9 @@ class NewtonPowerFlow:
         v0 = grid.vm0.astype(np.complex128)
         ibus0 = self.Y.to_scipy().tocsr() @ v0
         J0 = _jacobian(self.Y, v0, ibus0, pvpq, pq)
-        if solver == "multifrontal":
+        if solver == "blocklu":
+            self._rp = BandedLU(J0, device=self.device).refactor_plan(J0)
+        elif solver == "multifrontal":
             self._rp = MultifrontalLU.from_matrix(
                 J0, ordering="nd" if ordering == "auto" else ordering,
                 device=self.device)

@@ -2,8 +2,8 @@
 
 This library has no weights: its state is the matrices and the grids.
 The helpers take plain numpy arrays (what the JAX package's
-``CSC.np_arrays()``, the fields of its ``BSR`` and ``Grid._asdict()``
-give), so a caller can hand the
+``CSC.np_arrays()``, the fields of its ``BSR``, ``Grid._asdict()`` and
+the host stacks of its ``BandedLU`` give), so a caller can hand the
 same state to both packages without either importing the other.
 """
 
@@ -15,7 +15,7 @@ from ..models.grids import Grid
 from ..types import BSR, CSC, DIA
 
 __all__ = ["csc_from_arrays", "bsr_from_arrays", "dia_from_arrays",
-           "grid_from_arrays"]
+           "grid_from_arrays", "banded_from_stacks"]
 
 
 def csc_from_arrays(m, n, indptr, indices, data, device=None) -> CSC:
@@ -46,3 +46,16 @@ def grid_from_arrays(**fields) -> Grid:
     """Grid from its fields (``Grid._asdict()`` of either package)."""
     return Grid(**{k: int(v) if k == "n_bus" else np.asarray(v)
                    for k, v in fields.items()})
+
+
+def banded_from_stacks(ehat, sinv, uhat, perm, n, s, bw, device=None):
+    """``linalg.BandedLU`` from host block-Thomas stacks (ehat, sinv, uhat
+    of shape (nb, s, s), the ordering ``perm``; the JAX package's
+    ``BandedLU._h``), uploaded at its first device solve to ``device``
+    (None: ``config.default_device()``); ``solve_host`` works at once."""
+    from ..linalg.banded import BandedLU
+
+    return BandedLU._from_stacks(
+        np.asarray(ehat), np.asarray(sinv), np.asarray(uhat),
+        np.asarray(perm, dtype=np.int64), int(n), int(s), int(bw),
+        device=device)

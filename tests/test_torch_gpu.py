@@ -982,3 +982,141 @@ def test_newton_multifrontal_on_cuda_matches_level(cuda, spmv):
     atol = 1e-4 if spmv == "bandpoints" else 1e-9
     np.testing.assert_allclose(vm.cpu().numpy(), vm_l, rtol=0, atol=atol)
     np.testing.assert_allclose(va.cpu().numpy(), va_l, rtol=0, atol=atol)
+
+
+# -- the banded block-Thomas solvers: torch ops on the card --------------------
+
+def _banded_tol(plan, dtype):
+    """How far two solves of one banded plan in ``dtype`` may differ, over
+    max|x|: 1e-12 in float64; in float32 the first-order rounding bound of
+    the sweeps, 2 nb s u, u = 2^-24 (each output sums nb s products in
+    another order on each device)."""
+    if dtype == torch.float64:
+        return 1e-12
+    return 2 * plan.nblocks * plan.s * 2.0 ** -24
+
+
+def _close_to(got, ref, tol):
+    got, ref = got.cpu().double().numpy(), ref.cpu().double().numpy()
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=tol * np.abs(ref).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_banded_plans_on_cuda_match_cpu(cuda, dtype):
+    """BandedLU (host factor, device sweeps), BandedRefactor (device
+    factor) and BandedSolvePlan on the card against the same plans on the
+    CPU, 33 right-hand sides."""
+    A = _shifted_susceptance(3000)
+    data = A.np_arrays()[2]
+    B = np.random.RandomState(3).rand(A.n, 33)
+    Bt = torch.as_tensor(B, dtype=dtype)
+    lu = pt.BandedLU(A, dtype=dtype)  # device=None: the card
+    lu_c = pt.BandedLU(A, dtype=dtype, device="cpu")
+    x = lu(Bt.to(cuda))
+    assert x.device.type == "cuda" and x.dtype == dtype
+    _close_to(x, lu_c(Bt), _banded_tol(lu, dtype))
+    rf = pt.BandedRefactor.from_matrix(A, dtype=dtype, device=cuda)
+    rf_c = pt.BandedRefactor.from_matrix(A, dtype=dtype, device="cpu")
+    for k in (1.0, 2.0):
+        got = rf(torch.as_tensor(k * data, device=cuda))
+        ref = rf_c(torch.as_tensor(k * data))
+        assert got.device.type == "cuda" and got.dtype == dtype
+        _close_to(got(Bt.to(cuda)), ref(Bt), _banded_tol(lu, dtype))
+    h = pt.splu(A, "rcm", tol=0.0)._h
+    bp = pt.BandedSolvePlan(h, dtype=dtype, device=cuda)
+    bp_c = pt.BandedSolvePlan(h, dtype=dtype, device="cpu")
+    _close_to(bp(Bt.to(cuda)), bp_c(Bt), _banded_tol(bp, dtype))
+    if dtype == torch.float64:
+        import scipy.sparse.linalg as spla
+
+        np.testing.assert_allclose(x.cpu().numpy(),
+                                   spla.spsolve(A.to_scipy().tocsc(), B),
+                                   rtol=0, atol=1e-10 * np.abs(B).max())
+
+
+@pytest.mark.gpu
+def test_banded_float32_ignores_the_callers_tf32(cuda):
+    """The sweeps and the device factorization run without TF32 whatever
+    the caller set: with allow_tf32 = True they give the bits of the
+    full-float32 run, and the caller's setting is restored."""
+    A = _shifted_susceptance(3000)
+    data = torch.as_tensor(A.np_arrays()[2], dtype=torch.float32, device=cuda)
+    lu = pt.BandedLU(A, dtype=torch.float32, device=cuda)
+    rf = pt.BandedRefactor.from_matrix(A, dtype=torch.float32, device=cuda)
+    bb = lu.blocks(torch.rand(A.n, 64, device=cuda))
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        ref, ref_f = lu.solve_blocks(bb), rf(data).stacks()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got, got_f = lu.solve_blocks(bb), rf(data).stacks()
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.equal(got, ref)
+        assert all(torch.equal(g, r) for g, r in zip(got_f, ref_f))
+        # precision='high' allows TF32 (10-bit mantissas): a coarser result
+        high = lu.solve_blocks(bb, precision="high")
+        _close_to(high, ref, 1e-2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.gpu
+def test_complex_factor_device_on_cuda_with_revalue(cuda):
+    """factor_device on a complex matrix factors the complex stacks on the
+    card; its refactor plan takes complex values of A's pattern (2 A gives
+    half the solution)."""
+    import scipy.sparse.linalg as spla
+
+    g = synthetic_grid(2000, seed=6)
+    ip, ix, dt = ybus(g)[0].np_arrays()
+    cols = np.repeat(np.arange(g.n_bus), np.diff(ip))
+    d = np.arange(g.n_bus)
+    A = pt.from_triplets(np.concatenate([ix, d]), np.concatenate([cols, d]),
+                         np.concatenate([dt, np.full(g.n_bus, 2 + 0.3j)]),
+                         (g.n_bus, g.n_bus))
+    lu, rf = pt.BandedLU.factor_device(A)  # device=None: the card
+    lu_c, _ = pt.BandedLU.factor_device(A, device="cpu")
+    assert isinstance(lu, pt.ComplexBandedSolve)
+    rng = np.random.RandomState(1)
+    b = rng.rand(A.n) + 1j * rng.rand(A.n)
+    x = lu(b)
+    assert x.device.type == "cuda" and x.dtype == torch.complex128
+    xs = spla.spsolve(A.to_scipy().tocsc(), b)
+    np.testing.assert_allclose(x.cpu().numpy(), xs, rtol=0,
+                               atol=1e-10 * np.abs(xs).max())
+    _close_to(torch.view_as_real(x), torch.view_as_real(lu_c(b)), 1e-12)
+    x2 = rf(torch.as_tensor(2 * A.np_arrays()[2], device=cuda))(b)
+    np.testing.assert_allclose(x2.cpu().numpy(), xs / 2, rtol=0,
+                               atol=1e-10 * np.abs(xs).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["blocklu", "banded"])
+def test_fast_decoupled_banded_solvers_on_cuda_match_cpu(cuda, solver):
+    g = rcm_grid(synthetic_grid(2000, seed=3))[0]
+    fd = FastDecoupled(g, spmv="symdia", solver=solver)  # device=None
+    before = kdia.LAUNCHES["dia_spmv"]
+    vm, va, it, res = fd.solve()
+    assert kdia.LAUNCHES["dia_spmv"] - before == 3 * it + 2
+    vm_c, va_c, it_c, _ = FastDecoupled(g, spmv="symdia", solver=solver,
+                                        device="cpu").solve()
+    assert it == it_c and res <= 1e-8
+    np.testing.assert_allclose(vm, vm_c, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(va, va_c, rtol=0, atol=1e-8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ieee14", "rcm2000"])
+def test_newton_blocklu_on_cuda_matches_cpu(cuda, name):
+    g = (ieee14() if name == "ieee14"
+         else rcm_grid(synthetic_grid(2000, seed=3))[0])
+    pf = NewtonPowerFlow(g, spmv="dia", solver="blocklu")  # device=None
+    assert pf._rp.device.type == "cuda"
+    vm, va, it, res = pf.solve()
+    vm_c, va_c, it_c, _ = NewtonPowerFlow(g, spmv="dia", solver="blocklu",
+                                          device="cpu").solve()
+    assert it == it_c and res <= 1e-10
+    np.testing.assert_allclose(vm, vm_c, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(va, va_c, rtol=0, atol=1e-10)

@@ -69,11 +69,15 @@ def test_device_jacobian_values_match_host_jacobian():
                                 dict(cls="FastDecoupled", solver="blocklu"),
                                 dict(solver="blocklu")])
 def test_options_of_later_slices_are_refused(kw):
-    """spmv='dia' / 'symdia' are ported (tests/test_torch_fdpf.py), and so
-    is solver='multifrontal' (tests/test_torch_multifrontal.py); the
-    solvers that need BandedLU are still refused, for both solver
-    classes."""
+    """The solvers that need BandedLU were refused until the banded solvers
+    were ported (tests/test_torch_banded.py holds them to the JAX package):
+    none is refused now, and each reaches the 'level' solver's state on
+    IEEE-14 (both float64, at their default tolerances: 1e-8 apart)."""
     kw = dict(kw)
     cls = getattr(ppf, kw.pop("cls", "NewtonPowerFlow"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cls(pgrids.ieee14(), device="cpu", **kw)
+    g = pgrids.ieee14()
+    vm, va, it, res = cls(g, device="cpu", **kw).solve()
+    vm_l, va_l, _, _ = cls(g, device="cpu").solve()
+    assert 0 < it and res <= 1e-8
+    np.testing.assert_allclose(vm, vm_l, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(va, va_l, rtol=0, atol=1e-8)
