@@ -93,7 +93,30 @@ seconds):
            of the host float64 ``BandedLU.solve_host``.  Wall and queued ms
            of each solve and factor beside its flop bound.
 10. ieee14: phase 6 on ieee14().
-11. spgemm: the sparse-product path on three matrices: C = Cf - Ct of
+11. studies: the batched study path on synthetic_grid(10_000, seed=3)
+           (22,263 branches), every scenario set made from RandomState(0):
+           ``NewtonPowerFlow('bandpoints', 'multifrontal', tol=5e-5)
+           .solve_batch`` of 32 load scenarios (host float64 mismatch of
+           each <= 1e-4, 4 of them within 1e-4 of single solves, K1 once per
+           batched mismatch evaluation); on the RCM-ordered grid
+           ``FastDecoupled('symdia', 'blocklu').solve_batch`` of 256
+           scenarios (each within 1e-6 of its single solve, with its
+           iteration count; K4 3 it + 2 times with the batch's residual
+           check) and ``NewtonPowerFlow('dia', 'blocklu').solve_batch`` of
+           16; ``DCContingency`` over all 22,263 outages (batch printed; 32
+           sampled outages' flows within 1e-8 of scipy spsolve, ``ok`` equal
+           to a host islanding check on those and on every flagged one);
+           ``LinearContingency`` over all outages (the same flows within
+           1e-8 where neither islands, equal ``ok``); ``ACContingency(
+           solver='multifrontal')`` on 128 outages (4 against the host
+           Newton within 1e-6); ``short_circuit`` at all 10,000 buses (16 Z
+           columns within 1e-10 of scipy splu); ``parse_case`` of IEEE-14
+           text through Newton.  Wall seconds and scenarios/s of each study;
+           the batched K1 and K4 launches alone against their plain
+           versions on the same batch and bit-equal to one launch per
+           scenario, with queued ms per launch and per scenario beside the
+           bound and the library call (torch.sparse CSR @ X (n, K)).
+12. spgemm: the sparse-product path on three matrices: C = Cf - Ct of
            synthetic_grid(3000, seed=1) (the GridCal flow), the random
            10k x 10k matrix at 0.1% density of BASELINE config 2, and C of
            the 200k-bus grid.  Host: ``Cf - Ct``, ``C @ C.T``, ``gram``,
@@ -109,7 +132,7 @@ seconds):
            bound, the least-bytes bound of any layout and the launch floor
            (the kernel on a one-output plan); wall and queued times of the
            device ESC product (``ESCSpGEMM``).
-12. bsr:   the block product ``Y = A @ X``: the 16384^2 matrix of 32 x 32
+13. bsr:   the block product ``Y = A @ X``: the 16384^2 matrix of 32 x 32
            blocks (6 per block row) with X (16384, 1024), and
            ``spmm(B, X, block=(8, 128))`` for B = imag(Ybus) of the 200k-bus
            grid in float32 with X (200000, 1024); the BSR SpMM kernel
@@ -2050,6 +2073,584 @@ def multifrontal_phase(dev, level_state):
     return sum(launches)
 
 
+# ---------------------------------------------------------------------------
+# studies: the batched study path (scenario axis)
+# ---------------------------------------------------------------------------
+
+N_SCEN_NEWTON = 32     # load scenarios of the batched Newton solve
+N_SCEN_FDPF = 256      # load scenarios of the batched fast-decoupled solve
+N_SCEN_BLOCKLU = 16    # load scenarios of the batched Newton 'blocklu' solve
+N_AC_OUTAGES = 128     # outages of the AC contingency
+AC_BATCH = 32          # AC outages per batched Newton
+N_SAMPLED = 32         # DC outages checked on the host
+# device bytes a DC contingency chunk may hold: a chunk's time is its
+# launches (~9k: 880 levels in each triangular solve, 125 front groups)
+# more than its bytes, so the chunk is as large as the card allows beside
+# the results (22,263 x 22,263 flows, 4 GB)
+STUDY_BYTES = 40e9
+# the DC flows of a refactorization against scipy spsolve, and LODF
+# screening against the refactorization, over the largest flow
+DC_FLOW_RTOL = 1e-8
+# batched Newton and FDPF rows against the one-scenario solves
+FDPF_BATCH_ATOL = 1e-6
+# Z columns of the device complex solves against scipy splu
+Z_RTOL = 1e-10
+# the AC contingency against the host Newton of the outaged grid
+AC_STATE_ATOL = 1e-6
+
+CASE14_TEXT = """
+mpc.baseMVA = 100;
+mpc.bus = [
+ 1 3 0 0 0 0 1 1.06 0 0 1 1.06 0.94;
+ 2 2 21.7 12.7 0 0 1 1.045 -4.98 0 1 1.06 0.94;
+ 3 2 94.2 19 0 0 1 1.01 -12.72 0 1 1.06 0.94;
+ 4 1 47.8 -3.9 0 0 1 1.019 -10.33 0 1 1.06 0.94;
+ 5 1 7.6 1.6 0 0 1 1.02 -8.78 0 1 1.06 0.94;
+ 6 2 11.2 7.5 0 0 1 1.07 -14.22 0 1 1.06 0.94;
+ 7 1 0 0 0 0 1 1.062 -13.37 0 1 1.06 0.94;
+ 8 2 0 0 0 0 1 1.09 -13.36 0 1 1.06 0.94;
+ 9 1 29.5 16.6 0 19 1 1.056 -14.94 0 1 1.06 0.94;
+ 10 1 9 5.8 0 0 1 1.051 -15.1 0 1 1.06 0.94;
+ 11 1 3.5 1.8 0 0 1 1.057 -14.79 0 1 1.06 0.94;
+ 12 1 6.1 1.6 0 0 1 1.055 -15.07 0 1 1.06 0.94;
+ 13 1 13.5 5.8 0 0 1 1.05 -15.16 0 1 1.06 0.94;
+ 14 1 14.9 5 0 0 1 1.036 -16.04 0 1 1.06 0.94;
+];
+mpc.gen = [
+ 1 232.4 -16.9 10 0 1.06 100 1 332.4 0;
+ 2 40 42.4 50 -40 1.045 100 1 140 0;
+ 3 0 23.4 40 0 1.01 100 1 100 0;
+ 6 0 12.2 24 -6 1.07 100 1 100 0;
+ 8 0 17.4 24 -6 1.09 100 1 100 0;
+];
+mpc.branch = [
+ 1 2 0.01938 0.05917 0.0528 0 0 0 0 0 1 -360 360;
+ 1 5 0.05403 0.22304 0.0492 0 0 0 0 0 1 -360 360;
+ 2 3 0.04699 0.19797 0.0438 0 0 0 0 0 1 -360 360;
+ 2 4 0.05811 0.17632 0.034 0 0 0 0 0 1 -360 360;
+ 2 5 0.05695 0.17388 0.0346 0 0 0 0 0 1 -360 360;
+ 3 4 0.06701 0.17103 0.0128 0 0 0 0 0 1 -360 360;
+ 4 5 0.01335 0.04211 0 0 0 0 0 0 1 -360 360;
+ 4 7 0 0.20912 0 0 0 0 0.978 0 1 -360 360;
+ 4 9 0 0.55618 0 0 0 0 0.969 0 1 -360 360;
+ 5 6 0 0.25202 0 0 0 0 0.932 0 1 -360 360;
+ 6 11 0.09498 0.1989 0 0 0 0 0 0 1 -360 360;
+ 6 12 0.12291 0.25581 0 0 0 0 0 0 1 -360 360;
+ 6 13 0.06615 0.13027 0 0 0 0 0 0 1 -360 360;
+ 7 8 0 0.17615 0 0 0 0 0 0 1 -360 360;
+ 7 9 0 0.11001 0 0 0 0 0 0 1 -360 360;
+ 9 10 0.03181 0.0845 0 0 0 0 0 0 1 -360 360;
+ 9 14 0.12711 0.27038 0 0 0 0 0 0 1 -360 360;
+ 10 11 0.08205 0.19207 0 0 0 0 0 0 1 -360 360;
+ 12 13 0.22092 0.19988 0 0 0 0 0 0 1 -360 360;
+ 13 14 0.17093 0.34802 0 0 0 0 0 0 1 -360 360;
+];
+"""
+
+
+def _scenarios(grid, K):
+    """(K, n) complex injections: the base case scaled per scenario, the
+    scales 1 + 0.05 RandomState(0).randn(K)."""
+    from csparse3_tpu_torch.models.powerflow import sbus
+
+    scale = 1 + 0.05 * np.random.RandomState(0).randn(K)
+    return sbus(grid)[None, :] * scale[:, None]
+
+
+def _host_mismatch_sb(grid, Y, vm, va, sb):
+    v = vm * np.exp(1j * va)
+    mis = v * np.conj(Y.to_scipy().tocsr() @ v) - sb
+    f = np.concatenate([mis.real[np.concatenate([grid.pv, grid.pq])],
+                        mis.imag[grid.pq]])
+    return float(np.abs(f).max())
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _study_line(name, seconds, scenarios, extra=""):
+    log(f"studies[{name}]: wall_s={seconds:.3f} scenarios={scenarios} "
+        f"scenarios_per_s={scenarios / seconds:.1f}" + extra)
+
+
+def _without_branch(grid, k):
+    keep = np.ones(grid.n_branch, dtype=bool)
+    keep[k] = False
+    return grid._replace(f=grid.f[keep], t=grid.t[keep], r=grid.r[keep],
+                         x=grid.x[keep], b=grid.b[keep],
+                         tap=np.asarray(grid.tap)[keep])
+
+
+def _dc_oracle(grid, k):
+    """Host DC flows of ``grid`` without branch ``k`` (scipy spsolve), or
+    None when the reduced B' is singular."""
+    import warnings
+
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from csparse3_tpu_torch.models.grids import SLACK
+
+    n = grid.n_bus
+    keep = np.flatnonzero(grid.bus_type != SLACK)
+    P = (grid.pg - grid.pd)[keep]
+    g2 = _without_branch(grid, k)
+    b = 1.0 / g2.x
+    B = sp.coo_matrix((np.concatenate([-b, -b, b, b]),
+                       (np.concatenate([g2.f, g2.t, g2.f, g2.t]),
+                        np.concatenate([g2.t, g2.f, g2.f, g2.t]))),
+                      shape=(n, n)).tocsc()[keep][:, keep].tocsc()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        th_r = spla.spsolve(B, P)
+    if not np.isfinite(th_r).all():
+        return None
+    th = np.zeros(n)
+    th[keep] = th_r
+    fl = (th[grid.f] - th[grid.t]) / grid.x
+    fl[k] = 0.0
+    return fl
+
+
+def _islands(grid, k):
+    """True when removing branch ``k`` cuts some bus off the slack (host,
+    scipy.sparse.csgraph)."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+
+    g2 = _without_branch(grid, k)
+    n = grid.n_bus
+    adj = sp.coo_matrix((np.ones(g2.n_branch), (g2.f, g2.t)), shape=(n, n))
+    _, labels = connected_components(adj, directed=False)
+    return bool((labels != labels[grid.slack[0]]).any())
+
+
+def _batch_library_ms(A, X, dtype, reps=50):
+    """Device ms of the one library call for the batched product: a
+    torch.sparse CSR matrix of ``dtype`` times the dense (n, K) X (for the
+    records; used nowhere in the port), by queued CUDA events (late in the
+    run torch.profiler drops records).  Returns (ms, its product)."""
+    lib = _csr_tensor(A, X.device, dtype)
+    Y = lib @ X
+    for _ in range(5):
+        lib @ X
+    return min(queued_ms(lambda: lib @ X, reps) for _ in range(2)), Y
+
+
+def _k1_batch_record(dev, pf, sb):
+    """K1 on the scenario axis at the batched Newton's shape: one launch for
+    the K scenarios' (2, K, n) x against the plain version on the same batch
+    and bit-equal to K one-vector launches; queued ms per launch and per
+    scenario beside the bound and the library call (a complex64 CSR matrix
+    times X (n, K))."""
+    import torch
+
+    plan = pf._yplan
+    K, n = sb.shape
+    rng = np.random.RandomState(1)
+    x2 = torch.as_tensor(rng.rand(2, K, n).astype(np.float32), device=dev)
+    y = torch.empty((2, K, n), dtype=torch.float32, device=dev)
+    before = plan.kernel_launches
+    plan._launch(x2, y)
+    torch.cuda.synchronize()
+    if plan.kernel_launches != before + 1:
+        raise AssertionError("K1 batch: not one launch for the batch")
+    yp = torch.stack(plan.plain(x2[0], x2[1]))
+    scale = float(yp.abs().max())
+    err = float((y - yp).abs().max())
+    single = all(torch.equal(torch.stack(plan(x2[0, k], x2[1, k])),
+                             y[:, k]) for k in range(K))
+    if err > SPMV_REL * scale or not single:
+        raise AssertionError(f"K1 batch: err {err} over {scale}, bit-equal "
+                             f"to single launches: {single}")
+
+    def kernel():
+        plan._launch(x2, y)
+
+    def plain():
+        plan.plain(x2[0], x2[1])
+
+    for _ in range(10):
+        kernel()
+    t = [queued_ms(plain, 50), queued_ms(kernel, 200),
+         queued_ms(kernel, 200), queued_ms(plain, 50)]
+    ms, plain_ms = min(t[1], t[2]), min(t[0], t[3])
+    ptr, col, val = plan._kernel_lists()
+    nbytes = sum(t_.numel() * t_.element_size() for t_ in (
+        plan.slabs, plan.offs_t, ptr, col, val, x2, y))
+    flops = 8 * K * (plan.slabs[0].count_nonzero().item() + col.numel())
+    Yh = pf.Y.to_scipy()
+    X = torch.complex(x2[0], x2[1]).T.contiguous()
+    lib_ms, yl = _batch_library_ms(Yh, X, np.complex64)
+    lerr = float(max((yl.real.T - y[0]).abs().max(),
+                     (yl.imag.T - y[1]).abs().max()))
+    if lerr > 4 * SPMV_REL * scale:
+        raise AssertionError(f"K1 batch: library product disagrees: {lerr}")
+    rec = dict(K=K, max_abs_err=err, ms=ms, ms_per_scenario=ms / K,
+               plain_ms=plain_ms, library_ms=lib_ms,
+               bit_equal_to_single_launches=single,
+               **bound_record(nbytes, flops))
+    log(f"studies: K1 batch (2, {K}, {n}) float32: one launch "
+        f"device_ms={ms:.6f} per_scenario_ms={ms / K:.6f} plain_ms="
+        f"{plain_ms:.6f} (queued; plain,kernel,kernel,plain = {t}) "
+        f"library_csr_c64_@X_ms={lib_ms:.6f} bytes={nbytes} bound_ms="
+        f"{rec['bound_ms']:.6f} ({rec['bound_by']}) rel_err_vs_plain="
+        f"{err / scale:.3e} bit_equal_to_{K}_single_launches={single}")
+    return rec
+
+
+def _k4_batch_record(dev, plan, Y, K):
+    """K4 on the scenario axis at the batched fast-decoupled shape (float64
+    symmetric form, the 10k RCM Ybus): one split-complex launch for x (K, n,
+    2) against the plain walk of the index on the same batch (row by row
+    within the rounding bound) and bit-equal to K one-vector launches."""
+    import scipy.sparse as sp
+    import torch
+
+    from csparse3_tpu_torch.kernels import dia as kdia
+
+    re, im = plan.re, plan.im
+    n = re.n
+    sym = re.symmetric
+    A = Y.to_scipy().tocsr()
+    if sym:
+        A = (sp.triu(A) + sp.triu(A, 1).T).tocsr()
+    kmax = int(np.diff(A.indptr).max())
+    x = torch.rand((K, n, 2), dtype=torch.float64, device=dev)
+    vals = (re.run_values, im.run_values)
+    before = dict(kdia.LAUNCHES)
+    y = kdia.dia_split_cuda(re.slabs, im.slabs, x, re.omin, sym, re.runs,
+                            vals)
+    torch.cuda.synchronize()
+    if any(kdia.LAUNCHES[k] != before[k] + 1 for k in before):
+        raise AssertionError("K4 batch: not one launch for the batch")
+    single = all(torch.equal(kdia.dia_split_cuda(
+        re.slabs, im.slabs, x[k], re.omin, sym, re.runs, vals), y[k])
+        for k in range(K))
+    pr, pi = plan.plain(x[..., 0], x[..., 1])
+    xa = x.abs().sum(-1).cpu().numpy()                  # (K, n)
+    bound = torch.as_tensor(2 * (kmax + 2) * 2.0 ** -53 * 1.01 * (
+        (abs(A.real) + abs(A.imag)) @ xa.T).T, device=dev)
+    tiny = torch.finfo(torch.float64).tiny
+    worst = max(float(((y[:, 0] - pr).abs() / (bound + tiny)).max()),
+                float(((y[:, 1] - pi).abs() / (bound + tiny)).max()))
+    err = float(max((y[:, 0] - pr).abs().max(), (y[:, 1] - pi).abs().max()))
+    if worst > 1 or not single:
+        raise AssertionError(f"K4 batch: worst row err over bound {worst}, "
+                             f"bit-equal to single launches: {single}")
+
+    def kernel():
+        kdia.dia_split_cuda(re.slabs, im.slabs, x, re.omin, sym, re.runs,
+                            vals)
+
+    def plain():
+        plan.plain(x[..., 0], x[..., 1])
+
+    for _ in range(10):
+        kernel()
+    t = [queued_ms(plain, 5), queued_ms(kernel, 200), queued_ms(kernel, 200),
+         queued_ms(plain, 5)]
+    ms, plain_ms = min(t[1], t[2]), min(t[0], t[3])
+    nbytes, listed, _ = run_route_bytes(plan, x, y)
+    nnz = sum(int(p.slabs.count_nonzero()) * 2 - int(
+        p.slabs[0].count_nonzero()) if sym else int(
+            p.slabs.count_nonzero()) for p in (re, im))
+    X = torch.complex(x[..., 0], x[..., 1]).T.contiguous()
+    lib_ms, yl = _batch_library_ms(A, X, np.complex128)
+    lerr = float(max((yl.real.T - y[:, 0]).abs().max(),
+                     (yl.imag.T - y[:, 1]).abs().max()))
+    if lerr > 1e-12 * float(y.abs().max()):
+        raise AssertionError(f"K4 batch: library product disagrees: {lerr}")
+    rec = dict(K=K, max_abs_err=err, ms=ms, ms_per_scenario=ms / K,
+               plain_ms=plain_ms, library_ms=lib_ms,
+               bit_equal_to_single_launches=single,
+               **bound_record(nbytes, 2 * 2 * nnz * K, F64_FLOP_PER_S))
+    log(f"studies: K4 batch x ({K}, {n}, 2) float64 symmetric form: one "
+        f"launch device_ms={ms:.6f} per_scenario_ms={ms / K:.6f} "
+        f"runs_plain_ms={plain_ms:.6f} (queued; plain,kernel,kernel,plain "
+        f"= {t}) library_csr_c128_@X_ms={lib_ms:.6f} bytes={nbytes} "
+        f"({listed} listed runs) bound_ms={rec['bound_ms']:.6f} "
+        f"({rec['bound_by']}) worst_row_err_over_bound={worst:.4f} "
+        f"bit_equal_to_{K}_single_launches={single}")
+    return rec
+
+
+def studies_phase(dev):
+    """The batched study path at 10k buses (synthetic_grid(10_000, seed=3),
+    22,263 branches).  Returns (K1 launches, K4 launches, K1 batch record,
+    K4 batch record); every check raises."""
+    import warnings
+
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from csparse3_tpu_torch import (ACContingency, DCContingency,
+                                    FastDecoupled, LinearContingency,
+                                    NewtonPowerFlow, parse_case,
+                                    short_circuit, zbus_columns)
+    from csparse3_tpu_torch.kernels import dia as kdia
+    from csparse3_tpu_torch.models.grids import (rcm_grid, synthetic_grid,
+                                                 ybus)
+    from csparse3_tpu_torch.models.powerflow import newton_raphson
+
+    t_phase = time.perf_counter()
+    g = synthetic_grid(N_SOLVE, seed=3)
+    n, m = g.n_bus, g.n_branch
+
+    # ---- (a) Newton 'bandpoints' / 'multifrontal', K load scenarios
+    K = N_SCEN_NEWTON
+    sb = _scenarios(g, K)
+    pf = NewtonPowerFlow(g, spmv="bandpoints", solver="multifrontal",
+                         tol=5e-5, device=dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pf.solve_batch(sb[:2])           # warm-up: first-use allocations
+        pf._yplan.kernel_launches = 0
+        (vm, va, it, res), secs = _timed(lambda: pf.solve_batch(sb))
+        k1_launches = pf._yplan.kernel_launches
+    if _gate_engaged(caught):
+        raise AssertionError("studies newton: the growth gate engaged")
+    vm_h, va_h, it_h = vm.cpu().numpy(), va.cpu().numpy(), it.cpu().numpy()
+    hm = [_host_mismatch_sb(g, pf.Y, vm_h[k], va_h[k], sb[k])
+          for k in range(K)]
+    diffs = []
+    for k in range(4):
+        vs, as_, its, rs, bad = pf.run(
+            torch.as_tensor(g.vm0, dtype=torch.float64, device=dev),
+            torch.zeros(n, dtype=torch.float64, device=dev),
+            torch.as_tensor(sb[k].real.copy(), device=dev),
+            torch.as_tensor(sb[k].imag.copy(), device=dev))
+        diffs.append(max(float((vs - vm[k]).abs().max()),
+                         float((as_ - va[k]).abs().max())))
+    _study_line("newton_multifrontal_bandpoints", secs, K,
+                f" iterations={sorted(set(it_h.tolist()))} max_residual="
+                f"{float(res.max()):.3e} max_host_f64_mismatch={max(hm):.3e} "
+                f"(bound {HOST_MISMATCH:.0e}) k1_launches={k1_launches} "
+                f"(mismatch evaluations {int(it_h.max()) + 1}) "
+                f"state_diff_vs_single_solves(4)={max(diffs):.3e}")
+    if max(hm) > HOST_MISMATCH or (res > pf.tol).any():
+        raise AssertionError("studies newton: a scenario did not converge")
+    if k1_launches != int(it_h.max()) + 1:
+        raise AssertionError(f"studies newton: {k1_launches} K1 launches "
+                             f"for {int(it_h.max()) + 1} batched mismatch "
+                             "evaluations")
+    if max(diffs) > STATE_ATOL:
+        raise AssertionError("studies newton: the batch disagrees with the "
+                             "single solves")
+    k1_rec = _k1_batch_record(dev, pf, sb)
+    k1_rec["launches"] = k1_launches
+    del pf, vm, va
+
+    # ---- (b) fast-decoupled 'symdia' / 'blocklu', K load scenarios
+    g_rcm = rcm_grid(g)[0]
+    K = N_SCEN_FDPF
+    sb = _scenarios(g_rcm, K)
+    fd = FastDecoupled(g_rcm, spmv="symdia", solver="blocklu", device=dev)
+    fd.solve_batch(sb[:2])
+    for key in kdia.LAUNCHES:
+        kdia.LAUNCHES[key] = 0
+    (vm, va, it), secs = _timed(lambda: fd.solve_batch(sb))
+    sbr, sbi = (torch.as_tensor(np.ascontiguousarray(p), device=dev)
+                for p in (sb.real, sb.imag))
+    res = fd.residual(vm, va, sbr, sbi)
+    k4_fdpf = kdia.LAUNCHES["dia_spmv"]
+    its = int(it.max())
+    worst = 0.0
+    for k in range(K):
+        v1, a1, i1 = fd.run(fd._vm0, torch.zeros_like(fd._vm0), sbr[k],
+                            sbi[k])
+        if i1 != int(it[k]):
+            raise AssertionError(f"studies fdpf: scenario {k} took {i1} "
+                                 f"iterations alone, {int(it[k])} batched")
+        worst = max(worst, float((v1 - vm[k]).abs().max()),
+                    float((a1 - va[k]).abs().max()))
+    _study_line("fdpf_symdia_blocklu", secs, K,
+                f" iterations={sorted(set(it.tolist()))} max_residual="
+                f"{float(res.max()):.3e} k4_launches={k4_fdpf} (3 it + 2 = "
+                f"{3 * its + 2}, with the batch's residual check) "
+                f"max_state_diff_vs_{K}_single_solves={worst:.3e} (bound "
+                f"{FDPF_BATCH_ATOL:.0e})")
+    if (res > fd.tol).any() or worst > FDPF_BATCH_ATOL:
+        raise AssertionError("studies fdpf: the batch did not converge or "
+                             "disagrees with the single solves")
+    if k4_fdpf != 3 * its + 2:
+        raise AssertionError(f"studies fdpf: {k4_fdpf} K4 launches, not "
+                             f"3 it + 2 = {3 * its + 2}")
+    k4_rec = _k4_batch_record(dev, fd._yplan, fd.Y, K)
+    del fd, vm, va
+
+    # ---- (b') Newton 'dia' / 'blocklu', K load scenarios
+    K = N_SCEN_BLOCKLU
+    sb = sb[:K]
+    pf = NewtonPowerFlow(g_rcm, spmv="dia", solver="blocklu", device=dev)
+    pf.solve_batch(sb[:2])
+    for key in kdia.LAUNCHES:
+        kdia.LAUNCHES[key] = 0
+    (vm, va, it, res), secs = _timed(lambda: pf.solve_batch(sb))
+    k4_newton = kdia.LAUNCHES["dia_spmv"]
+    vm_h, va_h = vm.cpu().numpy(), va.cpu().numpy()
+    hm = max(_host_mismatch_sb(g_rcm, pf.Y, vm_h[k], va_h[k], sb[k])
+             for k in range(K))
+    vs, as_, its1, _, _ = pf.run(
+        torch.as_tensor(g_rcm.vm0, dtype=torch.float64, device=dev),
+        torch.zeros(n, dtype=torch.float64, device=dev),
+        torch.as_tensor(sb[0].real.copy(), device=dev),
+        torch.as_tensor(sb[0].imag.copy(), device=dev))
+    diff = max(float((vs - vm[0]).abs().max()),
+               float((as_ - va[0]).abs().max()))
+    _study_line("newton_dia_blocklu", secs, K,
+                f" iterations={sorted(set(it.tolist()))} "
+                f"max_host_f64_mismatch={hm:.3e} (bound "
+                f"{DIA_HOST_MISMATCH:.0e}) k4_launches={k4_newton} "
+                f"(mismatch evaluations {int(it.max()) + 1}) "
+                f"state_diff_vs_single_solve={diff:.3e}")
+    if hm > DIA_HOST_MISMATCH or diff > DIA_STATE_ATOL or its1 != int(it[0]):
+        raise AssertionError("studies newton blocklu: the batch disagrees")
+    if k4_newton != int(it.max()) + 1:
+        raise AssertionError(f"studies newton blocklu: {k4_newton} K4 "
+                             "launches")
+    k4_rec["launches"] = k4_fdpf + k4_newton
+    del pf, vm, va
+
+    # ---- (c) DC contingency over every branch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dc = DCContingency(g, device=dev)
+    rp = dc._rp
+    # a scenario's working set: its fronts, its factors through the
+    # refactorization and the retargeted solve plans, and its vectors
+    per = 8 * (getattr(rp, "front_floats", 0) + 6 * (rp.lnz + rp.unz)
+               + 4 * n + 3 * m)
+    batch = int(max(1, min(m, STUDY_BYTES // per)))
+    t_build = time.perf_counter() - t0
+    dc.run(np.arange(2))
+    (fl, th, ok), secs = _timed(lambda: dc.run(batch=batch))
+    ok_h = ok.cpu().numpy()
+    sample = np.random.RandomState(0).choice(m, N_SAMPLED, replace=False)
+    worst = 0.0
+    for k in sample:
+        ref = _dc_oracle(g, k)
+        if ref is None:
+            continue
+        if ok_h[k]:
+            worst = max(worst, float(np.abs(fl[k].cpu().numpy() - ref).max()
+                                     / max(np.abs(ref).max(), 1e-300)))
+    flagged = np.flatnonzero(~ok_h)
+    check = np.union1d(sample, flagged)
+    islands = np.array([_islands(g, k) for k in check])
+    ok_match = bool((ok_h[check] == ~islands).all())
+    _study_line("dc_contingency", secs, m,
+                f" batch={batch} plan={type(rp).__name__} build_s="
+                f"{t_build:.3f} front_floats="
+                f"{getattr(rp, 'front_floats', 0)} lnz={rp.lnz} "
+                f"solve_levels=({rp._ltpl.nlevels}, {rp._utpl.nlevels}) "
+                f"peak_device_GB="
+                f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} "
+                f"islanding_outages={len(flagged)} "
+                f"max_rel_flow_err_vs_spsolve({N_SAMPLED} sampled)="
+                f"{worst:.3e} (bound {DC_FLOW_RTOL:.0e}) ok_equals_host_"
+                f"islanding({len(check)} outages: the sample and every "
+                f"flagged one)={ok_match}")
+    if worst > DC_FLOW_RTOL or not ok_match:
+        raise AssertionError("studies dc contingency disagrees with the "
+                             "host")
+
+    # ---- (d) LODF screening of every branch, against (c)
+    def screen():
+        lc = LinearContingency(g, device=dev)
+        return lc, lc.run()
+
+    (lc, (fl_l, ok_l)), secs = _timed(screen)
+    both = (ok_l & ok).cpu().numpy()
+    same_ok = bool(torch.equal(ok_l, ok))
+    worst = 0.0
+    for s in range(0, m, 2048):
+        e = min(s + 2048, m)
+        sel = torch.as_tensor(both[s:e], device=dev)
+        d = (fl_l[s:e] - fl[s:e]).abs().amax(1)
+        scale = fl[s:e].abs().amax(1).clamp_min(1e-300)
+        if sel.any():
+            worst = max(worst, float((d / scale)[sel].max()))
+    _study_line("linear_contingency", secs, m,
+                f" (ptdf {tuple(lc.H.shape)} + lodf + screening) "
+                f"max_rel_flow_diff_vs_dc_contingency={worst:.3e} (bound "
+                f"{DC_FLOW_RTOL:.0e}) ok_equal={same_ok}")
+    if worst > DC_FLOW_RTOL or not same_ok:
+        raise AssertionError("studies: LODF screening disagrees with the "
+                             "DC contingency")
+    del dc, fl, th, lc, fl_l
+
+    # ---- (e) AC contingency, 'multifrontal'
+    ks = np.random.RandomState(0).choice(m, N_AC_OUTAGES, replace=False)
+    ac = ACContingency(g, solver="multifrontal", device=dev)
+    ac.run(ks[:2])
+    (vm, va, it, ok), secs = _timed(lambda: ac.run(ks, batch=AC_BATCH))
+    ok_h = ok.cpu().numpy()
+    worst, agree = 0.0, True
+    for i in range(4):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                vr, ar, _, rr = newton_raphson(_without_branch(g, ks[i]),
+                                               tol=1e-8, device="cpu")
+                conv = bool(rr < 1e-8)
+            except (RuntimeError, ValueError, np.linalg.LinAlgError):
+                conv = False
+        agree &= conv == bool(ok_h[i])
+        if conv and ok_h[i]:
+            worst = max(worst, float(np.abs(vm[i].cpu().numpy() - vr).max()),
+                        float(np.abs(va[i].cpu().numpy() - ar).max()))
+    _study_line("ac_contingency_multifrontal", secs, len(ks),
+                f" batch={AC_BATCH} converged={int(ok_h.sum())} "
+                f"iterations={sorted(set(it.tolist()))} "
+                f"state_diff_vs_host_newton(4)={worst:.3e} (bound "
+                f"{AC_STATE_ATOL:.0e}) ok_equal={agree}")
+    if not agree or worst > AC_STATE_ATOL:
+        raise AssertionError("studies ac contingency disagrees with the "
+                             "host Newton")
+    del ac, vm, va
+
+    # ---- (f) short circuit at every bus
+    sc, secs = _timed(lambda: short_circuit(g, device=dev))
+    Y = ybus(g)[0]
+    b16 = np.random.RandomState(0).choice(n, 16, replace=False)
+    Z = zbus_columns(Y, b16, device=dev).cpu().numpy()
+    lu = spla.splu(Y.to_scipy().tocsc().astype(np.complex128))
+    E = np.zeros((n, 16), dtype=np.complex128)
+    E[b16, np.arange(16)] = 1
+    Zs = lu.solve(E)
+    zerr = float(np.abs(Z - Zs).max() / np.abs(Zs).max())
+    ifs = sc.ifault[torch.as_tensor(b16, device=dev)].cpu().numpy()
+    ierr = float(np.abs(ifs - 1 / Zs[b16, np.arange(16)]).max()
+                 / np.abs(ifs).max())
+    _study_line("short_circuit", secs, n,
+                f" ok={int(sc.ok.sum())} z_columns(16)_rel_err_vs_scipy_splu"
+                f"={zerr:.3e} ifault_rel_err={ierr:.3e} (bound "
+                f"{Z_RTOL:.0e}) iflow={tuple(sc.iflow.shape)}")
+    if zerr > Z_RTOL or ierr > Z_RTOL or not bool(sc.ok.all()):
+        raise AssertionError("studies short circuit disagrees with scipy")
+    del sc
+
+    # ---- (g) MATPOWER text through Newton
+    gp = parse_case(CASE14_TEXT)
+    vm, va, it, res = NewtonPowerFlow(gp, device=dev).solve()
+    hm = host_mismatch(gp, ybus(gp)[0], vm, va)
+    log(f"studies[matpower]: parse_case(IEEE-14 text) buses={gp.n_bus} "
+        f"branches={gp.n_branch} newton iterations={it} residual={res:.3e} "
+        f"host_f64_mismatch={hm:.3e}")
+    if hm > 1e-8:
+        raise AssertionError("studies matpower: Newton on the parsed case")
+    log(f"studies: phase seconds {time.perf_counter() - t_phase:.1f}")
+    return k1_launches, k4_fdpf + k4_newton, k1_rec, k4_rec
+
+
 def main():
     import torch
 
@@ -2085,6 +2686,8 @@ def main():
         dia_launches, band, band_ctx = banded_phase(dev, ell_state)
         blocklu_launches, _ = blocklu_phase(dev, band_ctx, ell_state)
         newton_case("ieee14", ieee14(), dev)
+        k1_batch_launches, k4_batch_launches, k1_batch, k4_batch = \
+            studies_phase(dev)
         # last: these phases time with CUDA events alone, so torch.profiler
         # dropping records late in a long process costs them nothing
         spg_launches, spg = spgemm_phase(dev)
@@ -2110,6 +2713,12 @@ def main():
                     "csparse3_tpu/kernels/bandpoints.py:546", launches,
                     k["default"]),
              cold_l2_ms=k["default"]["cold_l2_ms"],
+             # the scenario axis: one launch for the K = 32 load scenarios'
+             # x (2, K, n) at 10k buses, the batched Newton's shape; its
+             # launches are those of the timed solve_batch (one per batched
+             # mismatch evaluation); library_ms is the complex64 CSR matrix
+             # times X (n, K)
+             batch=k1_batch,
              points_groups=dict(
                  replaces="csparse3_tpu/kernels/bandpoints.py:266",
                  **{key: k["groups"][key] for key in (
@@ -2140,6 +2749,13 @@ def main():
                  "nonzero_bound_ms", "dense_bound_ms", "listed_runs",
                  "index_bytes")},
              symmetric_form=band["symdia"],
+             # the scenario axis: one split-complex launch for K = 256 load
+             # scenarios' x (K, n, 2), float64 symmetric form on the 10k RCM
+             # Ybus (the batched fast-decoupled shape); its launches are
+             # those of the timed FastDecoupled and Newton 'blocklu'
+             # solve_batch calls; library_ms is the complex128 CSR matrix
+             # times X (n, K)
+             batch=k4_batch,
              # per SplitDIA / SplitSymDIA call (1 launch) on the 200k-bus
              # RCM Ybus, float32; the library call is the complex64 CSR
              # product; two_launches_ms is one launch per slab set

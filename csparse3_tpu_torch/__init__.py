@@ -18,7 +18,13 @@ solvers (``BandedLU``, ``BandedRefactor``, ``BandedSolvePlan``),
 product path: CSC ``+ - *`` and ``@``, ``spgemm`` / ``gram`` with their
 symbolic plans and the CUDA numeric kernel, the device ESC product, the
 ``BSR`` container with its block operations, and ``spmm`` / ``bsr_spmm``
-with the CUDA block kernel.
+with the CUDA block kernel; and the batched study path:
+``NewtonPowerFlow.solve_batch`` / ``FastDecoupled.solve_batch`` on a
+scenario axis (the Ybus SpMV kernels take a (K, n) batch in one launch;
+the level, multifrontal and banded refactorizations and solves take
+(K, nnz) values), ``DCContingency`` / ``ACContingency``, ``ptdf`` /
+``lodf`` / ``LinearContingency``, ``short_circuit`` / ``zbus_columns`` and
+the MATPOWER reader (``parse_case``, ``load_case``).
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (``config.default_device``).
@@ -113,12 +119,22 @@ from .linalg import (  # noqa: F401
 )
 from . import linalg, models, utils  # noqa: F401
 from .models import (  # noqa: F401
+    ACContingency,
+    DCContingency,
     FastDecoupled,
+    LinearContingency,
     NewtonPowerFlow,
+    SCResult,
     dc_power_flow,
+    load_case,
+    lodf,
     newton_raphson,
+    parse_case,
+    ptdf,
     rcm_grid,
     reorder_grid,
+    short_circuit,
+    zbus_columns,
 )
 from .utils.interop import (  # noqa: F401
     banded_from_stacks,

@@ -260,6 +260,12 @@ struct alignas(2 * sizeof(T)) Pair {
 // four partial sums are kept apart and combined at the end, as
 // two launches of dia_runs_kernel on the stacked input combine theirs, with
 // one walk of the index and one read of x in place of two.
+//
+// A batch of K vectors (the scenario axis of the batched power-flow studies)
+// is one launch with grid.y = K: x is (K, n, 2) and y (K, 2, m), the index
+// and the packed run values shared.  Scenario k's threads make the sums of
+// the one-vector launch in the same order, so each row of the batch has the
+// bits of its own launch and K = 1 is that launch.
 template <typename T, int P, bool SYM>
 __global__ void dia_runs_split_kernel(int m, int n, int omin, int ngroups,
                                       RunIndex index,
@@ -275,6 +281,8 @@ __global__ void dia_runs_split_kernel(int m, int n, int omin, int ngroups,
   const int* __restrict__ mir_diag = index.mir_diag;
   constexpr int S = kRunRows;
   static_assert(S * P <= 32, "a group's lane-sets must fit one warp");
+  x += static_cast<size_t>(blockIdx.y) * n;
+  y += static_cast<size_t>(blockIdx.y) * 2 * m;
   const long long t =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = static_cast<int>(t % S);
@@ -409,16 +417,16 @@ int launch_runs(int symmetric, int m, int n, int omin, int B, int ngroups,
                                       v, xv, yv, st);
 }
 
-// Two slab sets, x (n, 2).  vals: the packed values of re's and im's forward
-// runs, then of their mirror runs.
+// Two slab sets, x (K, n, 2).  vals: the packed values of re's and im's
+// forward runs, then of their mirror runs.
 template <typename T, int P>
-int launch_split_p(int symmetric, int m, int n, int omin, int ngroups,
+int launch_split_p(int symmetric, int m, int n, int omin, int ngroups, int K,
                    RunIndex index, const T* const* vals, const Pair<T>* x,
                    T* y, cudaStream_t stream) {
   if constexpr (kRunRows * P > 32) {
     return -1;
   } else {
-    const int grid = run_grid<P>(ngroups);
+    const dim3 grid(run_grid<P>(ngroups), K);
     if (symmetric)
       dia_runs_split_kernel<T, P, true><<<grid, kTile, 0, stream>>>(
           m, n, omin, ngroups, index, vals[0], vals[1], vals[2], vals[3], x,
@@ -431,8 +439,10 @@ int launch_split_p(int symmetric, int m, int n, int omin, int ngroups,
   }
 }
 
+// The lane-sets per group stay those of one vector (run_parts(m)) whatever
+// K is: a row of the batch must have the bits of its own launch.
 template <typename T>
-int launch_split(int symmetric, int m, int n, int omin, int ngroups,
+int launch_split(int symmetric, int m, int n, int omin, int ngroups, int K,
                  RunIndex index, const void* const* vals, const void* x,
                  void* y, cudaStream_t st) {
   const T* v[4];
@@ -441,17 +451,17 @@ int launch_split(int symmetric, int m, int n, int omin, int ngroups,
   T* yv = static_cast<T*>(y);
   switch (run_parts(m)) {
     case 1:
-      return launch_split_p<T, 1>(symmetric, m, n, omin, ngroups, index, v,
-                                  xv, yv, st);
+      return launch_split_p<T, 1>(symmetric, m, n, omin, ngroups, K, index,
+                                  v, xv, yv, st);
     case 2:
-      return launch_split_p<T, 2>(symmetric, m, n, omin, ngroups, index, v,
-                                  xv, yv, st);
+      return launch_split_p<T, 2>(symmetric, m, n, omin, ngroups, K, index,
+                                  v, xv, yv, st);
     case 4:
-      return launch_split_p<T, 4>(symmetric, m, n, omin, ngroups, index, v,
-                                  xv, yv, st);
+      return launch_split_p<T, 4>(symmetric, m, n, omin, ngroups, K, index,
+                                  v, xv, yv, st);
     case 8:
-      return launch_split_p<T, 8>(symmetric, m, n, omin, ngroups, index, v,
-                                  xv, yv, st);
+      return launch_split_p<T, 8>(symmetric, m, n, omin, ngroups, K, index,
+                                  v, xv, yv, st);
     default:
       return -1;
   }
@@ -533,10 +543,37 @@ int dia_spmv_runs(int itemsize, int symmetric, int m, int n, int omin, int B,
 }
 
 // The split-complex product through one occupancy index shared by the two
-// slab sets re and im of one complex matrix: x is (n, 2), xr and xi of a
-// column side by side, on a boundary of 2 * itemsize bytes; y is (2, m), yr
-// then yi.  re_vals / im_vals are the packed values of the two sets' forward
-// runs, re_mir / im_mir of their mirror runs (symmetric form; else not read).
+// slab sets re and im of one complex matrix, for K vectors in one launch: x
+// is (K, n, 2), xr and xi of a column side by side, on a boundary of
+// 2 * itemsize bytes; y is (K, 2, m), yr then yi of each vector.  re_vals /
+// im_vals are the packed values of the two sets' forward runs, re_mir /
+// im_mir of their mirror runs (symmetric form; else not read).
+int dia_spmv_runs_split_batched(int itemsize, int symmetric, int m, int n,
+                                int omin, int run_rows, int ngroups, int K,
+                                const void* run_ptr, const void* run_diag,
+                                const void* mir_ptr, const void* mir_diag,
+                                const void* re_vals, const void* im_vals,
+                                const void* re_mir, const void* im_mir,
+                                const void* x, void* y, void* stream) {
+  if ((itemsize != 4 && itemsize != 8) || m < 0 ||
+      (symmetric && (n != m || omin != 0)) || run_rows != kRunRows ||
+      ngroups != (m + kRunRows - 1) / kRunRows || K < 0 || K > 65535 ||
+      reinterpret_cast<size_t>(x) % (2 * itemsize) != 0)
+    return -1;
+  if (m == 0 || K == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const RunIndex index = {
+      static_cast<const int*>(run_ptr), static_cast<const int*>(run_diag),
+      static_cast<const int*>(mir_ptr), static_cast<const int*>(mir_diag)};
+  const void* vals[4] = {re_vals, im_vals, re_mir, im_mir};
+  return itemsize == 4
+             ? launch_split<float>(symmetric, m, n, omin, ngroups, K, index,
+                                   vals, x, y, st)
+             : launch_split<double>(symmetric, m, n, omin, ngroups, K, index,
+                                    vals, x, y, st);
+}
+
+// One vector, x (n, 2) and y (2, m): the batched launch with K = 1.
 int dia_spmv_runs_split(int itemsize, int symmetric, int m, int n, int omin,
                         int run_rows, int ngroups, const void* run_ptr,
                         const void* run_diag, const void* mir_ptr,
@@ -544,22 +581,10 @@ int dia_spmv_runs_split(int itemsize, int symmetric, int m, int n, int omin,
                         const void* im_vals, const void* re_mir,
                         const void* im_mir, const void* x, void* y,
                         void* stream) {
-  if ((itemsize != 4 && itemsize != 8) || m < 0 ||
-      (symmetric && (n != m || omin != 0)) || run_rows != kRunRows ||
-      ngroups != (m + kRunRows - 1) / kRunRows ||
-      reinterpret_cast<size_t>(x) % (2 * itemsize) != 0)
-    return -1;
-  if (m == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const RunIndex index = {
-      static_cast<const int*>(run_ptr), static_cast<const int*>(run_diag),
-      static_cast<const int*>(mir_ptr), static_cast<const int*>(mir_diag)};
-  const void* vals[4] = {re_vals, im_vals, re_mir, im_mir};
-  return itemsize == 4
-             ? launch_split<float>(symmetric, m, n, omin, ngroups, index,
-                                   vals, x, y, st)
-             : launch_split<double>(symmetric, m, n, omin, ngroups, index,
-                                    vals, x, y, st);
+  return dia_spmv_runs_split_batched(itemsize, symmetric, m, n, omin,
+                                     run_rows, ngroups, 1, run_ptr, run_diag,
+                                     mir_ptr, mir_diag, re_vals, im_vals,
+                                     re_mir, im_mir, x, y, stream);
 }
 
 const char* dia_spmv_error_string(int code) {

@@ -48,13 +48,13 @@ __all__ = ["OffsetsPlan", "SplitBandPoints", "split_offsets",
 
 
 def _shifted(x2, offs, m):
-    """Windows x2[:, i + o] for i < m, zero outside [0, n): a (B, n) input
-    gives one (B, m) tensor per offset."""
-    n = x2.shape[1]
+    """Windows x2[..., i + o] for i < m, zero outside [0, n): a (..., n)
+    input gives one (..., m) tensor per offset."""
+    n = x2.shape[-1]
     P = max(0, -min(offs))
     Q = max(0, max(offs) + m - n)
     xp = F.pad(x2, (P, Q))
-    return [xp[:, P + o: P + o + m] for o in offs]
+    return [xp[..., P + o: P + o + m] for o in offs]
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +139,10 @@ def load_cuda_library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.bandpoints_spmv.restype = ci
     lib.bandpoints_spmv.argtypes = [ci, ci, ci] + [vp] * 11 + [ci, vp]
+    ll = ctypes.c_longlong
+    lib.bandpoints_spmv_batched.restype = ci
+    lib.bandpoints_spmv_batched.argtypes = ([ci, ci, ci] + [vp] * 11
+                                            + [ci, ll, ll, ci, vp])
     lib.bandpoints_error_string.restype = ctypes.c_char_p
     lib.bandpoints_error_string.argtypes = [ci]
     return lib
@@ -151,7 +155,9 @@ class SplitBandPoints(nn.Module):
     complex (or real) square CSC and placed on ``device`` (None: the CUDA
     card, ``config.default_device()``).  On a CUDA device every matvec
     launches the CUDA kernel once and counts it in ``kernel_launches``; on
-    the CPU it runs ``plain``.
+    the CPU it runs ``plain``.  Parts of shape (K, n), one vector per
+    scenario, are one product too: one launch for the batch (the kernel's
+    grid has a scenario axis), each row the bits of its own launch.
 
     ``group_span`` partitions the points into ``n_groups`` offset groups
     spanning that many diagonals each, as in the JAX package.  ``plain``
@@ -250,19 +256,22 @@ class SplitBandPoints(nn.Module):
         return tuple(getattr(self, f"{pre}_{k}") for k in ("ptr", "col", "val"))
 
     def _x2(self, xr, xi):
-        # (2, n) float32: the kernel's input dtype, as bandpoints.py casts
+        # (2, n) or (2, K, n) float32: the kernel's input dtype, as
+        # bandpoints.py casts
         return torch.stack([xr.to(torch.float32), xi.to(torch.float32)])
 
     @torch.inference_mode()
     def plain(self, xr, xi):
-        """The plain PyTorch version of the kernel, on any device."""
+        """The plain PyTorch version of the kernel, on any device; parts
+        (n,) or (K, n)."""
         x2 = self._x2(xr, xi)
-        y = torch.zeros((2, self.m), dtype=torch.float32, device=x2.device)
+        y = torch.zeros(x2.shape[:-1] + (self.m,), dtype=torch.float32,
+                        device=x2.device)
         for g in range(self.n_groups):
             _, col, row, val = self._group(g)
-            xc = x2.index_select(1, col)
-            y[0].index_add_(0, row, val[0] * xc[0] - val[1] * xc[1])
-            y[1].index_add_(0, row, val[0] * xc[1] + val[1] * xc[0])
+            xc = x2.index_select(-1, col)
+            y[0].index_add_(-1, row, val[0] * xc[0] - val[1] * xc[1])
+            y[1].index_add_(-1, row, val[0] * xc[1] + val[1] * xc[0])
         if self.offs:
             for k, w in enumerate(_shifted(x2, self.offs, self.m)):
                 sr, si = self.slabs[0, k], self.slabs[1, k]
@@ -278,37 +287,45 @@ class SplitBandPoints(nn.Module):
 
     @torch.inference_mode()
     def cuda_kernel(self, xr, xi):
-        """The CUDA kernel, one launch; raises for input that is not on
-        this plan's CUDA device."""
+        """The CUDA kernel, one launch for parts (n,) or a batch (K, n);
+        raises for input that is not on this plan's CUDA device."""
         dev = self.slabs.device
         if dev.type != "cuda" or xr.device != dev or xi.device != dev:
             raise ValueError(
                 f"SplitBandPoints.cuda_kernel needs x on the plan's CUDA "
                 f"device; plan on {dev}, x on {xr.device} / {xi.device}")
-        if xr.shape != (self.n,) or xi.shape != (self.n,):
-            raise ValueError(f"x parts must have shape ({self.n},), got "
-                             f"{tuple(xr.shape)} / {tuple(xi.shape)}")
-        y = torch.empty((2, self.m), dtype=torch.float32, device=dev)
-        self._launch(self._x2(xr, xi).contiguous(), y)
+        if xr.shape != xi.shape or xr.ndim not in (1, 2) \
+                or xr.shape[-1] != self.n:
+            raise ValueError(f"x parts must have shape ({self.n},) or (K, "
+                             f"{self.n}), got {tuple(xr.shape)} / "
+                             f"{tuple(xi.shape)}")
+        x2 = self._x2(xr, xi).contiguous()
+        y = torch.empty(x2.shape[:-1] + (self.m,), dtype=torch.float32,
+                        device=dev)
+        self._launch(x2, y)
         return y[0], y[1]
 
     def _launch(self, x2, y):
-        """One launch of the kernel on the plan's device: y (2, m) = A x
-        for x2 (2, n), both contiguous float32 (re, im) rows there."""
+        """One launch of the kernel on the plan's device: y (2, [K,] m) =
+        A x for x2 (2, [K,] n), both contiguous float32, the real parts
+        first; a batch of K vectors rides the grid's scenario axis."""
         lib = load_cuda_library()
         ptr, col, val = self._kernel_lists()
         nnz = col.numel()
         D = len(self.offs)
+        K = x2.shape[1] if x2.ndim == 3 else 1
+        if K == 0:
+            return
         slab_re = self.slabs.data_ptr()
         slab_im = slab_re + D * self.m * 4
         dev = self.slabs.device
         with torch.cuda.device(dev):
-            err = lib.bandpoints_spmv(
+            err = lib.bandpoints_spmv_batched(
                 self.m, self.n, D, self.offs_t.data_ptr(), slab_re, slab_im,
                 ptr.data_ptr(), col.data_ptr(), val.data_ptr(),
                 val.data_ptr() + nnz * 4, x2.data_ptr(),
-                x2.data_ptr() + self.n * 4, y.data_ptr(),
-                y.data_ptr() + self.m * 4, self.tile,
+                x2.data_ptr() + K * self.n * 4, y.data_ptr(),
+                y.data_ptr() + K * self.m * 4, K, self.n, self.m, self.tile,
                 torch.cuda.current_stream(dev).cuda_stream)
         if err:
             raise RuntimeError("bandpoints_spmv launch failed: "

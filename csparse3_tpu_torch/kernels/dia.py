@@ -114,6 +114,8 @@ def load_cuda_library():
     lib.dia_spmv_runs.argtypes = [ci] * 8 + [vp] * 9
     lib.dia_spmv_runs_split.restype = ci
     lib.dia_spmv_runs_split.argtypes = [ci] * 7 + [vp] * 11
+    lib.dia_spmv_runs_split_batched.restype = ci
+    lib.dia_spmv_runs_split_batched.argtypes = [ci] * 8 + [vp] * 11
     lib.dia_spmv_error_string.restype = ctypes.c_char_p
     lib.dia_spmv_error_string.argtypes = [ci]
     return lib
@@ -361,22 +363,27 @@ def dia_split_cuda(re, im, xn2, omin: int, symmetric: bool, runs, vals):
     part of a column side by side; all on one CUDA device, float32 or
     float64.  The kernel streams ``vals`` and reads nothing of the slabs.
     One launch, in place of ``split_complex_apply`` over two launches of
-    ``dia_spmv_cuda`` with this index: the same sums in the same order."""
+    ``dia_spmv_cuda`` with this index: the same sums in the same order.
+
+    x (K, n, 2), one vector per scenario, gives y (K, 2, m) in the same one
+    launch (a scenario axis of the kernel's grid, the index and the run
+    values shared), each row the bits of its own launch."""
     if len(vals) != 2 or len(vals[0]) != len(vals[1]) or any(
             a.shape != b.shape or a.dtype != b.dtype for a, b in zip(*vals)):
         raise ValueError("the packed run values of re and of im must be "
                          "alike: one index serves both slab sets")
-    _check(re, xn2.T, omin, symmetric, runs, vals[0])
+    if xn2.ndim not in (2, 3) or xn2.shape[-1] != 2 or re.shape != im.shape:
+        raise ValueError(f"re and im must be (D, m) alike and x (n, 2) or "
+                         f"(K, n, 2); got {tuple(re.shape)}, "
+                         f"{tuple(im.shape)} and {tuple(xn2.shape)}")
+    _check(re, xn2[..., 0].reshape(-1, xn2.shape[-2]), omin, symmetric,
+           runs, vals[0])
     dev = re.device
     tensors = (re, im, xn2) + tuple(runs) + tuple(t for v in vals for t in v)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("dia_split_cuda needs both slab sets, x and the "
                          "index on one CUDA device; got "
                          + ", ".join(str(t.device) for t in tensors))
-    if re.shape != im.shape or xn2.shape[1] != 2:
-        raise ValueError(f"re and im must be (D, m) alike and x (n, 2); got "
-                         f"{tuple(re.shape)}, {tuple(im.shape)} and "
-                         f"{tuple(xn2.shape)}")
     if re.dtype not in _DTYPES or im.dtype != re.dtype \
             or xn2.dtype != re.dtype:
         raise TypeError("dia_split_cuda takes float32 or float64 slab sets "
@@ -387,17 +394,20 @@ def dia_split_cuda(re, im, xn2, omin: int, symmetric: bool, runs, vals):
     size = re.element_size()
     if x.data_ptr() % (2 * size):  # a view that starts between two pairs
         x = x.clone()
-    m, n = re.shape[1], x.shape[0]
+    m, n = re.shape[1], x.shape[-2]
+    K = x.shape[0] if x.ndim == 3 else 1
     runs = [t.contiguous() for t in runs]
     index = [t.data_ptr() for t in runs] + [None] * (4 - len(runs))
     # re's and im's forward values, then their mirror values
     vals = [[t.contiguous() for t in v] for v in vals]
     index += [v[k].data_ptr() if k < len(v) else None
               for k in range(2) for v in vals]
-    y = torch.empty((2, m), dtype=re.dtype, device=dev)
+    y = torch.empty(x.shape[:-2] + (2, m), dtype=re.dtype, device=dev)
+    if K == 0:
+        return y
     with torch.cuda.device(dev):
-        err = lib.dia_spmv_runs_split(
-            size, int(symmetric), m, n, omin, RUN_ROWS, -(-m // RUN_ROWS),
+        err = lib.dia_spmv_runs_split_batched(
+            size, int(symmetric), m, n, omin, RUN_ROWS, -(-m // RUN_ROWS), K,
             *index, x.data_ptr(), y.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
@@ -410,17 +420,18 @@ def dia_split_cuda(re, im, xn2, omin: int, symmetric: bool, runs, vals):
 
 def split_band_spmv(re, im, xr, xi, omin: int, symmetric: bool, runs, vals):
     """(yr, yi) of the complex band ``re + 1j*im`` (two (D, m) slab sets
-    with one occupancy index) times ``xr + 1j*xi``: on CPU tensors the plain
-    walk of the index over each set, on CUDA tensors one launch of the
-    split-complex kernel on the two sets' packed run values ``vals``."""
+    with one occupancy index) times ``xr + 1j*xi``, parts (n,) or a batch
+    (K, n): on CPU tensors the plain walk of the index over each set, on
+    CUDA tensors one launch of the split-complex kernel on the two sets'
+    packed run values ``vals``, whatever K is."""
     if re.device.type == "cpu" and xr.device.type == "cpu":
         return split_complex_apply(
             *(functools.partial(dia_spmv_runs_plain, s, omin=omin,
                                 symmetric=symmetric, runs=runs)
               for s in (re, im)), xr, xi)
-    y = dia_split_cuda(re, im, torch.stack([xr, xi], dim=1), omin, symmetric,
-                       runs, vals)
-    return y[0], y[1]
+    y = dia_split_cuda(re, im, torch.stack([xr, xi], dim=-1), omin,
+                       symmetric, runs, vals)
+    return y[..., 0, :], y[..., 1, :]
 
 
 def band_spmv(slabs, xbm, omin: int, symmetric: bool = False, runs=None,
@@ -440,13 +451,20 @@ def band_spmv(slabs, xbm, omin: int, symmetric: bool = False, runs=None,
 def split_complex_apply(re, im, xr, xi):
     """(yr, yi) of a complex matrix held as two real operators ``re`` /
     ``im`` (``im`` None for a real matrix), each mapping (B, n) to (B, m),
-    for (n,) vectors xr, xi.  Each operator is applied ONCE, to the stacked
-    (2, n) input: separate products would stream every diagonal twice."""
+    for (n,) vectors xr, xi, or (K, n) batches of them.  Each operator is
+    applied ONCE, to the stacked (2, n) or (2K, n) input: separate products
+    would stream every diagonal twice."""
     x2 = torch.stack([xr, xi])
-    r2 = re(x2)
+    flat = x2.reshape(-1, x2.shape[-1])
+
+    def apply(op):
+        y = op(flat)
+        return y.view(x2.shape[:-1] + y.shape[-1:])
+
+    r2 = apply(re)
     if im is None:
         return r2[0], r2[1]
-    i2 = im(x2)
+    i2 = apply(im)
     return r2[0] - i2[1], r2[1] + i2[0]
 
 

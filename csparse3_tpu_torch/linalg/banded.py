@@ -319,6 +319,15 @@ def _matmul_precision(precision):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+def _block_ops(t):
+    """(mm, addmm, addmm_) for the per-block operands of a stack ``t``:
+    (nb, s, *) stacks hold one matrix a block; (nb, K, s, *) stacks hold
+    one per scenario, and their blocks go through the batched forms."""
+    if t.ndim == 4:
+        return torch.bmm, torch.baddbmm, torch.Tensor.baddbmm_
+    return torch.mm, torch.addmm, torch.Tensor.addmm_
+
+
 def _common(bb, *stacks):
     """The stacks and the right-hand sides in their common dtype."""
     dt = torch.promote_types(stacks[0].dtype, bb.dtype)
@@ -335,24 +344,26 @@ def thomas_sweeps(ehat, sinv, uhat, bb, precision="highest"):
     ``precision``: 'highest' (full float32, the default), 'high' or
     'default' (both TF32; see the module docstring)."""
     bb, (ehat, sinv, uhat) = _common(bb, ehat, sinv, uhat)
+    _, _, addmm_ = _block_ops(bb)
     with _matmul_precision(precision):
         y = bb.clone()
         ys, eh = y.unbind(0), ehat.unbind(0)
         for k in range(1, len(ys)):
-            ys[k].addmm_(eh[k], ys[k - 1], alpha=-1)
+            addmm_(ys[k], eh[k], ys[k - 1], alpha=-1)
         return _backward(sinv, uhat, y)
 
 
 def _backward(sinv, uhat, y):
     # the per-block views come from one unbind each: cheaper on the host
     # than one index per block and step
+    mm, _, addmm_ = _block_ops(y)
     x = torch.empty_like(y)
     xs, ys, si, uh = x.unbind(0), y.unbind(0), sinv.unbind(0), uhat.unbind(0)
     nb = len(xs)
-    torch.mm(si[nb - 1], ys[nb - 1], out=xs[nb - 1])
+    mm(si[nb - 1], ys[nb - 1], out=xs[nb - 1])
     for k in range(nb - 2, -1, -1):
-        torch.mm(si[k], ys[k], out=xs[k])
-        xs[k].addmm_(uh[k], xs[k + 1], alpha=-1)
+        mm(si[k], ys[k], out=xs[k])
+        addmm_(xs[k], uh[k], xs[k + 1], alpha=-1)
     return x
 
 
@@ -362,11 +373,12 @@ def thomas_sweeps_sym(sinv, uhat, bb, precision="highest"):
     forward sweep reads Ehat_k as Uhat_{k-1}^T (a plain transpose, also for
     complex symmetric input)."""
     bb, (sinv, uhat) = _common(bb, sinv, uhat)
+    _, _, addmm_ = _block_ops(bb)
     with _matmul_precision(precision):
         y = bb.clone()
         ys, uh = y.unbind(0), uhat.unbind(0)
         for k in range(1, len(ys)):
-            ys[k].addmm_(uh[k - 1].mT, ys[k - 1], alpha=-1)
+            addmm_(ys[k], uh[k - 1].mT, ys[k - 1], alpha=-1)
         return _backward(sinv, uhat, y)
 
 
@@ -382,21 +394,25 @@ def thomas_factor_device(D, E, F):
     block-tridiagonal stacks -> (ehat, sinv, uhat) plan stacks, in full
     precision.  Per block: Ehat_k = E_k S_{k-1}^{-1}, S_k = D_k - Ehat_k
     F_{k-1}, its inverse (``torch.linalg.inv_ex``), Uhat_k = S_k^{-1} F_k.
-    E[0] must be zero; Ehat_0 is zero."""
+    E[0] must be zero; Ehat_0 is zero.  (nb, K, s, s) stacks (any strides)
+    factor K matrices of one block layout at once, each step one batched
+    call; the plan stacks come out contiguous."""
     nb = D.shape[0]
-    ehat = torch.zeros_like(D)
-    sinv = torch.empty_like(D)
-    uhat = torch.empty_like(D)
-    info = torch.empty((), dtype=torch.int32, device=D.device)
+    mm, addmm, _ = _block_ops(D)
+    opts = dict(dtype=D.dtype, device=D.device)
+    ehat = torch.zeros(D.shape, **opts)
+    sinv = torch.empty(D.shape, **opts)
+    uhat = torch.empty(D.shape, **opts)
+    info = torch.empty(D.shape[1:-2], dtype=torch.int32, device=D.device)
     with _matmul_precision("highest"):
         for k in range(nb):
             if k:
-                torch.mm(E[k], sinv[k - 1], out=ehat[k])
-                S = torch.addmm(D[k], ehat[k], F[k - 1], alpha=-1)
+                mm(E[k], sinv[k - 1], out=ehat[k])
+                S = addmm(D[k], ehat[k], F[k - 1], alpha=-1)
             else:
                 S = D[0]
             _inverse_into(S, sinv[k], info)
-            torch.mm(sinv[k], F[k], out=uhat[k])
+            mm(sinv[k], F[k], out=uhat[k])
     return ehat, sinv, uhat
 
 
@@ -524,25 +540,43 @@ class BandedLU:
     def nblocks(self) -> int:
         return -(-self.n // self.s)
 
+    @property
+    def batched(self) -> bool:
+        """True for a plan over K matrices of one block layout (a
+        ``BandedRefactor`` of (K, nnz) values): (nb, K, s, s) stacks, and
+        solves of b (K, n), row k against matrix k."""
+        return (self._dev is not None and self._dev[1].ndim == 4)
+
     @torch.inference_mode()
     def blocks(self, b):
         """Permute and zero-pad an (n,) / (n, B) right-hand side (numpy or a
-        tensor) into (nb, s, B) block form on the device.  Chained solvers
-        stay in block space and call ``solve_blocks``."""
+        tensor) into (nb, s, B) block form on the device; for a ``batched``
+        plan b (K, n) into (nb, K, s, 1).  Chained solvers stay in block
+        space and call ``solve_blocks``."""
         perm = self.stacks()[3]
         b = torch.as_tensor(b, device=perm.device)
-        if b.ndim == 1:
-            b = b[:, None]
         n, s, nb = self.n, self.s, self.nblocks
         dt = torch.promote_types(self.dtype, b.dtype)
+        if self.batched:
+            bp = torch.zeros((b.shape[0], nb * s), dtype=dt,
+                             device=perm.device)
+            bp[:, :n] = b[:, perm]
+            return bp.view(-1, nb, s).transpose(0, 1)[..., None].contiguous()
+        if b.ndim == 1:
+            b = b[:, None]
         bp = torch.zeros((nb * s, b.shape[1]), dtype=dt, device=perm.device)
         bp[:n] = b[perm]
         return bp.view(nb, s, -1)
 
     @torch.inference_mode()
     def unblocks(self, xx):
-        """Inverse of ``blocks``: (nb, s, B) -> (n, B)."""
+        """Inverse of ``blocks``: (nb, s, B) -> (n, B), and (nb, K, s, 1)
+        -> (K, n)."""
         perm = self.stacks()[3]
+        if self.batched:
+            zf = xx[..., 0].transpose(0, 1).reshape(
+                xx.shape[1], -1)[:, : self.n]
+            return torch.empty_like(zf).index_copy_(1, perm, zf)
         zf = xx.reshape(self.nblocks * self.s, -1)[: self.n]
         return torch.empty_like(zf).index_copy_(0, perm, zf)
 
@@ -552,9 +586,10 @@ class BandedLU:
         return thomas_sweeps(ehat, sinv, uhat, bb, precision=precision)
 
     def __call__(self, b):
-        """x = A^{-1} b on the device, b of shape (n,) or (n, B)."""
+        """x = A^{-1} b on the device, b of shape (n,) or (n, B); (K, n)
+        for a ``batched`` plan."""
         x = self.unblocks(self.solve_blocks(self.blocks(b)))
-        return x[:, 0] if np.ndim(b) == 1 else x
+        return x[:, 0] if np.ndim(b) == 1 and not self.batched else x
 
     def solve_host(self, b):
         """Host solve, the numpy twin of the device sweeps (float64 math
@@ -699,14 +734,23 @@ class BandedRefactor:
 
     @torch.inference_mode()
     def __call__(self, data) -> BandedLU:
+        """A factored ``BandedLU`` of ``data`` (nnz,); for ``data`` (K,
+        nnz), one matrix per scenario, a ``batched`` one whose (nb, K, s,
+        s) stacks hold all K, factored block by block together."""
         n, s, nb, bw = self._aux
         data = torch.as_tensor(data, device=self.device).to(self._dtype)
-        buf = torch.zeros((3 * nb * s * s,), dtype=self._dtype,
+        lead = data.shape[:-1]
+        buf = torch.zeros(lead + (3 * nb * s * s,), dtype=self._dtype,
                           device=self.device)
-        buf.index_add_(0, self._idx, data)
+        buf.index_add_(-1, self._idx, data)
         # the padded rows hold no entry: their unit diagonal is a fill
-        buf.index_fill_(0, self._pad_idx, 1)
-        D, E, F = buf.view(3, nb, s, s)
+        buf.index_fill_(-1, self._pad_idx, 1)
+        if lead:
+            # (K, 3, nb, s, s) -> three (nb, K, s, s) views: a factor step
+            # takes block k of every scenario at once
+            D, E, F = buf.view(-1, 3, nb, s, s).permute(1, 2, 0, 3, 4)
+        else:
+            D, E, F = buf.view(3, nb, s, s)
         eh, si, uh = thomas_factor_device(D, E, F)
         return BandedLU._from_stacks(eh, si, uh, self._perm, n, s, bw)
 

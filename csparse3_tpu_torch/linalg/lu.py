@@ -29,7 +29,10 @@ __all__ = ["SparseLU", "splu", "spsolve", "SolvePlan"]
 
 class SolvePlan(nn.Module):
     """x = A^{-1} b from a factorization: permute, L-solve, U-solve,
-    unpermute.  ``forward(b)`` takes b of shape (n,) or (n, k)."""
+    unpermute.  ``forward(b)`` takes b of shape (n,) or (n, k); a plan
+    over a stack of K factors of one pattern (``batched``, from a
+    refactorization of (K, nnz) values) takes b (K, n), one right-hand
+    side per factor."""
 
     def __init__(self, lplan, uplan, perm_r, perm_c):
         super().__init__()
@@ -42,8 +45,17 @@ class SolvePlan(nn.Module):
         self.register_buffer("perm_c", torch.as_tensor(
             perm_c, dtype=torch.int64, device=dev))
 
+    @property
+    def batched(self) -> bool:
+        return getattr(self.lplan, "batched", False)
+
     @torch.inference_mode()
     def forward(self, b):
+        if self.batched:
+            z = self.uplan(self.lplan(b[:, self.perm_r]))
+            x = torch.empty_like(z)
+            x[:, self.perm_c] = z
+            return x
         z = self.uplan(self.lplan(b[self.perm_r]))
         x = torch.empty_like(z)
         x[self.perm_c] = z

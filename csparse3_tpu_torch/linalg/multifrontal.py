@@ -46,7 +46,7 @@ from ..config import resolve_device
 from .lu_host import HostLU
 from .refactor import attach_solve_templates, retarget_solve_plan
 from .supernodal import (_fundamental_partition, _graded_ok, _lu_nopiv_,
-                         _pattern_symmetric, _values_dtype)
+                         _pattern_symmetric, _sub_product_, _values_dtype)
 
 __all__ = ["MultifrontalRefactor", "MultifrontalLU"]
 
@@ -361,20 +361,23 @@ class MultifrontalRefactor(nn.Module):
                 self._rows_o[oo:oo + nb * u_max].view(nb, u_max))
 
     def _front(self, flat, gid):
-        """Group ``gid``'s (nb, rmax, rmax) fronts, a view of ``flat``."""
+        """Group ``gid``'s (nb, rmax, rmax) fronts, a view of ``flat``;
+        (K, nb, rmax, rmax) for a (K, floats) buffer of K scenarios, a
+        view strided over K (ops on it keep the leading axis apart)."""
         nb, _, _, rmax = self.group_static[gid]
-        return flat[self._fbase[gid]:self._fbase[gid + 1]].view(
-            nb, rmax, rmax)
+        return flat[..., self._fbase[gid]:self._fbase[gid + 1]].view(
+            flat.shape[:-1] + (nb, rmax, rmax))
 
     def _assembled(self, new_data):
         """The flat front buffer holding A's values, the padded pivot
-        columns' unit diagonal and the 1 slot; its dtype."""
+        columns' unit diagonal and the 1 slot: (floats,), or (K, floats)
+        for ``new_data`` (K, nnz), one row per scenario."""
         new_data = torch.as_tensor(new_data, device=self._a_pos.device)
         dtype = _values_dtype(new_data, self.dtype)
-        flat = torch.zeros(self.front_floats + 1, dtype=dtype,
-                           device=new_data.device)
-        flat.index_fill_(0, self._pad_diag, 1)
-        flat.index_add_(0, self._a_pos, new_data.to(dtype))
+        flat = torch.zeros(new_data.shape[:-1] + (self.front_floats + 1,),
+                           dtype=dtype, device=new_data.device)
+        flat.index_fill_(-1, self._pad_diag, 1)
+        flat.index_add_(-1, self._a_pos, new_data.to(dtype))
         return flat
 
     def _fronts(self, flat):
@@ -383,27 +386,30 @@ class MultifrontalRefactor(nn.Module):
         for L in range(self.nlevels):
             a, c = self._ext_ptr[L], self._ext_ptr[L + 1]
             if c > a:
-                flat.index_add_(0, self._ext_dst[a:c],
-                                flat.index_select(0, self._ext_src[a:c]))
+                flat.index_add_(-1, self._ext_dst[a:c],
+                                flat.index_select(-1, self._ext_src[a:c]))
             for gid in self.groups_at[L]:
                 yield gid, self._front(flat, gid)
 
     # ---- numeric factorization ---------------------------------------------
     @torch.inference_mode()
     def factor_values(self, new_data):
-        """(Lx, Ux) for the original pattern with ``new_data`` values."""
+        """(Lx, Ux) for the original pattern with ``new_data`` values;
+        (K, lnz) and (K, unz) for ``new_data`` (K, nnz), the fronts of all
+        K scenarios factored together, in place in one (K, floats)
+        buffer."""
         flat = self._assembled(new_data)
         for gid, F in self._fronts(flat):
             w = self.group_static[gid][1]
-            D, B, C = F[:, :w, :w], F[:, w:, :w], F[:, :w, w:]
+            D, B, C = F[..., :w, :w], F[..., w:, :w], F[..., :w, w:]
             _lu_nopiv_(D)
             L21 = torch.linalg.solve_triangular(D, B, upper=True, left=False)
             U12 = torch.linalg.solve_triangular(D, C, upper=False,
                                                 unitriangular=True)
             B.copy_(L21)
             C.copy_(U12)
-            F[:, w:, w:].baddbmm_(L21, U12, alpha=-1)
-        return flat[self._exL], flat[self._exU]
+            _sub_product_(F[..., w:, w:], L21, U12)
+        return flat[..., self._exL], flat[..., self._exU]
 
     @torch.inference_mode()
     def refactor(self, new_data, with_diag: bool = False):
@@ -487,71 +493,84 @@ class MultifrontalLU(MultifrontalRefactor):
         """new_data -> (factors, stats).
 
         factors: per-group (M, U12, L21, perm) (front form).
-        stats: {"min_pivot", "max_u"} (0-d tensors), the growth gate's."""
+        stats: {"min_pivot", "max_u"} (0-d tensors), the growth gate's.
+        ``new_data`` (K, nnz) factors K scenarios together: every factor
+        gains a leading K axis and the stats are (K,), one gate per
+        scenario."""
         flat = self._assembled(new_data)
+        lead = flat.ndim - 1
         factors = [None] * self.ngroups
         mins, maxs = [], []
         for gid, F in self._fronts(flat):
             w = self.group_static[gid][1]
             # within-front partial pivoting: D[perm] = L11 U11
-            M, piv, _ = torch.linalg.lu_factor_ex(F[:, :w, :w],
+            M, piv, _ = torch.linalg.lu_factor_ex(F[..., :w, :w],
                                                   check_errors=False)
             perm = _pivot_perm(M, piv)
-            B, C = F[:, w:, :w], F[:, :w, w:]
-            Cp = C.gather(1, perm[:, :, None].expand(-1, -1, C.shape[2]))
+            B, C = F[..., w:, :w], F[..., :w, w:]
+            Cp = C.gather(-2, perm[..., None].expand(
+                perm.shape + (C.shape[-1],)))
             L21 = torch.linalg.solve_triangular(M, B, upper=True, left=False)
             U12 = torch.linalg.solve_triangular(M, Cp, upper=False,
                                                 unitriangular=True)
-            F[:, w:, w:].baddbmm_(L21, U12, alpha=-1)
+            _sub_product_(F[..., w:, w:], L21, U12)
             factors[gid] = (M, U12, L21, perm)
-            # growth stats over GENUINE columns only
-            du = M.diagonal(dim1=1, dim2=2).abs()
-            mins.append(du.masked_fill(~self._group_mask(gid),
-                                       float("inf")).amin())
-            maxs.append(M.triu().abs().amax())
-        stats = {"min_pivot": torch.stack(mins).amin(),
-                 "max_u": torch.stack(maxs).amax()}
+            # growth stats over GENUINE columns only, per scenario
+            du = M.diagonal(dim1=-2, dim2=-1).abs()
+            mins.append(du.masked_fill(~self._group_mask(gid), float("inf"))
+                        .amin(dim=tuple(range(lead, du.ndim))))
+            maxs.append(M.triu().abs().amax(dim=tuple(range(lead, M.ndim))))
+        stats = {"min_pivot": torch.stack(mins).amin(0),
+                 "max_u": torch.stack(maxs).amax(0)}
         return tuple(factors), stats
 
     @torch.inference_mode()
     def solve_piv(self, factors, b):
-        """x = A^{-1} b from ``factor_piv`` factors; b (n,) or (n, B).
+        """x = A^{-1} b from ``factor_piv`` factors; b (n,) or (n, B), and
+        (K, n) for factors of K scenarios, row k against scenario k.
         The result is in ORIGINAL row/column space (the symbolic fill-
         reducing perms are applied here; the per-front pivoting perms
         live in the factors)."""
         b = torch.as_tensor(b, device=self.perm_r.device)
-        squeeze = b.ndim == 1
+        batched = any(f[0].ndim == 4 for f in factors)
+        squeeze = b.ndim == 1 or batched
         if squeeze:
-            b = b[:, None]
+            b = b[..., None]
+        lead = b.shape[:-2]           # (K,) for a batch, else ()
         fdt = next((f[0].dtype for f in factors), self.dtype)
         dtype = torch.promote_types(b.dtype, fdt)
-        nB = b.shape[1]
+        nB = b.shape[-1]
         # permuted right-hand side + one pad slot (row n)
-        y = torch.zeros((self.n + 1, nB), dtype=dtype, device=b.device)
-        y[:-1] = b[self.perm_r]
+        y = torch.zeros(lead + (self.n + 1, nB), dtype=dtype,
+                        device=b.device)
+        y[..., :-1, :] = b[..., self.perm_r, :]
         # rows of y by a group's (nb, k) row ids; writes to the pad row
         # collide and are never read back
         def rows(r):
-            return y.index_select(0, r.view(-1)).view(*r.shape, nB)
+            return y.index_select(-2, r.view(-1)).view(lead + r.shape
+                                                       + (nB,))
+
+        def put(r, v):
+            return v.reshape(lead + (r.numel(), nB))
 
         for L in range(self.nlevels):
             for gid in self.groups_at[L]:
                 rows_p, rows_o = self._rows_parts(gid)
                 M, U12, L21, perm = factors[gid]
-                b1 = rows(rows_p).gather(1, perm[:, :, None].expand(-1, -1,
-                                                                   nB))
+                b1 = rows(rows_p).gather(-2, perm[..., None].expand(
+                    perm.shape + (nB,)))
                 z1 = torch.linalg.solve_triangular(M, b1, upper=False,
                                                    unitriangular=True)
-                y.index_copy_(0, rows_p.view(-1), z1.reshape(-1, nB))
-                y.index_add_(0, rows_o.view(-1),
-                             torch.bmm(L21, z1).reshape(-1, nB), alpha=-1)
+                y.index_copy_(-2, rows_p.view(-1), put(rows_p, z1))
+                y.index_add_(-2, rows_o.view(-1), put(rows_o, L21 @ z1),
+                             alpha=-1)
         for L in range(self.nlevels - 1, -1, -1):
             for gid in self.groups_at[L]:
                 rows_p, rows_o = self._rows_parts(gid)
                 M, U12, L21, perm = factors[gid]
-                rhs = torch.baddbmm(rows(rows_p), U12, rows(rows_o), alpha=-1)
+                rhs = _sub_product_(rows(rows_p), U12, rows(rows_o))
                 x1 = torch.linalg.solve_triangular(M, rhs, upper=True)
-                y.index_copy_(0, rows_p.view(-1), x1.reshape(-1, nB))
-        x = torch.empty((self.n, nB), dtype=dtype, device=b.device)
-        x[self.perm_c] = y[:-1]
-        return x[:, 0] if squeeze else x
+                y.index_copy_(-2, rows_p.view(-1), put(rows_p, x1))
+        x = torch.empty(lead + (self.n, nB), dtype=dtype, device=b.device)
+        x[..., self.perm_c, :] = y[..., :-1, :]
+        return x[..., 0] if squeeze else x

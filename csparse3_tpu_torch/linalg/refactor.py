@@ -106,27 +106,29 @@ class RefactorPlan(nn.Module):
     @torch.inference_mode()
     def factor_values(self, new_data):
         """(Lx, Ux) for a matrix with the original pattern and ``new_data``
-        values (canonical CSC entry order)."""
+        values (canonical CSC entry order).  ``new_data`` (K, nnz), one
+        matrix per scenario, gives (K, lnz) and (K, unz): every level op
+        runs along the last axis."""
         new_data = torch.as_tensor(new_data, device=self.a_dst.device)
         dtype = torch.promote_types(new_data.dtype, self.dtype)
-        X = torch.zeros(self.lnz + self.unz, dtype=dtype,
-                        device=new_data.device)
-        X[self.l_unit] = 1
-        X.index_add_(0, self.a_dst, new_data.to(dtype))
+        X = torch.zeros(new_data.shape[:-1] + (self.lnz + self.unz,),
+                        dtype=dtype, device=new_data.device)
+        X[..., self.l_unit] = 1
+        X.index_add_(-1, self.a_dst, new_data.to(dtype))
         dp, up = self.div_ptr, self.upd_ptr
         for lv in range(len(dp) - 1):
             a, c = dp[lv], dp[lv + 1]
             if c > a:
                 dd = self.div_dst[a:c]
-                X.index_put_((dd,), X.index_select(0, dd)
-                             / X.index_select(0, self.div_piv[a:c]))
+                X[..., dd] = (X.index_select(-1, dd)
+                              / X.index_select(-1, self.div_piv[a:c]))
             a, c = up[lv], up[lv + 1]
             if c > a:
-                X.index_add_(0, self.upd_dst[a:c],
-                             X.index_select(0, self.upd_L[a:c])
-                             * X.index_select(0, self.upd_U[a:c]),
+                X.index_add_(-1, self.upd_dst[a:c],
+                             X.index_select(-1, self.upd_L[a:c])
+                             * X.index_select(-1, self.upd_U[a:c]),
                              alpha=-1)
-        return X[: self.lnz], X[self.lnz:]
+        return X[..., : self.lnz], X[..., self.lnz:]
 
     @torch.inference_mode()
     def refactor(self, new_data, with_diag: bool = False):
@@ -135,7 +137,10 @@ class RefactorPlan(nn.Module):
         with_diag=True also returns the U diagonal — min|u|/max|u| is the
         KLU-style cheap rcond estimate callers use to flag (near-)singular
         refactorizations (frozen pivots turn structural singularity into a
-        zero-or-noise pivot, NOT necessarily inf/nan output)."""
+        zero-or-noise pivot, NOT necessarily inf/nan output).
+
+        ``new_data`` (K, nnz) gives a ``batched`` SolvePlan over K factors
+        (and the diagonal as (K, n))."""
         Lx, Ux = self.factor_values(new_data)
         return retarget_solve_plan(self, Lx, Ux, with_diag)
 
@@ -169,15 +174,16 @@ def retarget_solve_plan(obj, Lx, Ux, with_diag: bool = False):
     keep the RefactorPlan template layout (``_ltpl`` / ``_utpl`` solve
     plans and the ``_l_epos`` / ``_u_epos`` / ``_u_diagpos`` positions in
     X = [Lx | Ux]): gather the fresh values into the stored solve plans and
-    return a SolvePlan (plus the U diagonal when ``with_diag``).  The
+    return a SolvePlan (plus the U diagonal when ``with_diag``); factors
+    with a leading scenario axis give a batched SolvePlan.  The
     templates are level plans whatever ``SparseLU.solve_plan`` would pick:
     a dense tail's block inverses cannot be refreshed by a gather (the JAX
     package retargets the level layout only, too).  The JAX
     package gathers through its one-hot ``rowgather`` workaround here;
     these are plain indexing."""
-    X = torch.cat([Lx, Ux])
-    u_diag = X[obj._u_diagpos]
-    lplan = obj._ltpl.with_values(X[obj._l_epos])
-    uplan = obj._utpl.with_values(X[obj._u_epos], 1.0 / u_diag)
+    X = torch.cat([Lx, Ux], dim=-1)
+    u_diag = X[..., obj._u_diagpos]
+    lplan = obj._ltpl.with_values(X[..., obj._l_epos])
+    uplan = obj._utpl.with_values(X[..., obj._u_epos], 1.0 / u_diag)
     plan = SolvePlan(lplan, uplan, obj.perm_r, obj.perm_c)
     return (plan, u_diag) if with_diag else plan

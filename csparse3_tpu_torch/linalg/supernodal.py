@@ -50,16 +50,28 @@ def _pattern_symmetric(n, Lp, Li, Up, Ui) -> bool:
     return np.array_equal(kL, kU)
 
 
+def _sub_product_(C, A, B):
+    """C -= A @ B in place, for (nb, r, c) stacks (one ``baddbmm_``) or
+    stacks with more leading axes, such as one per scenario (``matmul``):
+    ``baddbmm_`` takes 3-D operands only, and a strided (K, nb, r, c) view
+    cannot be flattened to 3-D without a copy that the in-place update
+    would be lost in."""
+    if C.ndim == 3:
+        return C.baddbmm_(A, B, alpha=-1)
+    return C.sub_(A @ B)
+
+
 def _lu_nopiv_unblocked_(M):
-    """In-place no-pivot LU of a batch of (w, w) blocks (Doolittle): the
-    strict lower triangle becomes the L multipliers, the upper triangle U.
-    Step k scales column k below the pivot and updates the trailing block
-    by the rank-1 product, the JAX loop's arithmetic."""
+    """In-place no-pivot LU of a batch of (w, w) blocks (Doolittle), with
+    any leading axes: the strict lower triangle becomes the L multipliers,
+    the upper triangle U.  Step k scales column k below the pivot and
+    updates the trailing block by the rank-1 product, the JAX loop's
+    arithmetic."""
     w = M.shape[-1]
     for k in range(w - 1):
-        M[:, k + 1:, k].div_(M[:, k, k:k + 1])
-        M[:, k + 1:, k + 1:].addcmul_(M[:, k + 1:, k:k + 1],
-                                      M[:, k:k + 1, k + 1:], value=-1)
+        M[..., k + 1:, k].div_(M[..., k, k:k + 1])
+        M[..., k + 1:, k + 1:].addcmul_(M[..., k + 1:, k:k + 1],
+                                        M[..., k:k + 1, k + 1:], value=-1)
     return M
 
 
@@ -67,7 +79,7 @@ _LU_PANEL = 32
 
 
 def _lu_nopiv_(M, panel: int = _LU_PANEL):
-    """In-place blocked no-pivot LU of (nb, w, w) (any strides): the
+    """In-place blocked no-pivot LU of (..., nb, w, w) (any strides): the
     unblocked loop on each (panel, panel) diagonal block, then two batched
     triangular solves and one batched product per panel (right-looking)."""
     w = M.shape[-1]
@@ -75,9 +87,9 @@ def _lu_nopiv_(M, panel: int = _LU_PANEL):
         return _lu_nopiv_unblocked_(M)
     for k0 in range(0, w, panel):
         k1 = min(k0 + panel, w)
-        Mkk = _lu_nopiv_unblocked_(M[:, k0:k1, k0:k1])
+        Mkk = _lu_nopiv_unblocked_(M[..., k0:k1, k0:k1])
         if k1 < w:
-            below, right = M[:, k1:, k0:k1], M[:, k0:k1, k1:]
+            below, right = M[..., k1:, k0:k1], M[..., k0:k1, k1:]
             # L21 Ukk = below;  Lkk U12 = right (Lkk unit lower)
             L21 = torch.linalg.solve_triangular(Mkk, below, upper=True,
                                                 left=False)
@@ -85,7 +97,7 @@ def _lu_nopiv_(M, panel: int = _LU_PANEL):
                                                 unitriangular=True)
             below.copy_(L21)
             right.copy_(U12)
-            M[:, k1:, k1:].baddbmm_(L21, U12, alpha=-1)
+            _sub_product_(M[..., k1:, k1:], L21, U12)
     return M
 
 

@@ -198,10 +198,20 @@ class TriSolvePlan(nn.Module):
     def nlevels(self):
         return len(self.e_ptr) - 1
 
+    @property
+    def batched(self) -> bool:
+        """True for a plan over a stack of factors (``with_values`` of
+        (K, e) values): one factor per scenario, one right-hand side each."""
+        return self.e_scaled.ndim == 2
+
     def with_values(self, e_vals, dinv=None) -> "TriSolvePlan":
         """The same plan over new values: ``e_vals`` are the off-diagonal
         entries in level order (``F_offdiag[e_order]``), ``dinv`` is
-        1/diag per row (None: unit diagonal).  Index buffers are shared."""
+        1/diag per row (None: unit diagonal).  Index buffers are shared.
+
+        A leading scenario axis, ``e_vals`` (K, e) and ``dinv`` (K, n),
+        gives a ``batched`` plan: K factors of one pattern, whose
+        ``forward`` solves b (K, n), row k against factor k."""
         new = TriSolvePlan.__new__(TriSolvePlan)
         nn.Module.__init__(new)
         new.n, new.lower = self.n, self.lower
@@ -213,12 +223,15 @@ class TriSolvePlan(nn.Module):
             new.register_buffer("e_scaled", e_vals)
         else:
             new.register_buffer("dinv", dinv)
-            new.register_buffer("e_scaled", e_vals * dinv[self.e_rows])
+            new.register_buffer("e_scaled", e_vals * dinv[..., self.e_rows])
         return new
 
     @torch.inference_mode()
     def forward(self, b):
-        """x = F^{-1} b, one gather + multiply + index_add_ per level."""
+        """x = F^{-1} b, one gather + multiply + index_add_ per level.
+        b is (n,) or (n, k); for a ``batched`` plan (K, n)."""
+        if self.batched:
+            return self._forward_batched(b)
         squeeze = b.ndim == 1
         if squeeze:
             b = b[:, None]
@@ -234,6 +247,25 @@ class TriSolvePlan(nn.Module):
             contrib = x[self.e_cols[a:c]] * self.e_scaled[a:c, None]
             x.index_add_(0, self.e_rows[a:c], contrib, alpha=-1)
         return x[:, 0] if squeeze else x
+
+    def _forward_batched(self, b):
+        """The level loop along dim 1 of b (K, n): the same gather,
+        multiply and index_add_ per level, scenario k on factor k."""
+        K = self.e_scaled.shape[0]
+        if b.shape != (K, self.n):
+            raise ValueError(f"a plan over {K} factors solves b of shape "
+                             f"({K}, {self.n}); got {tuple(b.shape)}")
+        dtype = torch.promote_types(b.dtype, self.e_scaled.dtype)
+        if self.dinv is None:
+            x = b.to(dtype, copy=True)
+        else:
+            x = b.to(dtype) * self.dinv
+        p = self.e_ptr
+        for lv in range(1, len(p) - 1):
+            a, c = p[lv], p[lv + 1]
+            contrib = x[:, self.e_cols[a:c]] * self.e_scaled[:, a:c]
+            x.index_add_(1, self.e_rows[a:c], contrib, alpha=-1)
+        return x
 
     solve = forward
 

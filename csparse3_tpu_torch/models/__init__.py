@@ -1,14 +1,21 @@
-"""Power-grid cases and the power-flow solvers."""
+"""Power-grid cases, the power-flow solvers and the studies built on them
+(contingency screening, sensitivity factors, short circuit)."""
 
 from . import grids, powerflow  # noqa: F401
+from .contingency import ACContingency, DCContingency  # noqa: F401
 from .grids import (  # noqa: F401
     Grid,
+    branch_admittances,
+    connectivity,
     ieee14,
     rcm_grid,
     reorder_grid,
     synthetic_grid,
     ybus,
 )
+from .matpower import load_case, parse_case  # noqa: F401
+from .sensitivity import LinearContingency, lodf, ptdf  # noqa: F401
+from .shortcircuit import SCResult, short_circuit, zbus_columns  # noqa: F401
 from .powerflow import (  # noqa: F401
     FastDecoupled,
     NewtonPowerFlow,

@@ -27,11 +27,19 @@ LU (``'banded'``) or the block-Thomas ``linalg.BandedLU`` (``'blocklu'``).
 
 ``newton_raphson`` is the host reference (``splu`` per iteration).
 
+Batched studies (``NewtonPowerFlow.solve_batch`` / ``run_batch``,
+``FastDecoupled.solve_batch``): K scenarios (load cases, or per-scenario
+Ybus values for the AC contingencies) against ONE symbolic factorization,
+as the JAX package's ``jax.vmap``.  Every device op of an iteration takes
+the whole (K, n) batch: one launch of the Ybus SpMV kernel per mismatch
+evaluation, batched refactorizations and solves.  The loop runs until no
+scenario is active, and a scenario that converged, ran out of iterations
+or tripped the growth gate keeps its state (``torch.where``), so its
+iteration count is that of its own solve, as under ``vmap``.  The batched
+results stay on the device as tensors.
+
 Every entry point runs on ``device``; None is ``config.default_device()``,
 the CUDA card, and a caller without one passes ``device="cpu"``.
-
-Not ported yet: ``NewtonPowerFlow.solve_batch`` and
-``FastDecoupled.solve_batch`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -185,7 +193,8 @@ class FastDecoupled:
                                      device=self.device)
 
     def mismatch(self, vm, va, sbr=None, sbi=None):
-        """Power mismatch dS = (S(V) - Sbus) / Vm as (real, imag) parts."""
+        """Power mismatch dS = (S(V) - Sbus) / Vm as (real, imag) parts;
+        every argument (n,) or a batch (K, n)."""
         sbr = self._sbr if sbr is None else sbr
         sbi = self._sbi if sbi is None else sbi
         vr = vm * torch.cos(va)
@@ -199,41 +208,39 @@ class FastDecoupled:
     @torch.inference_mode()
     def step(self, carry):
         """One P-theta / Q-V half-iteration pair; returns the new carry
-        (vm, va, sbr, sbi) and leaves the one given untouched."""
+        (vm, va, sbr, sbi) and leaves the one given untouched.  A batch
+        (K, n) solves its K right-hand sides against each fixed factor in
+        one multi-RHS solve."""
         vm, va, sbr, sbi = carry
         mr, _ = self.mismatch(vm, va, sbr, sbi)
-        va = va.index_add(0, self._pvpq_t, self._bp_plan(mr[self._pvpq_t]),
+        va = va.index_add(-1, self._pvpq_t,
+                          _solve_rows(self._bp_plan, mr[..., self._pvpq_t]),
                           alpha=-1)
         _, mi = self.mismatch(vm, va, sbr, sbi)
-        vm = vm.index_add(0, self._pq_t, self._bpp_plan(mi[self._pq_t]),
+        vm = vm.index_add(-1, self._pq_t,
+                          _solve_rows(self._bpp_plan, mi[..., self._pq_t]),
                           alpha=-1)
         return (vm, va, sbr, sbi)
 
     @torch.inference_mode()
     def residual(self, vm, va, sbr=None, sbi=None):
         """Max-norm of the mismatch over the equations solved (P at PV and
-        PQ buses, Q at PQ buses), a 0-d tensor."""
+        PQ buses, Q at PQ buses): a 0-d tensor, (K,) for a batch."""
         mr, mi = self.mismatch(vm, va, sbr, sbi)
-        r = torch.cat([mr[self._pvpq_t], mi[self._pq_t]])
-        return r.abs().max() if r.numel() else torch.zeros(
-            (), dtype=vm.dtype, device=vm.device)
+        r = torch.cat([mr[..., self._pvpq_t], mi[..., self._pq_t]], dim=-1)
+        return r.abs().amax(-1) if r.shape[-1] else torch.zeros(
+            r.shape[:-1], dtype=vm.dtype, device=vm.device)
 
     @torch.inference_mode()
     def run(self, vm0, va0, sbr=None, sbi=None):
         """Iterate from (vm0, va0) while the residual exceeds ``tol`` and
         fewer than ``max_iter`` iterations ran; returns (vm, va,
-        iterations) with vm, va on the device.  One host read of the
-        residual per iteration."""
-        sbr = self._sbr if sbr is None else sbr
-        sbi = self._sbi if sbi is None else sbi
-        carry = (vm0.to(self.device, torch.float64),
-                 va0.to(self.device, torch.float64), sbr, sbi)
-        it = 0
-        while it < self.max_iter and float(
-                self.residual(*carry)) > self.tol:
-            carry = self.step(carry)
-            it += 1
-        return carry[0], carry[1], it
+        iterations) with vm, va on the device.  One host read per residual
+        evaluation (``run_batch`` of one scenario)."""
+        vm, va, it = self.run_batch(vm0, va0,
+                                    self._sbr if sbr is None else sbr,
+                                    self._sbi if sbi is None else sbi)
+        return vm, va, int(it)
 
     def solve(self, flat_start=True):
         """Solve from the grid's flat start; returns host numpy (vm, va),
@@ -241,6 +248,48 @@ class FastDecoupled:
         vm, va, it = self.run(self._vm0, torch.zeros_like(self._vm0))
         res = float(self.residual(vm, va))
         return vm.cpu().numpy(), va.cpu().numpy(), int(it), res
+
+    @torch.inference_mode()
+    def run_batch(self, vm0, va0, sbr, sbi):
+        """``run`` for K scenarios at once, every argument (K, n) (or (n,)
+        for one): each iteration evaluates the K residuals (one Ybus
+        product of the batch) and reads whether any scenario is still
+        active in one host transfer; the active ones take a step, the
+        others keep their state.  Returns (vm, va, iterations (K,)) on the
+        device; each scenario's count is that of its own solve."""
+        vm = vm0.to(self.device, torch.float64, copy=True)
+        va = va0.to(self.device, torch.float64, copy=True)
+        it = torch.zeros(vm.shape[:-1], dtype=torch.int64,
+                         device=self.device)
+        while True:
+            active = ((self.residual(vm, va, sbr, sbi) > self.tol)
+                      & (it < self.max_iter))
+            if not bool(active.any()):
+                return vm, va, it
+            vm2, va2, _, _ = self.step((vm, va, sbr, sbi))
+            keep = active[..., None]
+            vm = torch.where(keep, vm2, vm)
+            va = torch.where(keep, va2, va)
+            it = it + active
+
+    def solve_batch(self, sb_batch):
+        """Solve K load scenarios, ``sb_batch`` (K, n) complex bus
+        injections, against the one pair of factorizations from the flat
+        start.  Returns (vm, va, iterations) as tensors on the device, (K,
+        n), (K, n) and (K,)."""
+        sb = np.asarray(sb_batch)
+        K = sb.shape[0]
+        sbr, sbi = (torch.as_tensor(np.ascontiguousarray(p),
+                                    dtype=torch.float64, device=self.device)
+                    for p in (sb.real, sb.imag))
+        vm0 = self._vm0.expand(K, -1)
+        return self.run_batch(vm0, torch.zeros_like(vm0), sbr, sbi)
+
+
+def _solve_rows(plan, r):
+    """x = A^{-1} r for r (n,) or a batch of right-hand sides as rows (K,
+    n): the solve plans take them as (n, K) columns."""
+    return plan(r) if r.ndim == 1 else plan(r.T).T
 
 
 def _jacobian(Y: CSC, v, ibus, pvpq, pq):
@@ -299,8 +348,9 @@ def _growth_gate(jd, stats, growth_limit, piv_rtol):
 
     The zero-scale guard is the tiny of ``jd``'s own dtype.  The JAX
     package adds float64's tiny cast to ``jd``'s dtype, which is 0 in
-    float32, so its guard does nothing there."""
-    scale = jd.abs().max() + torch.finfo(jd.dtype).tiny
+    float32, so its guard does nothing there.  A batch, ``jd`` (K, nnz)
+    and (K,) stats, gives one gate per scenario."""
+    scale = jd.abs().amax(-1) + torch.finfo(jd.dtype).tiny
     return ((stats["min_pivot"] < piv_rtol * stats["max_u"])
             | (stats["max_u"] > growth_limit * scale)
             | ~torch.isfinite(stats["max_u"]))
@@ -408,51 +458,109 @@ class NewtonPowerFlow:
             self._rp = lu.refactor_plan(J0, device=self.device)
 
     # -- device Jacobian values (fixed pattern, split-complex real math) ----
-    def _jac_data(self, vr, vi, vm, ir, ii):
+    def _jac_data(self, vr, vi, vm, ir, ii, ygr=None, ygi=None):
         """Real/imag parts of dS/dVa and dS/dVm per Ybus entry, in real
         arithmetic, gathered into the Jacobian's canonical entry order:
 
           t = conj(y) conj(v_col);  dVa = -i v_row t (+ i v conj(I) on diag)
           dVm = v_row t / |v_col|   (+ conj(I) v/|v| on diag)
-        """
+
+        Vectors (n,) or a batch (K, n), giving (nnz,) or (K, nnz).
+        ``ygr`` / ``ygi`` override Ybus's entry values (same pattern; (nnz,)
+        or one row per scenario)."""
         rows, cols = self._y_rows, self._y_cols
-        gr, gi = self._ygr, self._ygi
-        vrr, vri = vr[rows], vi[rows]
-        vcr, vci = vr[cols], vi[cols]
+        gr = self._ygr if ygr is None else ygr
+        gi = self._ygi if ygi is None else ygi
+        vrr, vri = vr[..., rows], vi[..., rows]
+        vcr, vci = vr[..., cols], vi[..., cols]
         t_r = gr * vcr - gi * vci
         t_i = -(gr * vci + gi * vcr)
         # p + iq = v_row * t
         p = vrr * t_r - vri * t_i
         q = vrr * t_i + vri * t_r
         dva_r, dva_i = q, -p
-        dvm_r, dvm_i = p / vm[cols], q / vm[cols]
-        irr, iir = ir[rows], ii[rows]
+        dvm_r, dvm_i = p / vm[..., cols], q / vm[..., cols]
+        irr, iir = ir[..., rows], ii[..., rows]
+        vmr = vm[..., rows]
         dm = self._diag_mask
         dva_r = torch.where(dm, dva_r + vrr * iir - vri * irr, dva_r)
         dva_i = torch.where(dm, dva_i + vrr * irr + vri * iir, dva_i)
-        dvm_r = torch.where(dm, dvm_r + (vrr * irr + vri * iir) / vm[rows],
-                            dvm_r)
-        dvm_i = torch.where(dm, dvm_i + (vri * irr - vrr * iir) / vm[rows],
-                            dvm_i)
+        dvm_r = torch.where(dm, dvm_r + (vrr * irr + vri * iir) / vmr, dvm_r)
+        dvm_i = torch.where(dm, dvm_i + (vri * irr - vrr * iir) / vmr, dvm_i)
         stream = torch.cat([
-            dva_r[self._keep[0]],
-            dvm_r[self._keep[1]],
-            dva_i[self._keep[2]],
-            dvm_i[self._keep[3]],
-        ])
-        return stream[self._perm]
+            dva_r[..., self._keep[0]],
+            dvm_r[..., self._keep[1]],
+            dva_i[..., self._keep[2]],
+            dvm_i[..., self._keep[3]],
+        ], dim=-1)
+        return stream[..., self._perm]
 
-    def _mismatch_f(self, vm, va, sbr, sbi):
+    def _mismatch_f(self, vm, va, sbr, sbi, ygr=None, ygi=None):
+        """(f, (vr, vi), (ir, ii)): the mismatch of the equations solved and
+        the voltage and current parts it came from, for (n,) or (K, n).
+        With ``ygr`` / ``ygi`` (per-scenario Ybus values: the AC
+        contingencies) the SpMV plan, which holds the base values, cannot
+        serve: I = Y v is summed from the raw entry streams by
+        ``index_add_``, one per part."""
         vr = vm * torch.cos(va)
         vi = vm * torch.sin(va)
-        ir, ii = self._yplan(vr, vi)
+        if ygr is None:
+            ir, ii = self._yplan(vr, vi)
+        else:
+            rows, cols = self._y_rows, self._y_cols
+            vcr, vci = vr[..., cols], vi[..., cols]
+            ir = torch.zeros_like(vr).index_add_(-1, rows,
+                                                 ygr * vcr - ygi * vci)
+            ii = torch.zeros_like(vr).index_add_(-1, rows,
+                                                 ygr * vci + ygi * vcr)
         mis_r = vr * ir + vi * ii - sbr
         mis_i = vi * ir - vr * ii - sbi
-        f = torch.cat([mis_r[self._pvpq], mis_i[self._pq]])
+        f = torch.cat([mis_r[..., self._pvpq], mis_i[..., self._pq]], dim=-1)
         return f, (vr, vi), (ir, ii)
 
+    def _iterate(self, vm, va, sbr, sbi, ygr, ygi):
+        """The Newton loop over (n,) vectors or a (K, n) batch; returns
+        (vm, va, iterations, residual, bad) as tensors of the batch's shape.
+        A scenario is active while its mismatch max-norm exceeds ``tol``,
+        it ran fewer than ``max_iter`` iterations and the growth gate did
+        not engage; the loop ends when none is (one host read per
+        evaluation).  An inactive scenario keeps its state by
+        ``torch.where``, never by a product with a mask: the factor of a
+        frozen scenario may be non-finite (an islanded outage), and 0 * nan
+        is nan."""
+        lead = vm.shape[:-1]
+        front = isinstance(self._rp, MultifrontalLU)
+        it = torch.zeros(lead, dtype=torch.int64, device=self.device)
+        bad = torch.zeros(lead, dtype=torch.bool, device=self.device)
+        while True:
+            f, (vr, vi), (ir, ii) = self._mismatch_f(vm, va, sbr, sbi,
+                                                     ygr, ygi)
+            nrm = (f.abs().amax(-1) if f.shape[-1]
+                   else f.new_zeros(lead))
+            active = (nrm > self.tol) & (it < self.max_iter) & ~bad
+            if not bool(active.any()):
+                return vm, va, it, nrm, bad
+            jd = self._jac_data(vr, vi, vm, ir, ii, ygr, ygi)
+            if front:
+                fac, stats = self._rp.factor_piv(jd)
+                gate = _growth_gate(jd, stats, self.growth_limit,
+                                    self.piv_rtol)
+                dx = self._rp.solve_piv(fac, -f)
+                # a gated iteration counts but must not move the state
+                move = active & ~gate
+                bad = bad | (active & gate)
+            else:
+                dx = self._rp.refactor(jd)(-f)
+                move = active
+            move = move[..., None]
+            va = torch.where(move, va.index_add(-1, self._pvpq,
+                                                dx[..., : self._npvpq]), va)
+            vm = torch.where(move, vm.index_add(-1, self._pq,
+                                                dx[..., self._npvpq:]), vm)
+            it = it + active
+
     @torch.inference_mode()
-    def run(self, vm0, va0, sbr=None, sbi=None):
+    def run(self, vm0, va0, sbr=None, sbi=None, ygr=None, ygi=None):
         """Iterate from (vm0, va0) until the mismatch max-norm is <= tol,
         ``max_iter`` iterations ran or the pivot-growth gate engaged;
         returns (vm, va, iterations, residual, bad) with vm, va on the
@@ -460,37 +568,36 @@ class NewtonPowerFlow:
         the gate: that iteration counts but leaves the state unchanged,
         and the caller falls back to a true-pivoting host factorization
         (``solve`` does).  One mismatch evaluation (one Ybus SpMV) per
-        iteration plus the final one, and one host read per evaluation."""
+        iteration plus the final one, and one host read per evaluation.
+        ``ygr`` / ``ygi`` override the Ybus entry values (same pattern)."""
         sbr = self._sbr if sbr is None else sbr
         sbi = self._sbi if sbi is None else sbi
-        vm = vm0.to(self.device, torch.float64, copy=True)
-        va = va0.to(self.device, torch.float64, copy=True)
-        front = isinstance(self._rp, MultifrontalLU)
-        bad = torch.zeros((), dtype=torch.bool, device=self.device)
-        it = 0
-        while True:
-            f, (vr, vi), (ir, ii) = self._mismatch_f(vm, va, sbr, sbi)
-            nrm = f.abs().max() if f.numel() else f.new_zeros(())
-            nrm, gated = torch.stack([nrm, bad.to(nrm.dtype)]).tolist()
-            if gated or not (nrm > self.tol and it < self.max_iter):
-                return vm, va, it, nrm, bool(gated)
-            jd = self._jac_data(vr, vi, vm, ir, ii)
-            if front:
-                fac, stats = self._rp.factor_piv(jd)
-                bad = _growth_gate(jd, stats, self.growth_limit,
-                                   self.piv_rtol)
-                # a gated iteration must not move the state
-                dx = self._rp.solve_piv(fac, -f).masked_fill_(bad, 0)
-            else:
-                dx = self._rp.refactor(jd)(-f)
-            va.index_add_(0, self._pvpq, dx[: self._npvpq])
-            vm.index_add_(0, self._pq, dx[self._npvpq:])
-            it += 1
+        vm, va, it, nrm, bad = self._iterate(
+            vm0.to(self.device, torch.float64, copy=True),
+            va0.to(self.device, torch.float64, copy=True), sbr, sbi,
+            ygr, ygi)
+        it, nrm, bad = torch.stack([it.to(nrm.dtype), nrm,
+                                    bad.to(nrm.dtype)]).tolist()
+        return vm, va, int(it), nrm, bool(bad)
 
-    def _host_newton(self, vm, va):
+    @torch.inference_mode()
+    def run_batch(self, vm0, va0, sbr, sbi, ygr=None, ygi=None):
+        """``run`` for K scenarios at once: vm0, va0, sbr, sbi (K, n) and
+        optional per-scenario Ybus values ``ygr`` / ``ygi`` (K, nnz).
+        Returns (vm, va, iterations, residual, bad) as tensors on the
+        device, (K, n), (K, n) and (K,) each; every scenario's values are
+        those of its own ``run``."""
+        return self._iterate(
+            vm0.to(self.device, torch.float64, copy=True),
+            va0.to(self.device, torch.float64, copy=True),
+            sbr.to(self.device, torch.float64),
+            sbi.to(self.device, torch.float64), ygr, ygi)
+
+    def _host_newton(self, vm, va, sb=None):
         """Continue Newton on the host with TRUE partial pivoting (``splu``
-        per iteration) from (vm, va): the growth-gate fallback.  Returns
-        (vm, va, iterations, residual)."""
+        per iteration) from (vm, va) for the injections ``sb`` (None: the
+        grid's): the growth-gate fallback.  Returns (vm, va, iterations,
+        residual)."""
         import warnings
 
         warnings.warn(
@@ -500,7 +607,7 @@ class NewtonPowerFlow:
         vm = np.array(vm, dtype=np.float64)
         va = np.array(va, dtype=np.float64)
         y_csr = self.Y.to_scipy().tocsr()
-        sb = sbus(self.grid)
+        sb = sbus(self.grid) if sb is None else sb
         pvpq = np.concatenate([self.grid.pv, self.grid.pq])
         pq = self.grid.pq
         it = 0
@@ -534,6 +641,32 @@ class NewtonPowerFlow:
             vm, va, it2, res = self._host_newton(vm, va)
             it += it2
         return vm, va, int(it), float(res)
+
+    @torch.inference_mode()
+    def solve_batch(self, sb_batch):
+        """Solve K load scenarios, ``sb_batch`` (K, n) complex bus
+        injections, from the flat start against the one symbolic
+        factorization: every iteration refactors all K Jacobians on the
+        device (``run_batch``).  A scenario whose factorization trips the
+        growth gate continues on the host with true partial pivoting
+        (warned), as in ``solve``.  Returns (vm, va, iterations, residual)
+        as tensors on the device."""
+        sb = np.asarray(sb_batch)
+        K, n = sb.shape[0], self.grid.n_bus
+        f64 = dict(dtype=torch.float64, device=self.device)
+        vm0 = torch.as_tensor(self.grid.vm0.astype(np.float64),
+                              **f64).expand(K, n)
+        sbr, sbi = (torch.as_tensor(np.ascontiguousarray(p), **f64)
+                    for p in (sb.real, sb.imag))
+        vm, va, it, res, bad = self.run_batch(vm0, torch.zeros_like(vm0),
+                                              sbr, sbi)
+        for k in np.flatnonzero(bad.cpu().numpy()):
+            vk, ak, ik, rk = self._host_newton(vm[k].cpu().numpy(),
+                                               va[k].cpu().numpy(), sb[k])
+            vm[k], va[k] = (torch.as_tensor(a, **f64) for a in (vk, ak))
+            it[k] += ik
+            res[k] = rk
+        return vm, va, it, res
 
 
 @torch.inference_mode()

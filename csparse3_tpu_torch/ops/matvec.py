@@ -184,8 +184,9 @@ class SplitSpMV(nn.Module):
 
         y_r = A_r x_r - A_i x_i        y_i = A_r x_i + A_i x_r
 
-    ``forward(xr, xi) -> (yr, yi)``.  For a real matrix A_i is dropped and
-    the two products collapse to one.
+    ``forward(xr, xi) -> (yr, yi)``, parts (n,) or a batch (K, n) of one
+    vector per scenario.  For a real matrix A_i is dropped and the two
+    products collapse to one.
     """
 
     def __init__(self, a: CSC, layout: str | None = None, device=None):
@@ -198,6 +199,13 @@ class SplitSpMV(nn.Module):
 
     @torch.inference_mode()
     def forward(self, xr, xi):
+        if xr.ndim == 2:
+            # a batch (K, n): the plans take (n, K) right-hand sides
+            yr, yi = self._apply(xr.T, xi.T)
+            return yr.T, yi.T
+        return self._apply(xr, xi)
+
+    def _apply(self, xr, xi):
         if self.im is None:
             return self.re(xr), self.re(xi)
         return (self.re(xr) - self.im(xi), self.re(xi) + self.im(xr))
@@ -476,9 +484,10 @@ def _split_apply(re, im, shared, xr, xi, plain=False):
 
 class _SplitBand(nn.Module):
     """Split-complex banded SpMV over two real plans ``re`` / ``im``:
-    ``forward(xr, xi) -> (yr, yi)`` with the algebra of ``SplitSpMV``.  The
-    two plans share one occupancy index where they have one
-    (``shared_runs``), and a product then walks it once for both."""
+    ``forward(xr, xi) -> (yr, yi)`` with the algebra of ``SplitSpMV``, parts
+    (n,) or a batch (K, n).  The two plans share one occupancy index where
+    they have one (``shared_runs``), and a product then walks it once for
+    both: on a CUDA device one launch, for one vector or for the batch."""
 
     @torch.inference_mode()
     def forward(self, xr, xi):

@@ -1120,3 +1120,177 @@ def test_newton_blocklu_on_cuda_matches_cpu(cuda, name):
     assert it == it_c and res <= 1e-10
     np.testing.assert_allclose(vm, vm_c, rtol=0, atol=1e-10)
     np.testing.assert_allclose(va, va_c, rtol=0, atol=1e-10)
+
+
+# -- the batched study path: K1 and K4 on a scenario axis ----------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 3, 32])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_batched_bandpoints_kernel_is_one_launch_of_single_bits(cuda, case,
+                                                                K):
+    """(K, n) parts: one launch for the batch, each row the bits of its own
+    one-vector launch, and the plain version's batch within REL; K = 1 is
+    the unbatched launch."""
+    make, kw = CASES[case]
+    Y = make()
+    plan = pt.SplitBandPoints(Y, device=cuda, **kw)
+    rng = np.random.RandomState(21)
+    xr, xi = (torch.as_tensor(rng.rand(K, Y.n).astype(np.float32),
+                              device=cuda) for _ in range(2))
+    before = plan.kernel_launches
+    yr, yi = plan(xr, xi)
+    assert plan.kernel_launches - before == 1 and yr.shape == (K, Y.m)
+    for k in range(K):
+        r1, i1 = plan(xr[k], xi[k])
+        assert torch.equal(yr[k], r1) and torch.equal(yi[k], i1)
+    pr, pi = plan.plain(xr, xi)
+    for got, want in ((yr, pr), (yi, pi)):
+        scale = want.abs().max()
+        assert ((got - want).abs() <= REL * scale).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 5])
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("n", [1037, 20_001])
+@pytest.mark.parametrize("plan", ["SplitDIA", "SplitSymDIA"])
+def test_batched_split_run_kernel_is_one_launch_of_single_bits(cuda, plan, n,
+                                                               dtype, K):
+    Y = _complex_band(n, 6, dtype)
+    f32 = dtype == np.complex64
+    kw = dict(tol=1e-6 if f32 else 1e-12) if plan == "SplitSymDIA" else {}
+    p = getattr(pt, plan)(Y, device=cuda, **kw)
+    assert p.shared_runs
+    real = np.float32 if f32 else np.float64
+    rng = np.random.RandomState(22)
+    xr, xi = (torch.as_tensor(rng.rand(K, n).astype(real), device=cuda)
+              for _ in range(2))
+    before = dict(kdia.LAUNCHES)
+    yr, yi = p(xr, xi)
+    torch.cuda.synchronize()
+    assert all(kdia.LAUNCHES[k] - before[k] == 1 for k in before)
+    assert yr.shape == (K, n)
+    for k in range(K):
+        r1, i1 = p(xr[k], xi[k])
+        assert torch.equal(yr[k], r1) and torch.equal(yi[k], i1)
+    # the plain walk of the index on the same batch, row by row within the
+    # rounding bound of the sums
+    pr, pi = p.plain(xr, xi)
+    for k in range(K):
+        x2 = torch.stack([xr[k], xi[k]])
+        bound = sum(_dia_bound(q, x2).sum(0) for q in (p.re, p.im))
+        assert ((yr[k] - pr[k]).abs() <= bound).all()
+        assert ((yi[k] - pi[k]).abs() <= bound).all()
+    # the wrapper's launch on a (K, n, 2) input directly
+    y = kdia.dia_split_cuda(p.re.slabs, p.im.slabs,
+                            torch.stack([xr, xi], dim=-1), p.re.omin,
+                            p.re.symmetric, p.re.runs,
+                            (p.re.run_values, p.im.run_values))
+    assert y.shape == (K, 2, n)
+    assert torch.equal(y[:, 0], yr) and torch.equal(y[:, 1], yi)
+
+
+def _load_batch(grid, K, seed=0):
+    from csparse3_tpu_torch.models.powerflow import sbus
+
+    scale = 1 + 0.05 * np.random.RandomState(seed).randn(K)
+    return sbus(grid)[None, :] * scale[:, None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spmv,solver", [("bandpoints", "multifrontal"),
+                                         ("ell", "level"),
+                                         ("dia", "blocklu")])
+def test_newton_solve_batch_on_cuda_matches_cpu(cuda, spmv, solver):
+    g = synthetic_grid(2000, seed=3)
+    if solver == "blocklu":
+        g = rcm_grid(g)[0]
+    tol = 5e-5 if spmv == "bandpoints" else 1e-10
+    sb = _load_batch(g, 6)
+    pf = NewtonPowerFlow(g, spmv=spmv, solver=solver, tol=tol)
+    launches = getattr(pf._yplan, "kernel_launches", None)
+    dia_before = kdia.LAUNCHES["dia_spmv"]
+    vm, va, it, res = pf.solve_batch(sb)
+    assert vm.device.type == "cuda" and vm.shape == (6, g.n_bus)
+    if spmv == "bandpoints":
+        # one K1 launch per batched mismatch evaluation
+        assert pf._yplan.kernel_launches - launches == int(it.max()) + 1
+    if spmv == "dia":
+        assert kdia.LAUNCHES["dia_spmv"] - dia_before == int(it.max()) + 1
+    vm_c, va_c, it_c, res_c = NewtonPowerFlow(
+        g, spmv=spmv, solver=solver, tol=tol, device="cpu").solve_batch(sb)
+    atol = 1e-4 if spmv == "bandpoints" else 1e-9
+    assert (res.cpu() <= tol).all()
+    np.testing.assert_allclose(vm.cpu().numpy(), vm_c.numpy(), rtol=0,
+                               atol=atol)
+    np.testing.assert_allclose(va.cpu().numpy(), va_c.numpy(), rtol=0,
+                               atol=atol)
+    if spmv != "bandpoints":
+        assert torch.equal(it.cpu(), it_c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["blocklu", "level"])
+def test_fast_decoupled_solve_batch_on_cuda_matches_cpu(cuda, solver):
+    g = rcm_grid(synthetic_grid(2000, seed=3))[0]
+    sb = _load_batch(g, 40, seed=1)
+    fd = FastDecoupled(g, spmv="symdia", solver=solver)
+    before = kdia.LAUNCHES["dia_spmv"]
+    vm, va, it = fd.solve_batch(sb)
+    # the residuals of every iteration and of the final state, two
+    # mismatches per step: one launch each for the whole batch
+    assert kdia.LAUNCHES["dia_spmv"] - before == 3 * int(it.max()) + 1
+    vm_c, va_c, it_c = FastDecoupled(g, spmv="symdia", solver=solver,
+                                     device="cpu").solve_batch(sb)
+    assert torch.equal(it.cpu(), it_c)
+    np.testing.assert_allclose(vm.cpu().numpy(), vm_c.numpy(), rtol=0,
+                               atol=1e-8)
+    np.testing.assert_allclose(va.cpu().numpy(), va_c.numpy(), rtol=0,
+                               atol=1e-8)
+
+
+@pytest.mark.gpu
+def test_contingencies_on_cuda_match_cpu(cuda):
+    from csparse3_tpu_torch.models.contingency import (ACContingency,
+                                                       DCContingency)
+
+    g = synthetic_grid(2000, seed=3)
+    ks = np.random.RandomState(2).choice(g.n_branch, 300, replace=False)
+    fl, th, ok = DCContingency(g).run(ks, batch=128)
+    fl_c, th_c, ok_c = DCContingency(g, device="cpu").run(ks, batch=128)
+    assert fl.device.type == "cuda" and torch.equal(ok.cpu(), ok_c)
+    _close_to(fl[ok], fl_c[ok_c], 1e-10)
+    _close_to(th[ok], th_c[ok_c], 1e-10)
+    g14 = ieee14()
+    for solver in ("level", "multifrontal"):
+        vm, va, it, ok = ACContingency(g14, solver=solver).run(batch=8)
+        vm_c, va_c, it_c, ok_c = ACContingency(g14, solver=solver,
+                                               device="cpu").run(batch=8)
+        assert torch.equal(ok.cpu(), ok_c) and not ok_c.all()
+        assert torch.equal(it.cpu()[ok_c], it_c[ok_c])
+        np.testing.assert_allclose(vm.cpu()[ok_c].numpy(),
+                                   vm_c[ok_c].numpy(), rtol=0, atol=1e-9)
+
+
+@pytest.mark.gpu
+def test_sensitivity_and_short_circuit_on_cuda_match_cpu(cuda):
+    from csparse3_tpu_torch.models.sensitivity import (LinearContingency,
+                                                       ptdf)
+    from csparse3_tpu_torch.models.shortcircuit import short_circuit
+
+    g = synthetic_grid(1000, seed=5)
+    H = ptdf(g, chunk=300)
+    assert H.device.type == "cuda"
+    _close_to(H, ptdf(g, chunk=300, device="cpu"), 1e-10)
+    fl, ok = LinearContingency(g).run()
+    fl_c, ok_c = LinearContingency(g, device="cpu").run()
+    assert torch.equal(ok.cpu(), ok_c)
+    _close_to(fl, fl_c, 1e-9)
+    res = short_circuit(g, buses=np.arange(0, 1000, 7), chunk=64)
+    ref = short_circuit(g, buses=np.arange(0, 1000, 7), chunk=64,
+                        device="cpu")
+    assert torch.equal(res.ok.cpu(), ref.ok)
+    for got, want in ((res.ifault, ref.ifault), (res.vpost, ref.vpost),
+                      (res.iflow, ref.iflow)):
+        _close_to(torch.view_as_real(got), torch.view_as_real(want), 1e-10)
