@@ -112,10 +112,14 @@ seconds):
            Newton within 1e-6); ``short_circuit`` at all 10,000 buses (16 Z
            columns within 1e-10 of scipy splu); ``parse_case`` of IEEE-14
            text through Newton.  Wall seconds and scenarios/s of each study;
-           the batched K1 and K4 launches alone against their plain
-           versions on the same batch and bit-equal to one launch per
-           scenario, with queued ms per launch and per scenario beside the
-           bound and the library call (torch.sparse CSR @ X (n, K)).
+           the batched K1 and K4 kernels (scenario-minor x, one launch a
+           batch; the timed solve_batch calls must go through them) alone
+           against their plain versions on the same batch and bit-equal to
+           one launch per scenario, at each K of a sweep (K1: 1, 8, 32,
+           128; K4 symmetric: 1, 16, 64, 256, general: 16), with queued ms
+           of the launch on its own layout, of the plan's whole call from
+           (K, n) parts and per scenario, beside the bound and the library
+           call (torch.sparse CSR @ X (n, K)).
 12. spgemm: the sparse-product path on three matrices: C = Cf - Ct of
            synthetic_grid(3000, seed=1) (the GridCal flow), the random
            10k x 10k matrix at 0.1% density of BASELINE config 2, and C of
@@ -2083,6 +2087,10 @@ N_SCEN_BLOCKLU = 16    # load scenarios of the batched Newton 'blocklu' solve
 N_AC_OUTAGES = 128     # outages of the AC contingency
 AC_BATCH = 32          # AC outages per batched Newton
 N_SAMPLED = 32         # DC outages checked on the host
+# batch sizes of the K1 and K4 sweeps (K4: the symmetric form; the general
+# form at N_SCEN_BLOCKLU is added to its sweep)
+K1_SWEEP = (1, 8, 32, 128)
+K4_SWEEP = (1, 16, 64, 256)
 # device bytes a DC contingency chunk may hold: a chunk's time is its
 # launches (~9k: 880 levels in each triangular solve, 125 front groups)
 # more than its bytes, so the chunk is as large as the card allows beside
@@ -2232,154 +2240,314 @@ def _islands(grid, k):
     return bool((labels != labels[grid.slack[0]]).any())
 
 
-def _batch_library_ms(A, X, dtype, reps=50):
+def _batch_library_ms(A, xr, xi, dtype, reps=50):
     """Device ms of the one library call for the batched product: a
-    torch.sparse CSR matrix of ``dtype`` times the dense (n, K) X (for the
-    records; used nowhere in the port), by queued CUDA events (late in the
-    run torch.profiler drops records).  Returns (ms, its product)."""
-    lib = _csr_tensor(A, X.device, dtype)
+    torch.sparse CSR matrix of ``dtype`` times the dense (n, K) X, and of
+    that call from the (K, n) parts xr, xi (X made by ``torch.complex`` and
+    a transposing copy), for the records (used nowhere in the port), by
+    queued CUDA events (late in the run torch.profiler drops records).
+    Returns (ms, ms from the parts, the product)."""
+    import torch
+
+    lib = _csr_tensor(A, xr.device, dtype)
+
+    def from_parts():
+        return lib @ torch.complex(xr, xi).T.contiguous()
+
+    X = torch.complex(xr, xi).T.contiguous()
     Y = lib @ X
     for _ in range(5):
         lib @ X
-    return min(queued_ms(lambda: lib @ X, reps) for _ in range(2)), Y
+        from_parts()
+    return (min(queued_ms(lambda: lib @ X, reps) for _ in range(2)),
+            min(queued_ms(from_parts, reps) for _ in range(2)), Y)
 
 
-def _k1_batch_record(dev, pf, sb):
-    """K1 on the scenario axis at the batched Newton's shape: one launch for
-    the K scenarios' (2, K, n) x against the plain version on the same batch
-    and bit-equal to K one-vector launches; queued ms per launch and per
-    scenario beside the bound and the library call (a complex64 CSR matrix
-    times X (n, K))."""
+def _share(rec):
+    """The bound's share of the measured time, for the log."""
+    return rec["bound_ms"] / rec["ms"] if rec["ms"] else 0.0
+
+
+def _pair_record(xr, xi, dtype, replaces):
+    """The copy kernel of ``scenario_minor_pairs`` on the (K, n) parts xr,
+    xi: one launch, equal to its plain version (a stack of the transposed
+    parts, itself one PyTorch call, so also ``library_ms``), queued ms of
+    each beside the bound of reading the parts and writing the pairs once
+    (no operations), and of the copy through a complex tensor
+    (``complex_copy_ms``: ``torch.complex`` of the parts, transposed)."""
     import torch
 
-    plan = pf._yplan
-    K, n = sb.shape
-    rng = np.random.RandomState(1)
-    x2 = torch.as_tensor(rng.rand(2, K, n).astype(np.float32), device=dev)
-    y = torch.empty((2, K, n), dtype=torch.float32, device=dev)
-    before = plan.kernel_launches
-    plan._launch(x2, y)
-    torch.cuda.synchronize()
-    if plan.kernel_launches != before + 1:
-        raise AssertionError("K1 batch: not one launch for the batch")
-    yp = torch.stack(plan.plain(x2[0], x2[1]))
-    scale = float(yp.abs().max())
-    err = float((y - yp).abs().max())
-    single = all(torch.equal(torch.stack(plan(x2[0, k], x2[1, k])),
-                             y[:, k]) for k in range(K))
-    if err > SPMV_REL * scale or not single:
-        raise AssertionError(f"K1 batch: err {err} over {scale}, bit-equal "
-                             f"to single launches: {single}")
+    from csparse3_tpu_torch.kernels import bandpoints as kbp
 
-    def kernel():
-        plan._launch(x2, y)
+    before = kbp.PAIR_LAUNCHES["scenario_minor_pairs"]
+    got = kbp.scenario_minor_pairs(xr, xi, dtype)
+    torch.cuda.synchronize()
+    if kbp.PAIR_LAUNCHES["scenario_minor_pairs"] != before + 1:
+        raise AssertionError("scenario_minor_pairs: not one launch")
 
     def plain():
-        plan.plain(x2[0], x2[1])
+        return torch.stack([xr.T.to(dtype), xi.T.to(dtype)], dim=-1)
+
+    err = float((got - plain()).abs().max())
+    if err != 0:
+        raise AssertionError(f"scenario_minor_pairs: differs from the "
+                             f"plain copy by {err}")
+
+    def kernel():
+        kbp.scenario_minor_pairs(xr, xi, dtype)
+
+    def via_complex():  # the same layout, viewed as real
+        return torch.view_as_real(torch.complex(
+            xr.to(dtype), xi.to(dtype)).T.contiguous())
+
+    if not torch.equal(via_complex(), got):
+        raise AssertionError("scenario_minor_pairs: the complex copy "
+                             "differs")
+    for _ in range(5):
+        kernel()
+        plain()
+        via_complex()
+    t = [queued_ms(plain, 200), queued_ms(kernel, 200),
+         queued_ms(kernel, 200), queued_ms(plain, 200)]
+    nbytes = 2 * got.numel() * got.element_size()
+    return dict(name="scenario_minor_pairs", route="cuda",
+                source="csparse3_tpu_torch/csrc/bandpoints.cu",
+                replaces=replaces, max_abs_err=err, ms=min(t[1], t[2]),
+                plain_ms=min(t[0], t[3]), library_ms=min(t[0], t[3]),
+                complex_copy_ms=queued_ms(via_complex, 200), turns=t,
+                **bound_record(nbytes, 0))
+
+
+def _k1_point(plan, Yh, K):
+    """K1 at one batch size K on the 10k-bus Ybus (float32): one launch of
+    the batched kernel (the one-vector kernel for K = 1) on its own input
+    layout, against the plain version (within SPMV_REL of max|y|) and
+    bit-equal to K one-vector launches; queued ms of that launch, of the
+    whole call from (K, n) parts (copies included), of the plain version and
+    of the library call (a complex64 CSR matrix times X (n, K)), beside the
+    bound of the matrix as the plan holds it, x and y."""
+    import torch
+
+    from csparse3_tpu_torch.kernels.bandpoints import scenario_minor_pairs
+
+    dev = plan.slabs.device
+    n, m = plan.n, plan.m
+    rng = np.random.RandomState(K)
+    xr, xi = (torch.as_tensor(rng.rand(K, n).astype(np.float32), device=dev)
+              for _ in range(2))
+    if K == 1:
+        x = torch.stack([xr[0], xi[0]])
+        y = torch.empty((2, m), dtype=torch.float32, device=dev)
+
+        def kernel():
+            plan._launch(x, y)
+
+        def whole():
+            return plan(xr[0], xi[0])
+    else:
+        x = scenario_minor_pairs(xr, xi, torch.float32)
+        y = torch.empty((2, K, m), dtype=torch.float32, device=dev)
+
+        def kernel():
+            plan._launch_batch(x, y)
+
+        def whole():
+            return plan(xr, xi)
+    before = plan.kernel_launches, plan.scenario_launches
+    kernel()
+    torch.cuda.synchronize()
+    if (plan.kernel_launches - before[0], plan.scenario_launches
+            - before[1]) != (1, int(K >= 2)):
+        raise AssertionError(f"K1 batch K={K}: not one launch of its kernel")
+    yk = y.reshape(2, K, m)
+    yp = torch.stack(plan.plain(xr, xi))
+    scale = float(yp.abs().max())
+    err = float((yk - yp).abs().max())
+    single = all(torch.equal(torch.stack(plan(xr[k], xi[k])), yk[:, k])
+                 for k in range(K))
+    same = torch.equal(torch.stack(whole()).reshape(2, K, m), yk)
+    if err > SPMV_REL * scale or not single or not same:
+        raise AssertionError(f"K1 batch K={K}: err {err} over {scale}, "
+                             f"bit-equal to single launches: {single}, the "
+                             f"call from parts the same: {same}")
+
+    def plain():
+        plan.plain(xr, xi)
 
     for _ in range(10):
         kernel()
-    t = [queued_ms(plain, 50), queued_ms(kernel, 200),
-         queued_ms(kernel, 200), queued_ms(plain, 50)]
+        whole()
+    t = [queued_ms(plain, 20), queued_ms(kernel, 200),
+         queued_ms(kernel, 200), queued_ms(plain, 20)]
     ms, plain_ms = min(t[1], t[2]), min(t[0], t[3])
+    whole_ms = min(queued_ms(whole, 200) for _ in range(2))
     ptr, col, val = plan._kernel_lists()
     nbytes = sum(t_.numel() * t_.element_size() for t_ in (
-        plan.slabs, plan.offs_t, ptr, col, val, x2, y))
+        plan.slabs, plan.offs_t, ptr, col, val, x, y))
     flops = 8 * K * (plan.slabs[0].count_nonzero().item() + col.numel())
-    Yh = pf.Y.to_scipy()
-    X = torch.complex(x2[0], x2[1]).T.contiguous()
-    lib_ms, yl = _batch_library_ms(Yh, X, np.complex64)
-    lerr = float(max((yl.real.T - y[0]).abs().max(),
-                     (yl.imag.T - y[1]).abs().max()))
+    lib_ms, lib_whole_ms, yl = _batch_library_ms(Yh, xr, xi, np.complex64)
+    lerr = float(max((yl.real.T - yk[0]).abs().max(),
+                     (yl.imag.T - yk[1]).abs().max()))
     if lerr > 4 * SPMV_REL * scale:
-        raise AssertionError(f"K1 batch: library product disagrees: {lerr}")
-    rec = dict(K=K, max_abs_err=err, ms=ms, ms_per_scenario=ms / K,
-               plain_ms=plain_ms, library_ms=lib_ms,
+        raise AssertionError(f"K1 batch K={K}: library product disagrees: "
+                             f"{lerr}")
+    rec = dict(K=K, max_abs_err=err, ms=ms, whole_call_ms=whole_ms,
+               ms_per_scenario=ms / K, plain_ms=plain_ms, library_ms=lib_ms,
+               library_whole_call_ms=lib_whole_ms,
                bit_equal_to_single_launches=single,
                **bound_record(nbytes, flops))
-    log(f"studies: K1 batch (2, {K}, {n}) float32: one launch "
-        f"device_ms={ms:.6f} per_scenario_ms={ms / K:.6f} plain_ms="
-        f"{plain_ms:.6f} (queued; plain,kernel,kernel,plain = {t}) "
-        f"library_csr_c64_@X_ms={lib_ms:.6f} bytes={nbytes} bound_ms="
-        f"{rec['bound_ms']:.6f} ({rec['bound_by']}) rel_err_vs_plain="
-        f"{err / scale:.3e} bit_equal_to_{K}_single_launches={single}")
+    if K >= 2:
+        rec["copy_of_x"] = _pair_record(
+            xr, xi, torch.float32, "csparse3_tpu/kernels/bandpoints.py:546")
+    log(f"studies: K1 K={K} (n={n}) float32: "
+        f"{'batched' if K >= 2 else 'one-vector'} kernel device_ms={ms:.6f} "
+        f"per_scenario_ms={ms / K:.6f} whole_call_from_parts_ms="
+        f"{whole_ms:.6f} plain_ms={plain_ms:.6f} (queued; plain,kernel,"
+        f"kernel,plain = {t}) library_csr_c64_@X_ms={lib_ms:.6f} (from "
+        f"parts {lib_whole_ms:.6f}) bytes="
+        f"{nbytes} bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}, "
+        f"{_share(rec):.1%} reached) rel_err_vs_plain={err / scale:.3e} "
+        + (f"copy_of_x_ms={rec['copy_of_x']['ms']:.6f} (plain stack "
+           f"{rec['copy_of_x']['plain_ms']:.6f}, complex copy "
+           f"{rec['copy_of_x']['complex_copy_ms']:.6f}, bound "
+           f"{rec['copy_of_x']['bound_ms']:.6f}) " if K >= 2 else "") +
+        f"bit_equal_to_{K}_single_launches={single}")
     return rec
 
 
-def _k4_batch_record(dev, plan, Y, K):
-    """K4 on the scenario axis at the batched fast-decoupled shape (float64
-    symmetric form, the 10k RCM Ybus): one split-complex launch for x (K, n,
-    2) against the plain walk of the index on the same batch (row by row
-    within the rounding bound) and bit-equal to K one-vector launches."""
+def _k4_point(plan, Y, K):
+    """K4 at one batch size K (float64, the 10k RCM Ybus, the plan's form):
+    one launch of the batched split-complex kernel over the plan's batch
+    entries on its scenario-minor x (n, K, 2) (the one-vector launch on an
+    (n, 2) pair for K = 1), against the plain walk of the index row by row
+    within the rounding bound of its sums and bit-equal to K one-vector
+    launches, and the same bits from a (K, n, 2) input; queued ms of that
+    launch, of the plan's whole call from (K, n) parts (the copy of x
+    included), of the plain walk and of the library call (a complex128 CSR
+    matrix times X (n, K)), beside the bound: for K = 1 the one-vector
+    route's bytes (index, packed values, x, y), for a batch the bytes the
+    function needs (the nonzeros, x, y: ``nonzero_bytes``; the batched
+    kernel walks the nonzero entries and reads nothing of the route), with
+    the route's bound kept beside it as ``route_bound_ms``."""
     import scipy.sparse as sp
     import torch
 
     from csparse3_tpu_torch.kernels import dia as kdia
+    from csparse3_tpu_torch.kernels.bandpoints import scenario_minor_pairs
 
     re, im = plan.re, plan.im
-    n = re.n
-    sym = re.symmetric
+    dev, n, m, sym = re.slabs.device, re.n, re.m, re.symmetric
     A = Y.to_scipy().tocsr()
     if sym:
         A = (sp.triu(A) + sp.triu(A, 1).T).tocsr()
     kmax = int(np.diff(A.indptr).max())
-    x = torch.rand((K, n, 2), dtype=torch.float64, device=dev)
-    vals = (re.run_values, im.run_values)
-    before = dict(kdia.LAUNCHES)
-    y = kdia.dia_split_cuda(re.slabs, im.slabs, x, re.omin, sym, re.runs,
-                            vals)
+    rng = np.random.RandomState(K)
+    xr, xi = (torch.as_tensor(rng.rand(K, n), device=dev) for _ in range(2))
+    args = (re.omin, sym, re.runs, (re.run_values, im.run_values))
+    if K == 1:
+        x = torch.stack([xr[0], xi[0]], dim=-1)
+
+        def kernel():
+            return kdia.dia_split_cuda(re.slabs, im.slabs, x, *args)
+
+        def whole():
+            return plan(xr[0], xi[0])
+    else:
+        x = scenario_minor_pairs(xr, xi, torch.float64)
+        entries = plan.batch_entries()
+
+        def kernel():
+            return kdia.dia_split_cuda(re.slabs, im.slabs, x, *args,
+                                       scenario_minor=True, entries=entries)
+
+        def whole():
+            return plan(xr, xi)
+    before = dict(kdia.LAUNCHES), dict(kdia.BATCH_LAUNCHES)
+    y = kernel().reshape(K, 2, m)
     torch.cuda.synchronize()
-    if any(kdia.LAUNCHES[k] != before[k] + 1 for k in before):
-        raise AssertionError("K4 batch: not one launch for the batch")
-    single = all(torch.equal(kdia.dia_split_cuda(
-        re.slabs, im.slabs, x[k], re.omin, sym, re.runs, vals), y[k])
-        for k in range(K))
-    pr, pi = plan.plain(x[..., 0], x[..., 1])
-    xa = x.abs().sum(-1).cpu().numpy()                  # (K, n)
+    if any(kdia.LAUNCHES[k] != before[0][k] + 1 for k in before[0]) or (
+            kdia.BATCH_LAUNCHES["dia_spmv_split_batched"]
+            != before[1]["dia_spmv_split_batched"] + (K >= 2)):
+        raise AssertionError(f"K4 batch K={K}: not one launch of its kernel")
+    single = all(torch.equal(torch.stack(plan(xr[k], xi[k])), y[k])
+                 for k in range(K))
+    same = torch.equal(torch.stack(whole(), dim=-2).reshape(K, 2, m), y)
+    if K >= 2:  # the wrapper's other batch layout
+        same &= torch.equal(kdia.dia_split_cuda(
+            re.slabs, im.slabs, torch.stack([xr, xi], dim=-1), *args,
+            entries=entries), y)
+    pr, pi = plan.plain(xr, xi)
+    xa = (xr.abs() + xi.abs()).cpu().numpy()             # (K, n)
     bound = torch.as_tensor(2 * (kmax + 2) * 2.0 ** -53 * 1.01 * (
         (abs(A.real) + abs(A.imag)) @ xa.T).T, device=dev)
     tiny = torch.finfo(torch.float64).tiny
     worst = max(float(((y[:, 0] - pr).abs() / (bound + tiny)).max()),
                 float(((y[:, 1] - pi).abs() / (bound + tiny)).max()))
     err = float(max((y[:, 0] - pr).abs().max(), (y[:, 1] - pi).abs().max()))
-    if worst > 1 or not single:
-        raise AssertionError(f"K4 batch: worst row err over bound {worst}, "
-                             f"bit-equal to single launches: {single}")
-
-    def kernel():
-        kdia.dia_split_cuda(re.slabs, im.slabs, x, re.omin, sym, re.runs,
-                            vals)
+    if worst > 1 or not single or not same:
+        raise AssertionError(f"K4 batch K={K}: worst row err over bound "
+                             f"{worst}, bit-equal to single launches: "
+                             f"{single}, the call from parts the same: "
+                             f"{same}")
 
     def plain():
-        plan.plain(x[..., 0], x[..., 1])
+        plan.plain(xr, xi)
 
     for _ in range(10):
         kernel()
+        whole()
     t = [queued_ms(plain, 5), queued_ms(kernel, 200), queued_ms(kernel, 200),
          queued_ms(plain, 5)]
     ms, plain_ms = min(t[1], t[2]), min(t[0], t[3])
+    whole_ms = min(queued_ms(whole, 100) for _ in range(2))
     nbytes, listed, _ = run_route_bytes(plan, x, y)
+    route_bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    if K >= 2:
+        nbytes = nonzero_bytes(re, im, x, y)[0]
     nnz = sum(int(p.slabs.count_nonzero()) * 2 - int(
         p.slabs[0].count_nonzero()) if sym else int(
             p.slabs.count_nonzero()) for p in (re, im))
-    X = torch.complex(x[..., 0], x[..., 1]).T.contiguous()
-    lib_ms, yl = _batch_library_ms(A, X, np.complex128)
+    lib_ms, lib_whole_ms, yl = _batch_library_ms(A, xr, xi, np.complex128)
     lerr = float(max((yl.real.T - y[:, 0]).abs().max(),
                      (yl.imag.T - y[:, 1]).abs().max()))
     if lerr > 1e-12 * float(y.abs().max()):
-        raise AssertionError(f"K4 batch: library product disagrees: {lerr}")
-    rec = dict(K=K, max_abs_err=err, ms=ms, ms_per_scenario=ms / K,
-               plain_ms=plain_ms, library_ms=lib_ms,
+        raise AssertionError(f"K4 batch K={K}: library product disagrees: "
+                             f"{lerr}")
+    rec = dict(K=K, form="symmetric" if sym else "general",
+               max_abs_err=err, ms=ms, whole_call_ms=whole_ms,
+               ms_per_scenario=ms / K, plain_ms=plain_ms, library_ms=lib_ms,
+               library_whole_call_ms=lib_whole_ms,
                bit_equal_to_single_launches=single,
                **bound_record(nbytes, 2 * 2 * nnz * K, F64_FLOP_PER_S))
-    log(f"studies: K4 batch x ({K}, {n}, 2) float64 symmetric form: one "
-        f"launch device_ms={ms:.6f} per_scenario_ms={ms / K:.6f} "
-        f"runs_plain_ms={plain_ms:.6f} (queued; plain,kernel,kernel,plain "
-        f"= {t}) library_csr_c128_@X_ms={lib_ms:.6f} bytes={nbytes} "
-        f"({listed} listed runs) bound_ms={rec['bound_ms']:.6f} "
-        f"({rec['bound_by']}) worst_row_err_over_bound={worst:.4f} "
+    if K >= 2:
+        rec.update(batch_entries=int(plan.batch_entries()[1].numel()),
+                   route_bound_ms=route_bound_ms, copy_of_x=_pair_record(
+                       xr, xi, torch.float64,
+                       "csparse3_tpu/kernels/dia_pallas.py:67"))
+    log(f"studies: K4 K={K} (n={n}) float64 {rec['form']} form: "
+        f"{'batched' if K >= 2 else 'one-vector'} kernel device_ms={ms:.6f} "
+        f"per_scenario_ms={ms / K:.6f} whole_call_from_parts_ms="
+        f"{whole_ms:.6f} runs_plain_ms={plain_ms:.6f} (queued; plain,kernel,"
+        f"kernel,plain = {t}) library_csr_c128_@X_ms={lib_ms:.6f} (from "
+        f"parts {lib_whole_ms:.6f}) bytes="
+        f"{nbytes} ({listed} listed runs) bound_ms={rec['bound_ms']:.6f} "
+        f"({rec['bound_by']}, {_share(rec):.1%} reached) "
+        + (f"route_bound_ms={route_bound_ms:.6f} copy_of_x_ms="
+           f"{rec['copy_of_x']['ms']:.6f} (plain stack "
+           f"{rec['copy_of_x']['plain_ms']:.6f}, complex copy "
+           f"{rec['copy_of_x']['complex_copy_ms']:.6f}, bound "
+           f"{rec['copy_of_x']['bound_ms']:.6f}) " if K >= 2 else "") +
+        f"worst_row_err_over_bound={worst:.4f} "
         f"bit_equal_to_{K}_single_launches={single}")
     return rec
+
+
+def _batch_record(name, src, replaces, main, sweep):
+    """The kernels line's record of a batched launch: the point at the
+    studies' batch with every key of a kernel record, and the sweep."""
+    return dict(name=name, route="cuda",
+                source=f"csparse3_tpu_torch/csrc/{src}.cu",
+                replaces=replaces, **main, sweep=sweep)
 
 
 def studies_phase(dev):
@@ -2395,6 +2563,7 @@ def studies_phase(dev):
                                     FastDecoupled, LinearContingency,
                                     NewtonPowerFlow, parse_case,
                                     short_circuit, zbus_columns)
+    from csparse3_tpu_torch.kernels import bandpoints as kbp
     from csparse3_tpu_torch.kernels import dia as kdia
     from csparse3_tpu_torch.models.grids import (rcm_grid, synthetic_grid,
                                                  ybus)
@@ -2412,9 +2581,12 @@ def studies_phase(dev):
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         pf.solve_batch(sb[:2])           # warm-up: first-use allocations
-        pf._yplan.kernel_launches = 0
+        pf._yplan.kernel_launches = pf._yplan.scenario_launches = 0
+        kbp.PAIR_LAUNCHES["scenario_minor_pairs"] = 0
         (vm, va, it, res), secs = _timed(lambda: pf.solve_batch(sb))
         k1_launches = pf._yplan.kernel_launches
+        k1_batched = pf._yplan.scenario_launches
+        k1_pairs = kbp.PAIR_LAUNCHES["scenario_minor_pairs"]
     if _gate_engaged(caught):
         raise AssertionError("studies newton: the growth gate engaged")
     vm_h, va_h, it_h = vm.cpu().numpy(), va.cpu().numpy(), it.cpu().numpy()
@@ -2433,19 +2605,25 @@ def studies_phase(dev):
                 f" iterations={sorted(set(it_h.tolist()))} max_residual="
                 f"{float(res.max()):.3e} max_host_f64_mismatch={max(hm):.3e} "
                 f"(bound {HOST_MISMATCH:.0e}) k1_launches={k1_launches} "
+                f"(batched kernel {k1_batched}, copies of x {k1_pairs}) "
                 f"(mismatch evaluations {int(it_h.max()) + 1}) "
                 f"state_diff_vs_single_solves(4)={max(diffs):.3e}")
     if max(hm) > HOST_MISMATCH or (res > pf.tol).any():
         raise AssertionError("studies newton: a scenario did not converge")
-    if k1_launches != int(it_h.max()) + 1:
+    if not k1_launches == k1_batched == k1_pairs == int(it_h.max()) + 1:
         raise AssertionError(f"studies newton: {k1_launches} K1 launches "
+                             f"({k1_batched} of the batched kernel, "
+                             f"{k1_pairs} copies of x) "
                              f"for {int(it_h.max()) + 1} batched mismatch "
                              "evaluations")
     if max(diffs) > STATE_ATOL:
         raise AssertionError("studies newton: the batch disagrees with the "
                              "single solves")
-    k1_rec = _k1_batch_record(dev, pf, sb)
-    k1_rec["launches"] = k1_launches
+    k1_sweep = [_k1_point(pf._yplan, pf.Y.to_scipy(), k)
+                for k in K1_SWEEP]
+    k1_rec = dict(next(r for r in k1_sweep if r["K"] == K),
+                  launches=k1_batched)
+    k1_rec["copy_of_x"] = dict(k1_rec["copy_of_x"], launches=k1_pairs)
     del pf, vm, va
 
     # ---- (b) fast-decoupled 'symdia' / 'blocklu', K load scenarios
@@ -2454,13 +2632,16 @@ def studies_phase(dev):
     sb = _scenarios(g_rcm, K)
     fd = FastDecoupled(g_rcm, spmv="symdia", solver="blocklu", device=dev)
     fd.solve_batch(sb[:2])
-    for key in kdia.LAUNCHES:
-        kdia.LAUNCHES[key] = 0
+    for counts in (kdia.LAUNCHES, kdia.BATCH_LAUNCHES, kbp.PAIR_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
     (vm, va, it), secs = _timed(lambda: fd.solve_batch(sb))
     sbr, sbi = (torch.as_tensor(np.ascontiguousarray(p), device=dev)
                 for p in (sb.real, sb.imag))
     res = fd.residual(vm, va, sbr, sbi)
+    k4_fdpf_pairs = kbp.PAIR_LAUNCHES["scenario_minor_pairs"]
     k4_fdpf = kdia.LAUNCHES["dia_spmv"]
+    k4_fdpf_batched = kdia.BATCH_LAUNCHES["dia_spmv_split_batched"]
     its = int(it.max())
     worst = 0.0
     for k in range(K):
@@ -2473,17 +2654,21 @@ def studies_phase(dev):
                     float((a1 - va[k]).abs().max()))
     _study_line("fdpf_symdia_blocklu", secs, K,
                 f" iterations={sorted(set(it.tolist()))} max_residual="
-                f"{float(res.max()):.3e} k4_launches={k4_fdpf} (3 it + 2 = "
-                f"{3 * its + 2}, with the batch's residual check) "
+                f"{float(res.max()):.3e} k4_launches={k4_fdpf} (batched "
+                f"kernel {k4_fdpf_batched}, copies of x {k4_fdpf_pairs}; 3 "
+                f"it + 2 = {3 * its + 2}, with "
+                "the batch's residual check) "
                 f"max_state_diff_vs_{K}_single_solves={worst:.3e} (bound "
                 f"{FDPF_BATCH_ATOL:.0e})")
     if (res > fd.tol).any() or worst > FDPF_BATCH_ATOL:
         raise AssertionError("studies fdpf: the batch did not converge or "
                              "disagrees with the single solves")
-    if k4_fdpf != 3 * its + 2:
-        raise AssertionError(f"studies fdpf: {k4_fdpf} K4 launches, not "
+    if not k4_fdpf == k4_fdpf_batched == k4_fdpf_pairs == 3 * its + 2:
+        raise AssertionError(f"studies fdpf: {k4_fdpf} K4 launches "
+                             f"({k4_fdpf_batched} batched, {k4_fdpf_pairs} "
+                             f"copies of x), not "
                              f"3 it + 2 = {3 * its + 2}")
-    k4_rec = _k4_batch_record(dev, fd._yplan, fd.Y, K)
+    k4_sweep = [_k4_point(fd._yplan, fd.Y, k) for k in K4_SWEEP]
     del fd, vm, va
 
     # ---- (b') Newton 'dia' / 'blocklu', K load scenarios
@@ -2491,10 +2676,13 @@ def studies_phase(dev):
     sb = sb[:K]
     pf = NewtonPowerFlow(g_rcm, spmv="dia", solver="blocklu", device=dev)
     pf.solve_batch(sb[:2])
-    for key in kdia.LAUNCHES:
-        kdia.LAUNCHES[key] = 0
+    for counts in (kdia.LAUNCHES, kdia.BATCH_LAUNCHES, kbp.PAIR_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
     (vm, va, it, res), secs = _timed(lambda: pf.solve_batch(sb))
     k4_newton = kdia.LAUNCHES["dia_spmv"]
+    k4_newton_batched = kdia.BATCH_LAUNCHES["dia_spmv_split_batched"]
+    k4_newton_pairs = kbp.PAIR_LAUNCHES["scenario_minor_pairs"]
     vm_h, va_h = vm.cpu().numpy(), va.cpu().numpy()
     hm = max(_host_mismatch_sb(g_rcm, pf.Y, vm_h[k], va_h[k], sb[k])
              for k in range(K))
@@ -2509,14 +2697,24 @@ def studies_phase(dev):
                 f" iterations={sorted(set(it.tolist()))} "
                 f"max_host_f64_mismatch={hm:.3e} (bound "
                 f"{DIA_HOST_MISMATCH:.0e}) k4_launches={k4_newton} "
+                f"(batched kernel {k4_newton_batched}, copies of x "
+                f"{k4_newton_pairs}) "
                 f"(mismatch evaluations {int(it.max()) + 1}) "
                 f"state_diff_vs_single_solve={diff:.3e}")
     if hm > DIA_HOST_MISMATCH or diff > DIA_STATE_ATOL or its1 != int(it[0]):
         raise AssertionError("studies newton blocklu: the batch disagrees")
-    if k4_newton != int(it.max()) + 1:
+    if not (k4_newton == k4_newton_batched == k4_newton_pairs
+            == int(it.max()) + 1):
         raise AssertionError(f"studies newton blocklu: {k4_newton} K4 "
+                             f"({k4_newton_batched} batched, "
+                             f"{k4_newton_pairs} copies of x) "
                              "launches")
-    k4_rec["launches"] = k4_fdpf + k4_newton
+    # the general form at the Newton 'blocklu' batch's K
+    k4_sweep.append(_k4_point(pf._yplan, pf.Y, K))
+    k4_rec = dict(next(r for r in k4_sweep if r["K"] == N_SCEN_FDPF),
+                  launches=k4_fdpf_batched + k4_newton_batched)
+    k4_rec["copy_of_x"] = dict(k4_rec["copy_of_x"],
+                               launches=k4_fdpf_pairs + k4_newton_pairs)
     del pf, vm, va
 
     # ---- (c) DC contingency over every branch
@@ -2648,7 +2846,13 @@ def studies_phase(dev):
     if hm > 1e-8:
         raise AssertionError("studies matpower: Newton on the parsed case")
     log(f"studies: phase seconds {time.perf_counter() - t_phase:.1f}")
-    return k1_launches, k4_fdpf + k4_newton, k1_rec, k4_rec
+    return (k1_launches, k4_fdpf + k4_newton,
+            _batch_record("bandpoints_spmv_batched", "bandpoints",
+                          "csparse3_tpu/kernels/bandpoints.py:546", k1_rec,
+                          k1_sweep),
+            _batch_record("dia_spmv_split_batched", "dia_spmv",
+                          "csparse3_tpu/kernels/dia_pallas.py:67", k4_rec,
+                          k4_sweep))
 
 
 def main():
@@ -2713,11 +2917,14 @@ def main():
                     "csparse3_tpu/kernels/bandpoints.py:546", launches,
                     k["default"]),
              cold_l2_ms=k["default"]["cold_l2_ms"],
-             # the scenario axis: one launch for the K = 32 load scenarios'
-             # x (2, K, n) at 10k buses, the batched Newton's shape; its
+             # the scenario axis: the batched kernel's one launch for the
+             # K = 32 load scenarios at 10k buses (the batched Newton's
+             # shape) on its scenario-minor x (n, K, 2); whole_call_ms is
+             # the plan's call from (K, n) parts, the copy included; its
              # launches are those of the timed solve_batch (one per batched
              # mismatch evaluation); library_ms is the complex64 CSR matrix
-             # times X (n, K)
+             # times X (n, K); sweep: the same at each K of K1_SWEEP (K = 1
+             # the one-vector launch)
              batch=k1_batch,
              points_groups=dict(
                  replaces="csparse3_tpu/kernels/bandpoints.py:266",
@@ -2749,12 +2956,16 @@ def main():
                  "nonzero_bound_ms", "dense_bound_ms", "listed_runs",
                  "index_bytes")},
              symmetric_form=band["symdia"],
-             # the scenario axis: one split-complex launch for K = 256 load
-             # scenarios' x (K, n, 2), float64 symmetric form on the 10k RCM
-             # Ybus (the batched fast-decoupled shape); its launches are
-             # those of the timed FastDecoupled and Newton 'blocklu'
-             # solve_batch calls; library_ms is the complex128 CSR matrix
-             # times X (n, K)
+             # the scenario axis: the batched split-complex kernel's one
+             # launch for K = 256 load scenarios, float64 symmetric form on
+             # the 10k RCM Ybus (the batched fast-decoupled shape), on its
+             # scenario-minor x (n, K, 2) and the plan's batch entries;
+             # whole_call_ms is the plan's call from (K, n) parts, the copy
+             # included; its launches are those of the timed FastDecoupled
+             # and Newton 'blocklu' solve_batch calls; library_ms is the
+             # complex128 CSR matrix times X (n, K); sweep: the symmetric
+             # form at each K of K4_SWEEP (K = 1 the one-vector launch) and
+             # the general form at the Newton 'blocklu' batch's K = 16
              batch=k4_batch,
              # per SplitDIA / SplitSymDIA call (1 launch) on the 200k-bus
              # RCM Ybus, float32; the library call is the complex64 CSR
@@ -2764,6 +2975,17 @@ def main():
                        "Ybus, per split-complex call of 1 launch",
                  launches_per_call=1, general_form=dia["dia"],
                  symmetric_form=dia["symdia"])),
+        # the copy of a batch's (K, n) parts into the batched kernels'
+        # scenario-minor (n, K, 2) layout (scenario_minor_pairs), which the
+        # batched K1 and K4 launches read: the top-level numbers are one
+        # launch at the fast-decoupled batch's shape (float64, K = 256, 10k
+        # buses); its launches are those of the timed solve_batch calls (one
+        # before each batched K1 or K4 launch); library_ms is the plain
+        # stack of the transposed parts; float32_k32 is the Newton batch's
+        dict(k4_batch["copy_of_x"],
+             launches=(k1_batch["copy_of_x"]["launches"]
+                       + k4_batch["copy_of_x"]["launches"]),
+             float32_k32=k1_batch["copy_of_x"]),
         record("triad", "triad", "probes/_probe_pallas.py:38",
                tri["launches"], tri),
         # the top-level numbers are one launch on the 200k-bus grid's

@@ -52,6 +52,44 @@
 // 8- or 16-byte load of x per run, where two launches on the stacked input
 // made two of each.
 //
+// A batch of K vectors (the scenario axis of the batched power-flow studies:
+// K load cases, one Ybus) is one launch of its own kernel, scenario-minor.
+// x comes as (n, K, 2): the K scenarios' (xr, xi) of a column side by side,
+// copied from the solver's (K, n) parts by the copy kernel of bandpoints.cu
+// (kernels/bandpoints.py scenario_minor_pairs).
+// A thread owns one (row, scenario) pair, and L lanes (a power of two, at
+// most 32, chosen by the caller from K) take consecutive scenarios of one
+// row.  The lanes of a row read the same matrix values (a warp-uniform load:
+// one read serves L scenarios), and the gather x[col, k0 : k0 + L] is one
+// contiguous read of up to 512 bytes.  y stays (K, 2, m): a CTA's rows x
+// scenarios go through shared memory and are written along m.
+//   Three designs lost on an H100 at 10k buses x 256 scenarios, float64,
+// symmetric form.  Lanes over rows with the scenario on the grid's second
+// axis read the matrix again for every scenario (0.245 ms, 2.5x the
+// library's CSR product).  Lanes over scenarios walking the index were
+// hardly faster: a run is 4 rows wide, ~79% of the listed slots are zeros
+// that pad a run, and each cost every scenario the walk's address
+// arithmetic and tests.  A CTA that copied the band of x its rows meet
+// from the (K, n) parts into shared memory, to spare the copy of x into
+// this layout, was slower still: its rows' passes wait on each other's
+// loads.  So the kernel walks the plan's batch entries
+// (kernels/dia.py batch_entries, built once from the index and the packed
+// values): for each row and lane-set j of the one-vector launch, the slots
+// j adds there that hold a nonzero and meet a column inside the matrix, as
+// (col, re, im), in the order j adds them.
+//   Bits.  The one-vector launch splits a group's list over P = run_parts(m)
+// lane-sets and folds their sums by shuffles.  The batched thread makes
+// each lane-set's partial sum from its entries in their order and folds
+// the partial sums in the same tree (P = 8: ((s0 + s4) + (s2 + s6)) + ((s1
+// + s5) + (s3 + s7))).  Both kernels write every product as an explicit
+// fused multiply-add (fma_rn), so that no compiler contraction can tell
+// them apart: a row of a batch has the bits of its own one-vector launch,
+// and K = 1 goes to the one-vector launch.  The slots left out add a zero
+// product there: on finite x every sum keeps its value, and only the sign
+// of a zero sum may differ (torch.equal holds).  An inf or NaN of x that
+// only zero slots meet gives NaN in the one-vector launch (0 * inf) and
+// nothing here, as in a product over the nonzeros.
+//
 // Packed run values.  The listed runs lie scattered over the 1.5 GB of a
 // slab set, one 16-byte read per run, and that is what the card does worst:
 // a run kernel that read them there took 43-46 us for the split-complex
@@ -252,6 +290,24 @@ struct alignas(2 * sizeof(T)) Pair {
   T re, im;
 };
 
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// acc[0] += a * xr, [1] += a * xi, [2] += b * xr, [3] += b * xi, each one
+// rounding (a, b: the re and im values of one slot)
+template <typename T>
+__device__ __forceinline__ void split_mac(T (&acc)[4], T a, T b,
+                                          Pair<T> xv) {
+  acc[0] = fma_rn(a, xv.re, acc[0]);
+  acc[1] = fma_rn(a, xv.im, acc[1]);
+  acc[2] = fma_rn(b, xv.re, acc[2]);
+  acc[3] = fma_rn(b, xv.im, acc[3]);
+}
+
 // The split-complex product in one launch.  A complex matrix is held as two
 // real slab sets, re and im, that share one occupancy index (given here as
 // their packed run values, forward and mirror); x is (n, 2), the real and
@@ -261,11 +317,9 @@ struct alignas(2 * sizeof(T)) Pair {
 // two launches of dia_runs_kernel on the stacked input combine theirs, with
 // one walk of the index and one read of x in place of two.
 //
-// A batch of K vectors (the scenario axis of the batched power-flow studies)
-// is one launch with grid.y = K: x is (K, n, 2) and y (K, 2, m), the index
-// and the packed run values shared.  Scenario k's threads make the sums of
-// the one-vector launch in the same order, so each row of the batch has the
-// bits of its own launch and K = 1 is that launch.
+// Every product is an explicit fused multiply-add (fma_rn), not one the
+// compiler may contract or not: the batched kernel below makes the same
+// ones, so that a row of a batch has this launch's bits.
 template <typename T, int P, bool SYM>
 __global__ void dia_runs_split_kernel(int m, int n, int omin, int ngroups,
                                       RunIndex index,
@@ -281,8 +335,6 @@ __global__ void dia_runs_split_kernel(int m, int n, int omin, int ngroups,
   const int* __restrict__ mir_diag = index.mir_diag;
   constexpr int S = kRunRows;
   static_assert(S * P <= 32, "a group's lane-sets must fit one warp");
-  x += static_cast<size_t>(blockIdx.y) * n;
-  y += static_cast<size_t>(blockIdx.y) * 2 * m;
   const long long t =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = static_cast<int>(t % S);
@@ -301,13 +353,7 @@ __global__ void dia_runs_split_kernel(int m, int n, int omin, int ngroups,
       const long long col = base + d;
       if (row && col >= 0 && col < n) {
         const size_t at = static_cast<size_t>(r) * S + lane;
-        const T a = re_vals[at];
-        const T b = im_vals[at];
-        const Pair<T> xv = x[col];
-        acc[0] += a * xv.re;
-        acc[1] += a * xv.im;
-        acc[2] += b * xv.re;
-        acc[3] += b * xv.im;
+        split_mac(acc, re_vals[at], im_vals[at], x[col]);
       }
     }
     if (SYM) {
@@ -318,13 +364,7 @@ __global__ void dia_runs_split_kernel(int m, int n, int omin, int ngroups,
         const long long j = i - d;
         if (row && d > 0 && j >= 0) {
           const size_t at = static_cast<size_t>(r) * S + lane;
-          const T a = re_mir[at];
-          const T b = im_mir[at];
-          const Pair<T> xv = x[j];
-          acc[0] += a * xv.re;
-          acc[1] += a * xv.im;
-          acc[2] += b * xv.re;
-          acc[3] += b * xv.im;
+          split_mac(acc, re_mir[at], im_mir[at], x[j]);
         }
       }
     }
@@ -338,6 +378,169 @@ __global__ void dia_runs_split_kernel(int m, int n, int omin, int ngroups,
   if (row && part == 0) {
     y[i] = acc[0] - acc[3];
     y[static_cast<size_t>(m) + i] = acc[1] + acc[2];
+  }
+}
+
+// log2 of the batched kernel's CTA size: a CTA is cut into rows x scenario
+// lanes by shifts
+constexpr int kBatchTileLog2 = 7;
+constexpr int kBatchTile = 1 << kBatchTileLog2;
+
+// entries of a row whose gathers the batched kernel stages in shared memory
+// before it multiplies; the rest of a longer row is read as it is added
+// (a row of the 10k-bus Ybus has 5.4 on average).  And the CTAs of it an
+// SM should hold: the register cap that gives (64 in float64) keeps 32
+// warps in flight without spilling.  Measured on an H100 by
+// tune_dia_spmv.py --batch at 10k buses x 256 scenarios, float64, both
+// forms: 4 entries at 8 CTAs 66.8-66.9 us; 8 entries at 8 CTAs 89.9-90.0,
+// uncapped (100 registers) 107.6-110.4; 2 entries 72.7-73.7; 1 entry at 10
+// CTAs (48 registers, spilling) 99.0-99.3.  At 16 scenarios 4 entries are
+// also the fastest (8.6 us against 9.0-10.5)
+constexpr int kEntryChunk = 4;
+constexpr int kBatchCtasPerSm = 8;
+
+// log2 of the lane-sets P, and the position of lane-set j in the one-vector
+// launch's shuffle tree (bits reversed): the tree adds the partial sums in
+// the order of their positions, pairs first
+template <int P>
+constexpr int kLog2Parts = P == 8 ? 3 : P == 4 ? 2 : P == 2 ? 1 : 0;
+template <int P>
+__host__ __device__ constexpr int tree_part(int pos) {
+  int j = 0;
+  for (int l = 0; l < kLog2Parts<P>; ++l)
+    j |= ((pos >> l) & 1) << (kLog2Parts<P> - 1 - l);
+  return j;
+}
+
+// acc += the products of entry e of the row, q = e - (the row's first):
+// from the staged gathers and values for q < C, else read here
+template <typename T, int C>
+__device__ __forceinline__ void add_staged(
+    T (&acc)[4], int q, int e, const Pair<T> (*xs)[kBatchTile],
+    const Pair<T>* vrow, const T* __restrict__ ere,
+    const T* __restrict__ eim, const int* __restrict__ ecol,
+    const Pair<T>* __restrict__ xk, int K) {
+  if (q < C) {
+    const Pair<T> v = vrow[q];
+    split_mac(acc, v.re, v.im, xs[q][threadIdx.x]);
+  } else {
+    split_mac(acc, ere[e], eim[e], xk[static_cast<size_t>(ecol[e]) * K]);
+  }
+}
+
+// The split-complex product for K vectors in one launch, scenario-minor,
+// over the plan's batch entries: for each row and lane-set j of the
+// one-vector launch (P = run_parts(m) of them), the slots j adds there that
+// hold a nonzero (re or im) and meet a column inside the matrix, in the
+// order it adds them (forward list, then mirror list): entries
+// eptr[i * P + j] .. eptr[i * P + j + 1] of (ecol, ere, eim)
+// (kernels/dia.py batch_entries).  x is (n, K) pairs (x[col * K + k]: the K
+// scenarios of a column side by side) and y is (K, 2, m).  A thread owns one
+// (row, scenario) pair: L = 1 << lanes_log2 lanes take consecutive
+// scenarios of one row, a CTA holds kBatchTile / L rows, and grid.y walks
+// the scenarios in chunks of L.  The lanes of a row read the same entries
+// (warp-uniform loads: one read serves L scenarios) and gather x[col, k0 :
+// k0 + L], one contiguous read.
+//
+// Bits: partial sum j adds its entries in order with the fma_rn of the
+// one-vector launch, and the partial sums are folded in that launch's
+// shuffle tree (P = 8: ((s0 + s4) + (s2 + s6)) + ((s1 + s5) + (s3 + s7))),
+// so every row of the batch has the bits of its own one-vector launch, up
+// to the sign of a zero: the slots left out add +-0 there.  The thread
+// makes the partial sums one after the other in the order of the tree and
+// folds each as it is done (a binary counter), so that it holds one partial
+// sum and log2(P) folded ones, not P: the gathers of the row's first
+// kEntryChunk entries wait in shared memory, read there by position.  Lanes
+// past the last scenario read scenario K - 1 and write nothing; the rows of
+// the CTA go through shared memory, so that y is written along m.
+template <typename T, int P>
+__global__ void __launch_bounds__(kBatchTile, kBatchCtasPerSm)
+    dia_entries_split_kernel(
+    int m, int K, int lanes_log2, const int* __restrict__ eptr,
+    const int* __restrict__ ecol, const T* __restrict__ ere,
+    const T* __restrict__ eim, const Pair<T>* __restrict__ x,
+    T* __restrict__ y) {
+  constexpr int C = kEntryChunk;
+  constexpr int LOGP = kLog2Parts<P>;
+  // the staged gathers (one column per thread) and values (one row of C
+  // per row of the CTA: at least 2 lanes a row)
+  __shared__ Pair<T> xs[C][kBatchTile];
+  __shared__ Pair<T> vs[kBatchTile / 2][C];
+  const int rows_log2 = kBatchTileLog2 - lanes_log2;
+  const int rows = 1 << rows_log2;
+  const int s = threadIdx.x & ((1 << lanes_log2) - 1);
+  const int rl = threadIdx.x >> lanes_log2;
+  const long long i0 = static_cast<long long>(blockIdx.x) << rows_log2;
+  const long long i = i0 + rl;
+  const int k0 = blockIdx.y << lanes_log2;
+  const Pair<T>* __restrict__ xk = x + min(k0 + s, K - 1);
+  int seg[P + 1];
+  if (i < m) {
+#pragma unroll
+    for (int j = 0; j <= P; ++j) seg[j] = eptr[i * P + j];
+    Pair<T> xv[C];
+#pragma unroll
+    for (int q = 0; q < C; ++q)
+      if (seg[0] + q < seg[P])
+        xv[q] = xk[static_cast<size_t>(ecol[seg[0] + q]) * K];
+    if (s == 0) {
+#pragma unroll
+      for (int q = 0; q < C; ++q)
+        if (seg[0] + q < seg[P])
+          vs[rl][q] = Pair<T>{ere[seg[0] + q], eim[seg[0] + q]};
+    }
+#pragma unroll
+    for (int q = 0; q < C; ++q)
+      if (seg[0] + q < seg[P]) xs[q][threadIdx.x] = xv[q];
+  }
+  __syncwarp();
+  // done[l]: the fold of 2^l partial sums, waiting for its right sibling
+  T done[LOGP + 1][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) done[LOGP][c] = T(0);
+  if (i < m) {
+#pragma unroll
+    for (int pos = 0; pos < P; ++pos) {
+      const int j = tree_part<P>(pos);
+      T acc[4] = {T(0), T(0), T(0), T(0)};
+      // most lane-sets add one entry or none: the first is not a trip of
+      // the loop, so that its reads need not wait for the previous one's
+      const int e0 = seg[j], e1 = seg[j + 1];
+      if (e0 < e1)
+        add_staged<T, C>(acc, e0 - seg[0], e0, xs, vs[rl], ere, eim, ecol,
+                         xk, K);
+      for (int e = e0 + 1; e < e1; ++e)
+        add_staged<T, C>(acc, e - seg[0], e, xs, vs[rl], ere, eim, ecol, xk,
+                         K);
+      // fold: the tree adds this partial sum to the folded left siblings
+      // of its trailing one bits, and the result waits at the first zero
+      // bit (every index is known at compile time: pos is unrolled)
+#pragma unroll
+      for (int l = 0; l <= LOGP; ++l) {
+        if ((pos & ((1 << l) - 1)) != (1 << l) - 1) continue;
+        if (l < LOGP && ((pos >> l) & 1)) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[c] = done[l][c] + acc[c];
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) done[l][c] = acc[c];
+        }
+      }
+    }
+  }
+  // (scenario, row) tiles of yr and yi, a row of padding per scenario
+  __shared__ T tile[2][kBatchTile + 32];
+  const int ld = rows + 1;
+  tile[0][s * ld + rl] = done[LOGP][0] - done[LOGP][3];
+  tile[1][s * ld + rl] = done[LOGP][1] + done[LOGP][2];
+  __syncthreads();
+  const int s2 = threadIdx.x >> rows_log2;
+  const int r2 = threadIdx.x & (rows - 1);
+  const int k = k0 + s2;
+  if (k < K && i0 + r2 < m) {
+    T* yk = y + static_cast<size_t>(k) * 2 * m + i0 + r2;
+    yk[0] = tile[0][s2 * ld + r2];
+    yk[m] = tile[1][s2 * ld + r2];
   }
 }
 
@@ -417,16 +620,16 @@ int launch_runs(int symmetric, int m, int n, int omin, int B, int ngroups,
                                       v, xv, yv, st);
 }
 
-// Two slab sets, x (K, n, 2).  vals: the packed values of re's and im's
-// forward runs, then of their mirror runs.
+// Two slab sets, one vector: x (n, 2), y (2, m).  vals: the packed values
+// of re's and im's forward runs, then of their mirror runs.
 template <typename T, int P>
-int launch_split_p(int symmetric, int m, int n, int omin, int ngroups, int K,
+int launch_split_p(int symmetric, int m, int n, int omin, int ngroups,
                    RunIndex index, const T* const* vals, const Pair<T>* x,
                    T* y, cudaStream_t stream) {
   if constexpr (kRunRows * P > 32) {
     return -1;
   } else {
-    const dim3 grid(run_grid<P>(ngroups), K);
+    const int grid = run_grid<P>(ngroups);
     if (symmetric)
       dia_runs_split_kernel<T, P, true><<<grid, kTile, 0, stream>>>(
           m, n, omin, ngroups, index, vals[0], vals[1], vals[2], vals[3], x,
@@ -439,10 +642,8 @@ int launch_split_p(int symmetric, int m, int n, int omin, int ngroups, int K,
   }
 }
 
-// The lane-sets per group stay those of one vector (run_parts(m)) whatever
-// K is: a row of the batch must have the bits of its own launch.
 template <typename T>
-int launch_split(int symmetric, int m, int n, int omin, int ngroups, int K,
+int launch_split(int symmetric, int m, int n, int omin, int ngroups,
                  RunIndex index, const void* const* vals, const void* x,
                  void* y, cudaStream_t st) {
   const T* v[4];
@@ -451,20 +652,60 @@ int launch_split(int symmetric, int m, int n, int omin, int ngroups, int K,
   T* yv = static_cast<T*>(y);
   switch (run_parts(m)) {
     case 1:
-      return launch_split_p<T, 1>(symmetric, m, n, omin, ngroups, K, index,
-                                  v, xv, yv, st);
+      return launch_split_p<T, 1>(symmetric, m, n, omin, ngroups, index, v,
+                                  xv, yv, st);
     case 2:
-      return launch_split_p<T, 2>(symmetric, m, n, omin, ngroups, K, index,
-                                  v, xv, yv, st);
+      return launch_split_p<T, 2>(symmetric, m, n, omin, ngroups, index, v,
+                                  xv, yv, st);
     case 4:
-      return launch_split_p<T, 4>(symmetric, m, n, omin, ngroups, K, index,
-                                  v, xv, yv, st);
+      return launch_split_p<T, 4>(symmetric, m, n, omin, ngroups, index, v,
+                                  xv, yv, st);
     case 8:
-      return launch_split_p<T, 8>(symmetric, m, n, omin, ngroups, K, index,
-                                  v, xv, yv, st);
+      return launch_split_p<T, 8>(symmetric, m, n, omin, ngroups, index, v,
+                                  xv, yv, st);
     default:
       return -1;
   }
+}
+
+// K vectors over the batch entries: x (n, K, 2), y (K, 2, m), 1 <<
+// lanes_log2 lanes a row.  The partial sums are those of one vector
+// (run_parts(m)) whatever K is: a row of the batch must have the bits of its
+// own launch.
+template <typename T>
+int launch_entries(int m, int K, int lanes_log2, const int* eptr,
+                   const int* ecol, const void* ere, const void* eim,
+                   const void* x, void* y, cudaStream_t st) {
+  const int rows_log2 = kBatchTileLog2 - lanes_log2;
+  const dim3 grid(
+      static_cast<unsigned>(((static_cast<long long>(m) - 1) >> rows_log2) +
+                            1),
+      static_cast<unsigned>(((K - 1) >> lanes_log2) + 1));
+  const T* re = static_cast<const T*>(ere);
+  const T* im = static_cast<const T*>(eim);
+  const Pair<T>* xv = static_cast<const Pair<T>*>(x);
+  T* yv = static_cast<T*>(y);
+  switch (run_parts(m)) {
+    case 1:
+      dia_entries_split_kernel<T, 1><<<grid, kBatchTile, 0, st>>>(
+          m, K, lanes_log2, eptr, ecol, re, im, xv, yv);
+      break;
+    case 2:
+      dia_entries_split_kernel<T, 2><<<grid, kBatchTile, 0, st>>>(
+          m, K, lanes_log2, eptr, ecol, re, im, xv, yv);
+      break;
+    case 4:
+      dia_entries_split_kernel<T, 4><<<grid, kBatchTile, 0, st>>>(
+          m, K, lanes_log2, eptr, ecol, re, im, xv, yv);
+      break;
+    case 8:
+      dia_entries_split_kernel<T, 8><<<grid, kBatchTile, 0, st>>>(
+          m, K, lanes_log2, eptr, ecol, re, im, xv, yv);
+      break;
+    default:
+      return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -543,37 +784,11 @@ int dia_spmv_runs(int itemsize, int symmetric, int m, int n, int omin, int B,
 }
 
 // The split-complex product through one occupancy index shared by the two
-// slab sets re and im of one complex matrix, for K vectors in one launch: x
-// is (K, n, 2), xr and xi of a column side by side, on a boundary of
-// 2 * itemsize bytes; y is (K, 2, m), yr then yi of each vector.  re_vals /
-// im_vals are the packed values of the two sets' forward runs, re_mir /
-// im_mir of their mirror runs (symmetric form; else not read).
-int dia_spmv_runs_split_batched(int itemsize, int symmetric, int m, int n,
-                                int omin, int run_rows, int ngroups, int K,
-                                const void* run_ptr, const void* run_diag,
-                                const void* mir_ptr, const void* mir_diag,
-                                const void* re_vals, const void* im_vals,
-                                const void* re_mir, const void* im_mir,
-                                const void* x, void* y, void* stream) {
-  if ((itemsize != 4 && itemsize != 8) || m < 0 ||
-      (symmetric && (n != m || omin != 0)) || run_rows != kRunRows ||
-      ngroups != (m + kRunRows - 1) / kRunRows || K < 0 || K > 65535 ||
-      reinterpret_cast<size_t>(x) % (2 * itemsize) != 0)
-    return -1;
-  if (m == 0 || K == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const RunIndex index = {
-      static_cast<const int*>(run_ptr), static_cast<const int*>(run_diag),
-      static_cast<const int*>(mir_ptr), static_cast<const int*>(mir_diag)};
-  const void* vals[4] = {re_vals, im_vals, re_mir, im_mir};
-  return itemsize == 4
-             ? launch_split<float>(symmetric, m, n, omin, ngroups, K, index,
-                                   vals, x, y, st)
-             : launch_split<double>(symmetric, m, n, omin, ngroups, K, index,
-                                    vals, x, y, st);
-}
-
-// One vector, x (n, 2) and y (2, m): the batched launch with K = 1.
+// slab sets re and im of one complex matrix: x is (n, 2), xr and xi of a
+// column side by side, on a boundary of 2 * itemsize bytes; y is (2, m), yr
+// then yi.  re_vals / im_vals are the packed values of the two sets'
+// forward runs, re_mir / im_mir of their mirror runs (symmetric form; else
+// not read).
 int dia_spmv_runs_split(int itemsize, int symmetric, int m, int n, int omin,
                         int run_rows, int ngroups, const void* run_ptr,
                         const void* run_diag, const void* mir_ptr,
@@ -581,10 +796,51 @@ int dia_spmv_runs_split(int itemsize, int symmetric, int m, int n, int omin,
                         const void* im_vals, const void* re_mir,
                         const void* im_mir, const void* x, void* y,
                         void* stream) {
-  return dia_spmv_runs_split_batched(itemsize, symmetric, m, n, omin,
-                                     run_rows, ngroups, 1, run_ptr, run_diag,
-                                     mir_ptr, mir_diag, re_vals, im_vals,
-                                     re_mir, im_mir, x, y, stream);
+  if ((itemsize != 4 && itemsize != 8) || m < 0 ||
+      (symmetric && (n != m || omin != 0)) || run_rows != kRunRows ||
+      ngroups != (m + kRunRows - 1) / kRunRows ||
+      reinterpret_cast<size_t>(x) % (2 * itemsize) != 0)
+    return -1;
+  if (m == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const RunIndex index = {
+      static_cast<const int*>(run_ptr), static_cast<const int*>(run_diag),
+      static_cast<const int*>(mir_ptr), static_cast<const int*>(mir_diag)};
+  const void* vals[4] = {re_vals, im_vals, re_mir, im_mir};
+  return itemsize == 4
+             ? launch_split<float>(symmetric, m, n, omin, ngroups, index,
+                                   vals, x, y, st)
+             : launch_split<double>(symmetric, m, n, omin, ngroups, index,
+                                    vals, x, y, st);
+}
+
+// The same product for K vectors in one launch, scenario-minor, over the
+// batch entries of the two slab sets (eptr (m P + 1), ecol, ere, eim:
+// kernels/dia.py batch_entries, built for P = `parts` lane-sets, which
+// must be run_parts(m), the one-vector launch's): x
+// is (n, K, 2), the K scenarios' (xr, xi) of a column side by side, on a
+// boundary of 2 * itemsize bytes; y is (K, 2, m).  `lanes` (a power of two,
+// 2 to 32) scenarios of a row share a warp.  1 <= K <= 65535 (K = 0
+// launches nothing); -1 for arguments the kernel does not take.
+int dia_spmv_split_batched(int itemsize, int m, int K, int lanes, int parts,
+                           const void* eptr, const void* ecol,
+                           const void* ere, const void* eim, const void* x,
+                           void* y, void* stream) {
+  int lanes_log2 = 1;
+  while (lanes_log2 < 5 && (1 << lanes_log2) < lanes) ++lanes_log2;
+  if ((itemsize != 4 && itemsize != 8) || m < 0 || K < 0 || K > 65535 ||
+      lanes != 1 << lanes_log2 || parts != run_parts(m) ||
+      reinterpret_cast<size_t>(x) % (2 * itemsize) != 0)
+    return -1;
+  if (m == 0 || K == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* ep = static_cast<const int*>(eptr);
+  const int* ec = static_cast<const int*>(ecol);
+  return itemsize == 4
+             ? launch_entries<float>(m, K, lanes_log2, ep, ec, ere, eim, x, y,
+                                     st)
+             : launch_entries<double>(m, K, lanes_log2, ep, ec, ere, eim, x,
+                                      y, st);
 }
 
 const char* dia_spmv_error_string(int code) {

@@ -23,6 +23,13 @@ window, so here the groups are build-time bookkeeping: the plan joins
 their per-row lists in group order into the one set of lists the kernel
 walks, which are the lists of the ungrouped plan (asserted at build).
 
+A batch of K scenarios, x given as (K, n) parts, is one launch of the
+kernel's batched form: the lanes of a warp take the scenarios of one row
+and read its terms once for all of them, from per-row entry lists built at
+build (``batch_entries``), with x copied once into a scenario-minor (n, K,
+2) layout by a copy kernel (``scenario_minor_pairs``).  Each row has the
+bits of its own one-vector launch.
+
 What the TPU needed and Hopper does not is left out: the one-hot "gather"
 products (``_dot_onehot`` and its bf16 split), the VMEM window and
 supertile modes (``_auto_supertile``).  The arguments ``supertile=`` and
@@ -44,7 +51,58 @@ from ..config import resolve_device
 from ..utils.build import build_cuda_library
 
 __all__ = ["OffsetsPlan", "SplitBandPoints", "split_offsets",
-           "load_cuda_library"]
+           "load_cuda_library", "scenario_lanes", "scenario_minor_pairs",
+           "PAIR_LAUNCHES"]
+
+#: launches of the copy kernel of ``scenario_minor_pairs``, one per launch
+#: and nowhere else
+PAIR_LAUNCHES = {"scenario_minor_pairs": 0}
+
+
+def scenario_lanes(K: int) -> int:
+    """Lanes of a warp that the batched band+points kernel gives to the
+    scenarios of one row, for a batch of K >= 2 vectors: the least power of
+    two >= K, at most 32.  A row's terms are read once for its lanes, so a
+    warp holds 32 // lanes rows: K = 16 takes two rows a warp, K = 128 four
+    warps of 32 scenarios for each row."""
+    if K < 1:
+        raise ValueError(f"a batch has at least one vector, got K={K}")
+    return min(32, 1 << (K - 1).bit_length())
+
+
+def scenario_minor_pairs(xr, xi, dtype):
+    """(n, K, 2) of ``dtype`` (float32 or float64) for (K, n) parts: the K
+    scenarios' (xr, xi) of a column side by side, the input of the batched
+    band+points kernel (the DIA split-complex kernel takes it too).  On CUDA
+    tensors one launch of the copy kernel of ``csrc/bandpoints.cu`` (counted
+    in ``PAIR_LAUNCHES``), after a cast of the parts to ``dtype`` where they
+    differ; on CPU tensors its plain version, a stack of the transposed
+    parts."""
+    if xr.ndim != 2 or xr.shape != xi.shape:
+        raise ValueError(f"x parts must be (K, n) alike, got "
+                         f"{tuple(xr.shape)} / {tuple(xi.shape)}")
+    if xr.device.type == "cpu" and xi.device.type == "cpu":
+        return torch.stack([xr.T.to(dtype), xi.T.to(dtype)], dim=-1)
+    dev = xr.device
+    if dev.type != "cuda" or xi.device != dev:
+        raise ValueError(f"x parts must be on one CUDA device, got "
+                         f"{xr.device} / {xi.device}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the copy kernel takes float32 or float64, got "
+                        f"{dtype}")
+    xr, xi = (t.to(dtype).contiguous() for t in (xr, xi))
+    K, n = xr.shape
+    out = torch.empty((n, K, 2), dtype=dtype, device=dev)
+    lib = load_cuda_library()
+    with torch.cuda.device(dev):
+        err = lib.scenario_minor_pairs(
+            xr.element_size(), K, n, xr.data_ptr(), xi.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError("scenario_minor_pairs launch failed: "
+                           f"{lib.bandpoints_error_string(err).decode()}")
+    PAIR_LAUNCHES["scenario_minor_pairs"] += 1
+    return out
 
 
 def _shifted(x2, offs, m):
@@ -139,10 +197,10 @@ def load_cuda_library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.bandpoints_spmv.restype = ci
     lib.bandpoints_spmv.argtypes = [ci, ci, ci] + [vp] * 11 + [ci, vp]
-    ll = ctypes.c_longlong
     lib.bandpoints_spmv_batched.restype = ci
-    lib.bandpoints_spmv_batched.argtypes = ([ci, ci, ci] + [vp] * 11
-                                            + [ci, ll, ll, ci, vp])
+    lib.bandpoints_spmv_batched.argtypes = [ci] * 3 + [vp] * 7
+    lib.scenario_minor_pairs.restype = ci
+    lib.scenario_minor_pairs.argtypes = [ci] * 3 + [vp] * 4
     lib.bandpoints_error_string.restype = ctypes.c_char_p
     lib.bandpoints_error_string.argtypes = [ci]
     return lib
@@ -156,8 +214,11 @@ class SplitBandPoints(nn.Module):
     card, ``config.default_device()``).  On a CUDA device every matvec
     launches the CUDA kernel once and counts it in ``kernel_launches``; on
     the CPU it runs ``plain``.  Parts of shape (K, n), one vector per
-    scenario, are one product too: one launch for the batch (the kernel's
-    grid has a scenario axis), each row the bits of its own launch.
+    scenario, are one product too: for K >= 2 one launch of the batched
+    kernel (also counted in ``scenario_launches``) over the plan's
+    ``batch_entries()``, on x copied
+    once into its scenario-minor layout, each row the bits of its own
+    one-vector launch; K = 1 is the one-vector launch.
 
     ``group_span`` partitions the points into ``n_groups`` offset groups
     spanning that many diagonals each, as in the JAX package.  ``plain``
@@ -239,7 +300,13 @@ class SplitBandPoints(nn.Module):
                                  (joined[0], joined[1], joined[3])):
                 self.register_buffer(f"k_{name}",
                                      torch.as_tensor(arr, device=device))
+        # the batched kernel's entry lists (``batch_entries``)
+        with torch.no_grad():
+            for name, t in zip(("eptr", "ecol", "ere", "eim"),
+                               self._build_entries(*self._kernel_lists())):
+                self.register_buffer(f"b_{name}", t)
         self.kernel_launches = 0
+        self.scenario_launches = 0
 
     @property
     def core_ndiag(self):
@@ -287,8 +354,9 @@ class SplitBandPoints(nn.Module):
 
     @torch.inference_mode()
     def cuda_kernel(self, xr, xi):
-        """The CUDA kernel, one launch for parts (n,) or a batch (K, n);
-        raises for input that is not on this plan's CUDA device."""
+        """The CUDA kernel, one launch for parts (n,) or a batch (K, n) (the
+        batched kernel for K >= 2); raises for input that is not on this
+        plan's CUDA device."""
         dev = self.slabs.device
         if dev.type != "cuda" or xr.device != dev or xi.device != dev:
             raise ValueError(
@@ -299,35 +367,90 @@ class SplitBandPoints(nn.Module):
             raise ValueError(f"x parts must have shape ({self.n},) or (K, "
                              f"{self.n}), got {tuple(xr.shape)} / "
                              f"{tuple(xi.shape)}")
-        x2 = self._x2(xr, xi).contiguous()
-        y = torch.empty(x2.shape[:-1] + (self.m,), dtype=torch.float32,
-                        device=dev)
-        self._launch(x2, y)
+        if xr.ndim == 2 and xr.shape[0] >= 2:
+            y = torch.empty((2, xr.shape[0], self.m), dtype=torch.float32,
+                            device=dev)
+            self._launch_batch(
+                scenario_minor_pairs(xr, xi, torch.float32), y)
+        else:
+            x2 = self._x2(xr, xi).contiguous()
+            y = torch.empty(x2.shape[:-1] + (self.m,), dtype=torch.float32,
+                            device=dev)
+            self._launch(x2, y)
         return y[0], y[1]
 
     def _launch(self, x2, y):
-        """One launch of the kernel on the plan's device: y (2, [K,] m) =
-        A x for x2 (2, [K,] n), both contiguous float32, the real parts
-        first; a batch of K vectors rides the grid's scenario axis."""
+        """One launch of the one-vector kernel on the plan's device: y (2,
+        m) = A x for x2 (2, n), both contiguous float32, the real parts
+        first (a (2, 1, m) / (2, 1, n) pair is the same memory)."""
         lib = load_cuda_library()
         ptr, col, val = self._kernel_lists()
-        nnz = col.numel()
         D = len(self.offs)
-        K = x2.shape[1] if x2.ndim == 3 else 1
+        slab_re = self.slabs.data_ptr()
+        dev = self.slabs.device
+        with torch.cuda.device(dev):
+            err = lib.bandpoints_spmv(
+                self.m, self.n, D, self.offs_t.data_ptr(), slab_re,
+                slab_re + D * self.m * 4, ptr.data_ptr(), col.data_ptr(),
+                val.data_ptr(), val.data_ptr() + col.numel() * 4,
+                x2.data_ptr(), x2.data_ptr() + self.n * 4, y.data_ptr(),
+                y.data_ptr() + self.m * 4, self.tile,
+                torch.cuda.current_stream(dev).cuda_stream)
+        self._raise(lib, err)
+        self.kernel_launches += 1
+
+    def batch_entries(self):
+        """The batched kernel's per-row entry lists, (eptr (m + 1) int32,
+        col int32, re, im float32) on the plan's device: row i's terms in the
+        one-vector kernel's order, its points in list order, then the heavy
+        diagonals d = 0 .. D - 1 whose column i + offs[d] lies inside the
+        matrix.  Built with the plan."""
+        return self.b_eptr, self.b_ecol, self.b_ere, self.b_eim
+
+    def _build_entries(self, ptr, col, val):
+        m, n, dev = self.m, self.n, self.slabs.device
+        prow = torch.repeat_interleave(torch.arange(m, device=dev),
+                                       ptr.long().diff(),
+                                       output_size=col.numel())
+        # the heavy diagonals row by row, d ascending: (m, D)
+        scol = (torch.arange(m, device=dev)[:, None]
+                + self.offs_t.long()[None, :])
+        ok = (scol >= 0) & (scol < n)
+        srow = torch.arange(m, device=dev)[:, None].expand_as(scol)[ok]
+        rows = torch.cat([prow, srow])
+        # by row, the points first; stable: list order within each
+        order = torch.sort(rows * 2 + torch.cat([
+            torch.zeros_like(prow), torch.ones_like(srow)]),
+            stable=True).indices
+        eptr = torch.zeros(m + 1, dtype=torch.int64, device=dev)
+        torch.cumsum(torch.bincount(rows, minlength=m), 0, out=eptr[1:])
+        ecol = torch.cat([col.long(), scol[ok]])[order]
+        ere = torch.cat([val[0], self.slabs[0].T[ok]])[order]
+        eim = torch.cat([val[1], self.slabs[1].T[ok]])[order]
+        return (eptr.int(), ecol.int(), ere.contiguous(), eim.contiguous())
+
+    def _launch_batch(self, xs, y):
+        """One launch of the batched kernel: y (2, K, m) = A x for the K
+        vectors of xs (n, K, 2) (``scenario_minor_pairs``), both contiguous
+        float32, with ``scenario_lanes(K)`` lanes a row, over
+        ``batch_entries()``."""
+        lib = load_cuda_library()
+        K = xs.shape[1]
         if K == 0:
             return
-        slab_re = self.slabs.data_ptr()
-        slab_im = slab_re + D * self.m * 4
+        entries = self.batch_entries()
         dev = self.slabs.device
         with torch.cuda.device(dev):
             err = lib.bandpoints_spmv_batched(
-                self.m, self.n, D, self.offs_t.data_ptr(), slab_re, slab_im,
-                ptr.data_ptr(), col.data_ptr(), val.data_ptr(),
-                val.data_ptr() + nnz * 4, x2.data_ptr(),
-                x2.data_ptr() + K * self.n * 4, y.data_ptr(),
-                y.data_ptr() + K * self.m * 4, K, self.n, self.m, self.tile,
-                torch.cuda.current_stream(dev).cuda_stream)
+                self.m, K, scenario_lanes(K),
+                *(t.data_ptr() for t in entries), xs.data_ptr(),
+                y.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        self._raise(lib, err)
+        self.kernel_launches += 1
+        self.scenario_launches += 1
+
+    @staticmethod
+    def _raise(lib, err):
         if err:
             raise RuntimeError("bandpoints_spmv launch failed: "
                                f"{lib.bandpoints_error_string(err).decode()}")
-        self.kernel_launches += 1

@@ -38,6 +38,15 @@ walks it once over both sets, with the real and the imaginary part of x side
 by side: one launch and one read of the index and of x where two launches
 on the stacked input made two.
 
+A batch of K vectors (the studies' scenarios, x as (K, n) parts) is one
+launch of the split-complex kernel's batched form: x copied once into a
+scenario-minor (n, K, 2) layout (``kernels.bandpoints.scenario_minor_pairs``,
+one launch of its copy kernel), the lanes of a warp over the scenarios of
+one row, and the plan's **batch entries** in place of the index
+(``batch_entries``: each row's nonzero slots, by the lane-set of the
+one-vector launch that adds them, in its order), so that each row of the
+batch has the bits of its own one-vector launch.
+
 ``dia_spmv_cuda`` launches a kernel (built with nvcc at first use): the run
 kernel when it is given an index and its packed values, else the dense one.  ``dia_spmv_plain`` is
 the dense product in plain PyTorch, a loop over diagonals of ``slab *
@@ -63,11 +72,13 @@ import torch
 from torch import nn
 
 from ..utils.build import build_cuda_library
-from .bandpoints import _shifted
+from .bandpoints import _shifted, scenario_lanes, scenario_minor_pairs
 
 __all__ = ["band_spmv", "dia_spmv_cuda", "dia_spmv_plain",
            "dia_spmv_runs_plain", "dia_split_cuda", "split_band_spmv",
-           "run_index", "merge_run_index", "pack_runs", "load_cuda_library",
+           "run_index", "merge_run_index", "pack_runs", "run_parts",
+           "batch_entries", "load_cuda_library",
+           "BATCH_LAUNCHES",
            "LAUNCHES", "RUN_ROWS", "RUN_SHARE_MAX", "split_complex_apply",
            "CudaDIA", "SplitCudaDIA", "PallasDIA", "SplitPallasDIA"]
 
@@ -77,6 +88,11 @@ __all__ = ["band_spmv", "dia_spmv_cuda", "dia_spmv_plain",
 #: walked an occupancy index, ``dia_spmv_split`` those of these that walked
 #: it over two slab sets at once
 LAUNCHES = {"dia_spmv": 0, "dia_spmv_runs": 0, "dia_spmv_split": 0}
+
+#: launches of the batched split-complex kernel (a batch of K >= 2 vectors,
+#: over the batch entries), one per launch and nowhere else; each is counted
+#: in every key of ``LAUNCHES`` too
+BATCH_LAUNCHES = {"dia_spmv_split_batched": 0}
 
 #: rows per group of the occupancy index: the value ``csrc/dia_spmv.cu`` is
 #: built for (its kRunRows), chosen among 4, 8, 16, 32 by measurement on an
@@ -114,8 +130,8 @@ def load_cuda_library():
     lib.dia_spmv_runs.argtypes = [ci] * 8 + [vp] * 9
     lib.dia_spmv_runs_split.restype = ci
     lib.dia_spmv_runs_split.argtypes = [ci] * 7 + [vp] * 11
-    lib.dia_spmv_runs_split_batched.restype = ci
-    lib.dia_spmv_runs_split_batched.argtypes = [ci] * 8 + [vp] * 11
+    lib.dia_spmv_split_batched.restype = ci
+    lib.dia_spmv_split_batched.argtypes = [ci] * 5 + [vp] * 7
     lib.dia_spmv_error_string.restype = ctypes.c_char_p
     lib.dia_spmv_error_string.argtypes = [ci]
     return lib
@@ -267,6 +283,75 @@ def pack_runs(slabs, n: int, omin: int, symmetric: bool, runs):
         .contiguous() for k in range(0, len(runs), 2))
 
 
+def run_parts(m: int) -> int:
+    """The lane-sets per group of the one-vector run kernels at m rows
+    (``run_parts`` of ``csrc/dia_spmv.cu``, which checks the value it is
+    given): a group's list is split while the launch is short of threads,
+    8 at 10k rows, 1 at 200k."""
+    parts = 1
+    while (parts < 8 and RUN_ROWS * parts * 2 <= 32
+           and m * parts * 2 <= 132 * 1024):
+        parts *= 2
+    return parts
+
+
+def batch_entries(runs, vals, m: int, n: int, omin: int, symmetric: bool):
+    """The batch entries of a split-complex band (two slab sets with one
+    occupancy index ``runs`` and their packed values ``vals`` = ((re
+    forward, [re mirror]), (im forward, [im mirror]))): what the batched
+    kernel of ``csrc/dia_spmv.cu`` walks in place of the index.
+
+    The one-vector run kernel deals a group's list round-robin to P =
+    ``run_parts(m)`` lane-sets; lane-set j adds the runs j, j + P, ... of
+    the forward list, then of the mirror list.  For each row i and
+    lane-set j the entries are the slots j adds there that hold a nonzero
+    (re or im) and meet a column inside the matrix, in the order it adds
+    them.  Returns (eptr (m P + 1), ecol, ere, eim) on the values' device:
+    the entries of (i, j) are eptr[i P + j] : eptr[i P + j + 1], ecol their
+    columns, ere / eim their values.  A slot left out adds a zero product
+    in the one-vector launch."""
+    parts = run_parts(m)
+    dev = vals[0][0].device
+    key_, col_, re_, im_ = [], [], [], []
+    for k in range(2 if symmetric else 1):
+        ptr, diag = runs[2 * k].long(), runs[2 * k + 1].long()
+        rv, iv = vals[0][k], vals[1][k]
+        nruns = diag.shape[0]
+        if nruns == 0:
+            continue
+        g = torch.repeat_interleave(torch.arange(ptr.shape[0] - 1,
+                                                 device=dev),
+                                    ptr.diff(), output_size=nruns)
+        j = (torch.arange(nruns, device=dev) - ptr[g]) % parts
+        rows = g[:, None] * RUN_ROWS + torch.arange(RUN_ROWS, device=dev)
+        d = diag[:, None]
+        if k:  # mirror: A[i, i - d] = slabs[d, i - d]
+            col = rows - d
+            ok = (d > 0) & (col >= 0)
+        else:
+            col = rows + omin + d
+            ok = (col >= 0) & (col < n)
+        ok &= (rows < m) & ((rv != 0) | (iv != 0))
+        # (row, lane-set), then the forward list before the mirror list
+        key_.append(((rows * parts + j[:, None]) * 2 + k)[ok])
+        col_.append(col[ok])
+        re_.append(rv[ok])
+        im_.append(iv[ok])
+    eptr = torch.zeros(m * parts + 1, dtype=torch.int64, device=dev)
+    if not key_:
+        empty = vals[0][0].new_empty(0)
+        return (eptr.int(), torch.zeros(0, dtype=torch.int32, device=dev),
+                empty, empty)
+    key = torch.cat(key_)
+    # stable: list order within each (row, lane-set, list)
+    order = torch.sort(key, stable=True).indices
+    torch.cumsum(torch.bincount(key // 2, minlength=m * parts), 0,
+                 out=eptr[1:])
+    return (eptr.int(), torch.cat(col_)[order].int(),
+            torch.cat(re_)[order].contiguous(),
+            torch.cat(im_)[order].contiguous())
+
+
 def _add_runs(y, slabs, x, omin, ptr, diag, mirror):
     """y[:, rows] += the products of the listed runs (forward reads, or the
     mirror reads of the symmetric form)."""
@@ -355,7 +440,8 @@ def dia_spmv_cuda(slabs, xbm, omin: int, symmetric: bool = False, runs=None,
 
 
 @torch.inference_mode()
-def dia_split_cuda(re, im, xn2, omin: int, symmetric: bool, runs, vals):
+def dia_split_cuda(re, im, xn2, omin: int, symmetric: bool, runs, vals,
+                   scenario_minor: bool = False, entries=None):
     """The split-complex run kernel: y (2, m) = (yr, yi) for the real slab
     sets ``re`` and ``im`` (both (D, m)) of one complex matrix, their shared
     occupancy index ``runs``, ``vals`` = (``pack_runs`` of re, ``pack_runs``
@@ -365,21 +451,32 @@ def dia_split_cuda(re, im, xn2, omin: int, symmetric: bool, runs, vals):
     One launch, in place of ``split_complex_apply`` over two launches of
     ``dia_spmv_cuda`` with this index: the same sums in the same order.
 
-    x (K, n, 2), one vector per scenario, gives y (K, 2, m) in the same one
-    launch (a scenario axis of the kernel's grid, the index and the run
-    values shared), each row the bits of its own launch."""
+    A batch of K vectors, x (K, n, 2) or, with ``scenario_minor``, (n, K, 2)
+    (the K scenarios' pairs of a column side by side, ``kernels.bandpoints.
+    scenario_minor_pairs``), gives y (K, 2, m) in one launch: for K >= 2 the
+    batched kernel over ``entries``, the ``batch_entries`` of this index and
+    these values (the plan holds them), on x in the scenario-minor layout
+    (a (K, n, 2) input is copied into it), each row the bits of its own
+    one-vector launch; for K = 1 the one-vector launch."""
     if len(vals) != 2 or len(vals[0]) != len(vals[1]) or any(
             a.shape != b.shape or a.dtype != b.dtype for a, b in zip(*vals)):
         raise ValueError("the packed run values of re and of im must be "
                          "alike: one index serves both slab sets")
-    if xn2.ndim not in (2, 3) or xn2.shape[-1] != 2 or re.shape != im.shape:
-        raise ValueError(f"re and im must be (D, m) alike and x (n, 2) or "
-                         f"(K, n, 2); got {tuple(re.shape)}, "
-                         f"{tuple(im.shape)} and {tuple(xn2.shape)}")
-    _check(re, xn2[..., 0].reshape(-1, xn2.shape[-2]), omin, symmetric,
-           runs, vals[0])
+    if xn2.ndim not in (2, 3) or xn2.shape[-1] != 2 or re.shape != im.shape \
+            or (scenario_minor and xn2.ndim != 3):
+        raise ValueError(f"re and im must be (D, m) alike and x (n, 2), (K, "
+                         f"n, 2) or scenario-minor (n, K, 2); got "
+                         f"{tuple(re.shape)}, {tuple(im.shape)} and "
+                         f"{tuple(xn2.shape)}")
+    n = xn2.shape[0] if scenario_minor else xn2.shape[-2]
+    _check(re, xn2.new_empty((0, n)), omin, symmetric, runs, vals[0])
+    if xn2.ndim == 3 and xn2.shape[1 if scenario_minor else 0] >= 2 \
+            and entries is None:
+        raise ValueError("a batch of vectors needs the batch entries of the "
+                         "index (batch_entries)")
     dev = re.device
-    tensors = (re, im, xn2) + tuple(runs) + tuple(t for v in vals for t in v)
+    tensors = (re, im, xn2) + tuple(runs) + tuple(
+        t for v in vals for t in v) + tuple(entries or ())
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("dia_split_cuda needs both slab sets, x and the "
                          "index on one CUDA device; got "
@@ -390,47 +487,69 @@ def dia_split_cuda(re, im, xn2, omin: int, symmetric: bool, runs, vals):
                         f"and x of one dtype; got {re.dtype}, {im.dtype} and "
                         f"{xn2.dtype}")
     lib = load_cuda_library()
+    m, size = re.shape[1], re.element_size()
+    if xn2.ndim == 2:
+        K, y = 0, torch.empty((2, m), dtype=re.dtype, device=dev)
+    else:
+        K = xn2.shape[1] if scenario_minor else xn2.shape[0]
+        y = torch.empty((K, 2, m), dtype=re.dtype, device=dev)
+        if K == 0:
+            return y
+        if K == 1:  # (1, n, 2) and (n, 1, 2) hold the (n, 2) of one vector
+            xn2 = xn2.reshape(n, 2)
+        elif not scenario_minor:
+            xn2 = xn2.transpose(0, 1)
     x = xn2.contiguous()
-    size = re.element_size()
     if x.data_ptr() % (2 * size):  # a view that starts between two pairs
         x = x.clone()
-    m, n = re.shape[1], x.shape[-2]
-    K = x.shape[0] if x.ndim == 3 else 1
     runs = [t.contiguous() for t in runs]
     index = [t.data_ptr() for t in runs] + [None] * (4 - len(runs))
     # re's and im's forward values, then their mirror values
     vals = [[t.contiguous() for t in v] for v in vals]
     index += [v[k].data_ptr() if k < len(v) else None
               for k in range(2) for v in vals]
-    y = torch.empty(x.shape[:-2] + (2, m), dtype=re.dtype, device=dev)
-    if K == 0:
-        return y
+    head = (size, int(symmetric), m, n, omin, RUN_ROWS, -(-m // RUN_ROWS))
     with torch.cuda.device(dev):
-        err = lib.dia_spmv_runs_split_batched(
-            size, int(symmetric), m, n, omin, RUN_ROWS, -(-m // RUN_ROWS), K,
-            *index, x.data_ptr(), y.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if K >= 2:
+            err = lib.dia_spmv_split_batched(
+                size, m, K, scenario_lanes(K), run_parts(m),
+                *(t.data_ptr() for t in entries), x.data_ptr(), y.data_ptr(),
+                stream)
+        else:
+            err = lib.dia_spmv_runs_split(*head, *index, x.data_ptr(),
+                                          y.data_ptr(), stream)
     if err:
         raise RuntimeError("dia_spmv_runs_split launch failed: "
                            f"{lib.dia_spmv_error_string(err).decode()}")
     for key in LAUNCHES:
         LAUNCHES[key] += 1
+    if K >= 2:
+        BATCH_LAUNCHES["dia_spmv_split_batched"] += 1
     return y
 
 
-def split_band_spmv(re, im, xr, xi, omin: int, symmetric: bool, runs, vals):
+def split_band_spmv(re, im, xr, xi, omin: int, symmetric: bool, runs, vals,
+                    entries=None):
     """(yr, yi) of the complex band ``re + 1j*im`` (two (D, m) slab sets
     with one occupancy index) times ``xr + 1j*xi``, parts (n,) or a batch
     (K, n): on CPU tensors the plain walk of the index over each set, on
     CUDA tensors one launch of the split-complex kernel on the two sets'
-    packed run values ``vals``, whatever K is."""
+    packed run values ``vals``, whatever K is (a batch of K >= 2 copied
+    once into the scenario-minor layout of the batched kernel, which walks
+    ``entries``, their ``batch_entries``)."""
     if re.device.type == "cpu" and xr.device.type == "cpu":
         return split_complex_apply(
             *(functools.partial(dia_spmv_runs_plain, s, omin=omin,
                                 symmetric=symmetric, runs=runs)
               for s in (re, im)), xr, xi)
-    y = dia_split_cuda(re, im, torch.stack([xr, xi], dim=-1), omin,
-                       symmetric, runs, vals)
+    if xr.ndim == 2 and xr.shape[0] >= 2:
+        y = dia_split_cuda(
+            re, im, scenario_minor_pairs(xr, xi, xr.dtype), omin, symmetric,
+            runs, vals, scenario_minor=True, entries=entries)
+    else:
+        y = dia_split_cuda(re, im, torch.stack([xr, xi], dim=-1), omin,
+                           symmetric, runs, vals)
     return y[..., 0, :], y[..., 1, :]
 
 

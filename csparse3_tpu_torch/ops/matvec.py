@@ -444,12 +444,23 @@ class SymDIAPlan(_BandPlan):
         self._place(ra, device)
 
 
+#: the buffers of the batch entries, on the ``re`` plan of a shared index
+_ENTRY_BUFFERS = ("batch_eptr", "batch_col", "batch_re", "batch_im")
+
+
+def _batch_entries(re):
+    """The batch entries ``_share_runs`` gave ``re``."""
+    return tuple(getattr(re, name) for name in _ENTRY_BUFFERS)
+
+
 def _share_runs(re, im) -> bool:
     """Give the two real plans of one complex matrix ONE occupancy index, the
     union of theirs (the real and the imaginary part share a pattern, so the
     two are equal unless a stored value has a zero part), held once on the
-    device.  Returns whether they now share one: not when the matrix is real,
-    when either band is dense, or when the union fails the plans' rule."""
+    device, and ``re`` the batch entries of the pair (``batch_entries``, the
+    batched kernel's lists, float buffers cast with the plan).  Returns
+    whether they now share one: not when the matrix is real, when either
+    band is dense, or when the union fails the plans' rule."""
     if im is None or not (re.has_runs and im.has_runs):
         return False
     if not all(torch.equal(a, b) for a, b in zip(re.runs, im.runs)):
@@ -460,6 +471,11 @@ def _share_runs(re, im) -> bool:
         im._set_runs(union)  # the same rule on the same count: it passes
     for name in re._RUN_BUFFERS[: len(re.runs)]:
         setattr(im, name, getattr(re, name))
+    with torch.no_grad():
+        for name, t in zip(_ENTRY_BUFFERS, dia_kernel.batch_entries(
+                re.runs, (re.run_values, im.run_values), re.m, re.n,
+                re.omin, re.symmetric)):
+            re.register_buffer(name, t)
     return True
 
 
@@ -467,8 +483,9 @@ def _split_apply(re, im, shared, xr, xi, plain=False):
     """(yr, yi) of the complex band held as the real plans ``re`` / ``im``
     (``im`` None for a real matrix).  With a shared index (``_share_runs``)
     one walk of it serves both slab sets: on CUDA tensors a single launch
-    of the split-complex kernel.  Else each plan is applied once, to the
-    stacked (2, n) input."""
+    of the split-complex kernel (for a batch, over the batch entries that
+    ``re`` holds).  Else each plan is applied once, to the stacked (2, n)
+    input."""
     if xr.shape[-1] != re.n:
         raise ValueError(f"dimension mismatch: matrix is ({re.m}, {re.n}), "
                          f"x has {xr.shape[-1]} rows")
@@ -476,7 +493,8 @@ def _split_apply(re, im, shared, xr, xi, plain=False):
         dtype = torch.promote_types(re.slabs.dtype, xr.dtype)
         return dia_kernel.split_band_spmv(
             re.slabs, im.slabs, xr.to(dtype), xi.to(dtype), re.omin,
-            re.symmetric, re.runs, (re.run_values, im.run_values))
+            re.symmetric, re.runs, (re.run_values, im.run_values),
+            _batch_entries(re))
     return dia_kernel.split_complex_apply(
         functools.partial(re.apply_bn, plain=plain),
         im and functools.partial(im.apply_bn, plain=plain), xr, xi)
@@ -487,11 +505,17 @@ class _SplitBand(nn.Module):
     ``forward(xr, xi) -> (yr, yi)`` with the algebra of ``SplitSpMV``, parts
     (n,) or a batch (K, n).  The two plans share one occupancy index where
     they have one (``shared_runs``), and a product then walks it once for
-    both: on a CUDA device one launch, for one vector or for the batch."""
+    both: on a CUDA device one launch, for one vector or for the batch
+    (whose kernel walks the batch entries of the shared index)."""
 
     @torch.inference_mode()
     def forward(self, xr, xi):
         return _split_apply(self.re, self.im, self.shared_runs, xr, xi)
+
+    def batch_entries(self):
+        """The batched kernel's entries of the shared index
+        (``kernels.dia.batch_entries``), built with the plan."""
+        return _batch_entries(self.re)
 
     @torch.inference_mode()
     def plain(self, xr, xi):

@@ -33,6 +33,7 @@ import torch
 import scipy.sparse as sp
 
 import csparse3_tpu_torch as pt
+from csparse3_tpu_torch.kernels import bandpoints as kbp
 from csparse3_tpu_torch.kernels import bsr_spmm as kbsr
 from csparse3_tpu_torch.kernels import dia as kdia
 from csparse3_tpu_torch.kernels import spgemm as kspg
@@ -1125,22 +1126,23 @@ def test_newton_blocklu_on_cuda_matches_cpu(cuda, name):
 # -- the batched study path: K1 and K4 on a scenario axis ----------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K", [1, 3, 32])
+@pytest.mark.parametrize("K", [1, 3, 16, 32, 33, 128])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_batched_bandpoints_kernel_is_one_launch_of_single_bits(cuda, case,
                                                                 K):
-    """(K, n) parts: one launch for the batch, each row the bits of its own
-    one-vector launch, and the plain version's batch within REL; K = 1 is
-    the unbatched launch."""
+    """(K, n) parts: one launch for the batch (of the batched kernel for K
+    >= 2), each row the bits of its own one-vector launch, and the plain
+    version's batch within REL; K = 1 is the one-vector launch."""
     make, kw = CASES[case]
     Y = make()
     plan = pt.SplitBandPoints(Y, device=cuda, **kw)
     rng = np.random.RandomState(21)
     xr, xi = (torch.as_tensor(rng.rand(K, Y.n).astype(np.float32),
                               device=cuda) for _ in range(2))
-    before = plan.kernel_launches
+    before = plan.kernel_launches, plan.scenario_launches
     yr, yi = plan(xr, xi)
-    assert plan.kernel_launches - before == 1 and yr.shape == (K, Y.m)
+    assert plan.kernel_launches - before[0] == 1 and yr.shape == (K, Y.m)
+    assert plan.scenario_launches - before[1] == (K >= 2)
     for k in range(K):
         r1, i1 = plan(xr[k], xi[k])
         assert torch.equal(yr[k], r1) and torch.equal(yi[k], i1)
@@ -1148,12 +1150,78 @@ def test_batched_bandpoints_kernel_is_one_launch_of_single_bits(cuda, case,
     for got, want in ((yr, pr), (yi, pi)):
         scale = want.abs().max()
         assert ((got - want).abs() <= REL * scale).all()
+    if K >= 2:
+        # the batched launch on its own scenario-minor input
+        xs = kbp.scenario_minor_pairs(xr, xi, torch.float32)
+        y = torch.empty((2, K, Y.m), device=cuda)
+        plan._launch_batch(xs, y)
+        assert torch.equal(y[0], yr) and torch.equal(y[1], yi)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K", [1, 5])
+@pytest.mark.parametrize("K", [1, 3, 32, 33, 256])
+@pytest.mark.parametrize("n", [1, 31, 1037])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scenario_minor_pairs_kernel_is_one_launch_of_the_plain_copy(
+        cuda, dtype, n, K):
+    """The copy of (K, n) parts into (n, K, 2): one launch, the plain
+    version's values exactly, parts of another dtype cast first."""
+    rng = np.random.RandomState(24)
+    xr, xi = (torch.as_tensor(rng.randn(K, n), device=cuda)
+              for _ in range(2))
+    want = torch.stack([xr.T.to(dtype), xi.T.to(dtype)], dim=-1)
+    before = kbp.PAIR_LAUNCHES["scenario_minor_pairs"]
+    got = kbp.scenario_minor_pairs(xr, xi, dtype)
+    assert kbp.PAIR_LAUNCHES["scenario_minor_pairs"] - before == 1
+    assert got.shape == (n, K, 2) and got.dtype == dtype
+    assert got.is_contiguous() and torch.equal(got, want)
+    # the parts as views of a wider tensor
+    wide = torch.as_tensor(rng.randn(2, K, n + 5), device=cuda)
+    got = kbp.scenario_minor_pairs(wide[0, :, 2:-3], wide[1, :, 2:-3], dtype)
+    assert torch.equal(got, torch.stack(
+        [wide[0, :, 2:-3].T.to(dtype), wide[1, :, 2:-3].T.to(dtype)], -1))
+
+
+def _check_batched_split(p, xr, xi):
+    """One launch of the split-complex run kernel for the (K, n) batch (of
+    the batched kernel for K >= 2), each row bit-equal to its own one-vector
+    launch and within the rounding bound of the plain walk of the index; the
+    wrapper gives the same bits on a (K, n, 2) and on a scenario-minor (n,
+    K, 2) input.  Returns (yr, yi)."""
+    K, n = xr.shape
+    before = dict(kdia.LAUNCHES)
+    batched = kdia.BATCH_LAUNCHES["dia_spmv_split_batched"]
+    yr, yi = p(xr, xi)
+    torch.cuda.synchronize()
+    assert all(kdia.LAUNCHES[k] - before[k] == 1 for k in before)
+    assert (kdia.BATCH_LAUNCHES["dia_spmv_split_batched"] - batched
+            == int(K >= 2))
+    assert yr.shape == (K, p.re.m)
+    for k in range(K):
+        r1, i1 = p(xr[k], xi[k])
+        assert torch.equal(yr[k], r1) and torch.equal(yi[k], i1)
+    pr, pi = p.plain(xr, xi)
+    for k in range(K):
+        x2 = torch.stack([xr[k], xi[k]])
+        bound = sum(_dia_bound(q, x2).sum(0) for q in (p.re, p.im))
+        assert ((yr[k] - pr[k]).abs() <= bound).all()
+        assert ((yi[k] - pi[k]).abs() <= bound).all()
+    args = (p.re.omin, p.re.symmetric, p.re.runs,
+            (p.re.run_values, p.im.run_values))
+    for x, minor in ((torch.stack([xr, xi], dim=-1), False),
+                     (kbp.scenario_minor_pairs(xr, xi, xr.dtype), True)):
+        y = kdia.dia_split_cuda(p.re.slabs, p.im.slabs, x, *args,
+                                scenario_minor=minor,
+                                entries=p.batch_entries())
+        assert y.shape == (K, 2, p.re.m)
+        assert torch.equal(y[:, 0], yr) and torch.equal(y[:, 1], yi)
+    return yr, yi
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 5, 16, 33, 256])
 @pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
-@pytest.mark.parametrize("n", [1037, 20_001])
+@pytest.mark.parametrize("n", [1037, 10_000, 20_001])
 @pytest.mark.parametrize("plan", ["SplitDIA", "SplitSymDIA"])
 def test_batched_split_run_kernel_is_one_launch_of_single_bits(cuda, plan, n,
                                                                dtype, K):
@@ -1166,29 +1234,34 @@ def test_batched_split_run_kernel_is_one_launch_of_single_bits(cuda, plan, n,
     rng = np.random.RandomState(22)
     xr, xi = (torch.as_tensor(rng.rand(K, n).astype(real), device=cuda)
               for _ in range(2))
-    before = dict(kdia.LAUNCHES)
-    yr, yi = p(xr, xi)
-    torch.cuda.synchronize()
-    assert all(kdia.LAUNCHES[k] - before[k] == 1 for k in before)
-    assert yr.shape == (K, n)
-    for k in range(K):
-        r1, i1 = p(xr[k], xi[k])
-        assert torch.equal(yr[k], r1) and torch.equal(yi[k], i1)
-    # the plain walk of the index on the same batch, row by row within the
-    # rounding bound of the sums
-    pr, pi = p.plain(xr, xi)
-    for k in range(K):
-        x2 = torch.stack([xr[k], xi[k]])
-        bound = sum(_dia_bound(q, x2).sum(0) for q in (p.re, p.im))
-        assert ((yr[k] - pr[k]).abs() <= bound).all()
-        assert ((yi[k] - pi[k]).abs() <= bound).all()
-    # the wrapper's launch on a (K, n, 2) input directly
-    y = kdia.dia_split_cuda(p.re.slabs, p.im.slabs,
-                            torch.stack([xr, xi], dim=-1), p.re.omin,
-                            p.re.symmetric, p.re.runs,
-                            (p.re.run_values, p.im.run_values))
-    assert y.shape == (K, 2, n)
-    assert torch.equal(y[:, 0], yr) and torch.equal(y[:, 1], yi)
+    _check_batched_split(p, xr, xi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [3, 32])
+@pytest.mark.parametrize("plan", ["SplitDIA", "SplitSymDIA"])
+def test_batched_split_run_kernel_on_groups_with_empty_lists(cuda, plan, K):
+    """Buses 40-51 cut off (their rows and columns empty): three groups of
+    the index list no run, forward or mirror, and their rows come out 0."""
+    Y = _complex_band(1037, 6, np.complex128)
+    S = Y.to_scipy().tolil()
+    S[40:52, :] = 0
+    S[:, 40:52] = 0
+    S = S.tocsc()
+    S.eliminate_zeros()
+    S.sort_indices()
+    kw = dict(tol=1e-12) if plan == "SplitSymDIA" else {}
+    p = getattr(pt, plan)(pt.CSC(Y.m, Y.n, S.indptr, S.indices, S.data),
+                          device=cuda, **kw)
+    assert p.shared_runs
+    for ptr in p.re.runs[::2]:
+        counts = ptr.diff().cpu().numpy()
+        assert (counts[10:13] == 0).all() and counts.sum() > 0
+    rng = np.random.RandomState(23)
+    xr, xi = (torch.as_tensor(rng.rand(K, Y.n), device=cuda)
+              for _ in range(2))
+    yr, yi = _check_batched_split(p, xr, xi)
+    assert not yr[:, 40:52].any() and not yi[:, 40:52].any()
 
 
 def _load_batch(grid, K, seed=0):

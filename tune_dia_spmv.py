@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Re-measure the constants of the banded run kernels on one CUDA card.
 
-    python3 tune_dia_spmv.py [out.json]     # from the repository root
+    python3 tune_dia_spmv.py [out.json]          # from the repository root
+    python3 tune_dia_spmv.py --batch [out.json]  # section 3 alone
 
 ``csparse3_tpu_torch/csrc/dia_spmv.cu`` fixes the rows per group of the
 occupancy index (``kRunRows``) and the rule for the lane-sets per group
@@ -24,8 +25,17 @@ where one is named.
 2. ``RUN_SHARE_MAX``: the package's dense kernel against its run kernel on
    bands of 200,000 rows and 256 diagonals in float32 whose runs are
    occupied at random with a given share, from 2% to 100%: where they cross.
+3. The batched split-complex kernel (K scenarios, scenario-minor x, over a
+   plan's batch entries): the entries a row whose gathers it stages
+   (``kEntryChunk``) and the CTAs an SM its register cap makes room for
+   (``kBatchCtasPerSm``), on the RCM-ordered Ybus of the 10k-bus grid in
+   float64, symmetric and general form, K = 16 and 256: device time per
+   launch, each variant's result bit-equal to the package's own launch, and
+   the registers ptxas gives the kernel in float64 and float32 at each
+   number of lane-sets P.
 
-Every result is checked against the dense plain version before it is timed.
+Sections 1 and 2 check every result against the dense plain version before
+it is timed.
 """
 
 import ctypes
@@ -42,6 +52,12 @@ SOURCE = os.path.join(ROOT, "csparse3_tpu_torch", "csrc", "dia_spmv.cu")
 OUT_DIR = os.path.join(ROOT, "csparse3_tpu_torch", "_build", "tune")
 ROWS = (4, 8, 16, 32)
 SHARES = (0.02, 0.05, 0.1, 0.15, 0.2, 0.3, 0.4, 0.5, 0.75, 1.0)
+# (staged entries a row, CTAs an SM) of the batched kernel; the first is the
+# source's own
+BATCH = ((4, 8), (8, 1), (8, 8), (2, 8), (1, 10))
+BATCH_K = (16, 256)
+NVCC_ARGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-shared", "-Xcompiler", "-fPIC"]
 
 
 def variant_source(text, rows, parts):
@@ -90,6 +106,124 @@ def build_variants():
         lib.dia_spmv_runs_split.argtypes = [ci] * 7 + [vp] * 11
         libs[key] = lib
     return libs
+
+
+def batch_variant_source(text, chunk, ctas):
+    """The CUDA source with ``chunk`` staged entries a row and a register
+    cap for ``ctas`` CTAs an SM in the batched kernel."""
+    marks = [("constexpr int kEntryChunk = 4;",
+              f"constexpr int kEntryChunk = {chunk};"),
+             ("constexpr int kBatchCtasPerSm = 8;",
+              f"constexpr int kBatchCtasPerSm = {ctas};")]
+    for old, new in marks:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{SOURCE}: expected one {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def batch_registers(ptxas):
+    """{(dtype, P): registers} of the batched kernel in ptxas's report."""
+    regs, key = {}, None
+    for line in ptxas.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            key = None
+            for t, dtype in (("Id", "float64"), ("If", "float32")):
+                for p in (1, 2, 4, 8):
+                    if f"dia_entries_split_kernel{t}Li{p}E" in name:
+                        key = (dtype, p)
+        elif key and "Used" in line and "registers" in line:
+            regs[key] = int(line.split("Used")[1].split()[0])
+            key = None
+    return regs
+
+
+def build_batch_variants():
+    """{(chunk, ctas): (ctypes library, registers)}, built all at once."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(SOURCE) as f:
+        text = f.read()
+    procs = {}
+    for chunk, ctas in BATCH:
+        base = os.path.join(OUT_DIR, f"dia_spmv_b{chunk}_c{ctas}")
+        with open(base + ".cu", "w") as f:
+            f.write(batch_variant_source(text, chunk, ctas))
+        procs[chunk, ctas] = (base + ".so", subprocess.Popen(
+            [nvcc, *NVCC_ARGS, "-Xptxas", "-v", "-o", base + ".so",
+             base + ".cu"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (path, proc) in procs.items():
+        out, _ = proc.communicate(timeout=900)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {key}:\n{out}")
+        lib = ctypes.CDLL(path)
+        lib.dia_spmv_split_batched.restype = ctypes.c_int
+        lib.dia_spmv_split_batched.argtypes = ([ctypes.c_int] * 5
+                                               + [ctypes.c_void_p] * 7)
+        libs[key] = (lib, batch_registers(out))
+    return libs
+
+
+def time_batch(dev, libs, out):
+    """Each variant of the batched kernel on the 10k-bus RCM Ybus in float64,
+    symmetric and general form, x (n, K, 2) for K in BATCH_K, over the
+    plan's batch entries: bit-equal to the package's own launch, then
+    timed."""
+    import torch
+
+    from csparse3_tpu_torch.kernels import dia as kdia
+    from csparse3_tpu_torch.kernels.bandpoints import scenario_lanes
+    from csparse3_tpu_torch.models.grids import rcm_grid, synthetic_grid, ybus
+    from csparse3_tpu_torch.models.powerflow import _make_yplan
+
+    Y = ybus(rcm_grid(synthetic_grid(10_000, seed=3))[0])[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for form in ("symdia", "dia"):
+        plan = _make_yplan(Y, form, dev)
+        re, im = plan.re, plan.im
+        entries = plan.batch_entries()
+        m = re.m
+        for K in BATCH_K:
+            x = torch.rand((m, K, 2), dtype=torch.float64, device=dev)
+            ref = kdia.dia_split_cuda(
+                re.slabs, im.slabs, x, re.omin, re.symmetric, re.runs,
+                (re.run_values, im.run_values), scenario_minor=True,
+                entries=entries)
+            y = torch.empty_like(ref)
+            head = (8, m, K, scenario_lanes(K), kdia.run_parts(m))
+            ptrs = [t.data_ptr() for t in entries] + [x.data_ptr(),
+                                                      y.data_ptr()]
+            for (chunk, ctas), (lib, regs) in libs.items():
+
+                def launch():
+                    return lib.dia_spmv_split_batched(*head, *ptrs, stream)
+
+                if launch():
+                    raise RuntimeError(f"batch {chunk}/{ctas}: refused")
+                if not torch.equal(y, ref):
+                    raise AssertionError(f"batch {chunk}/{ctas}: not the "
+                                         "package's bits")
+                for _ in range(5):
+                    launch()
+                out.append(dict(
+                    what="batch", shape="rcm_ybus_10k_f64", form=form, K=K,
+                    staged_entries=chunk, ctas_per_sm=ctas,
+                    registers_f64_p8=regs.get(("float64", 8)),
+                    ms_per_launch=min(device_ms(launch, 200)
+                                      for _ in range(2)),
+                    batch_entries=int(entries[1].numel())))
+                print(json.dumps(out[-1]), flush=True)
+    regs = libs[BATCH[0]][1]
+    out.append(dict(what="batch_registers", staged_entries=BATCH[0][0],
+                    ctas_per_sm=BATCH[0][1],
+                    run_parts_10k=kdia.run_parts(10_000),
+                    run_parts_200k=kdia.run_parts(200_000),
+                    registers={f"{d} P={p}": r
+                               for (d, p), r in sorted(regs.items())}))
+    print(json.dumps(out[-1]), flush=True)
 
 
 def run_lists(slabs, rows, mirror):
@@ -275,14 +409,20 @@ def main(argv=()):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     print(f"card: {smi} | torch {torch.__version__}", flush=True)
-    libs = build_variants()
+    batch_only = "--batch" in argv
+    argv = [a for a in argv if a != "--batch"]
     out = []
     with torch.inference_mode():
-        time_rows("rcm_ybus_10k_f64", rcm_ybus_part(10_000, 3, np.float64),
-                  dev, libs, 200, out)
-        time_rows("rcm_ybus_200k_f32", rcm_ybus_part(200_000, 0, np.float32),
-                  dev, libs, 200, out)
-        time_shares(dev, out)
+        if not batch_only:
+            libs = build_variants()
+            time_rows("rcm_ybus_10k_f64",
+                      rcm_ybus_part(10_000, 3, np.float64), dev, libs, 200,
+                      out)
+            time_rows("rcm_ybus_200k_f32",
+                      rcm_ybus_part(200_000, 0, np.float32), dev, libs, 200,
+                      out)
+            time_shares(dev, out)
+        time_batch(dev, build_batch_variants(), out)
     if argv:
         with open(argv[0], "w") as f:
             json.dump(dict(card=smi, results=out), f, indent=1)
