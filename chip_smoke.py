@@ -93,7 +93,38 @@ seconds):
            of the host float64 ``BandedLU.solve_host``.  Wall and queued ms
            of each solve and factor beside its flop bound.
 10. ieee14: phase 6 on ieee14().
-11. studies: the batched study path on synthetic_grid(10_000, seed=3)
+11. estimation: DC weighted-least-squares state estimation on
+           synthetic_grid(10_000, seed=3): every branch flow and bus
+           injection (32,263 measurements, 9,999 states) from the grid's DC
+           state with seeded noise; ``dc_state_estimation(ordering='amd')``
+           must give theta within 1e-8 of scipy's spsolve of the same normal
+           equations and a finite chi2; with one flow corrupted by 20 sigma,
+           ``largest_normalized_residual(chunk=1024)`` (32 LDL^T solves of
+           (9999, 1024) right-hand sides on the card) must name it.  Seconds
+           of the factor, the estimate and the sweep; fill; plan levels.
+12. krylov: B + 3I of synthetic_grid(10_000, seed=1) in RCM order, float64:
+           ``cg(SymDIAPlan, M=jacobi_prec)``, ``bicgstab(DIAPlan)``,
+           ``gmres(DIAPlan, restart=30)`` to ||r|| <= 1e-12 ||b||, each x
+           within 1e-8 of scipy's spsolve, and ``refine`` of a float32
+           ``BandedLU`` with the float64 ``DIAPlan`` residual (2 sweeps) to
+           1e-12; the DIA kernel launched once per matvec (counted); then
+           the kernel alone at this shape against its plain version and
+           scipy row by row, with its time, the plain version's, the
+           library call's (float64 CSR @ x) and its bound.
+13. ldlt:  ``ldlt(., 'amd')`` of B + 3I and of Ybus + a (1 - 1j) shunt
+           (complex symmetric) at 10k buses: solves of 1 and 1024
+           right-hand sides on the card within 1e-10 of scipy's splu; then
+           ``btf_splu`` of the 10k Newton Jacobian: block count, a host
+           solve within 1e-10 of scipy.
+14. grad:  outside inference mode, float64: gradients of sum(y^2) for
+           ``spmv`` and ``SpMVPlan`` on real(Ybus) at 10k (x against
+           A^T g from scipy within 1e-10, the values at 3 entries against
+           central differences within 1e-5; the ELL padding zero), and of
+           sum(x^2) for ``RefactorPlan`` / ``MultifrontalRefactor``
+           ``.refactor(d)(b)`` on B + 3I at 10k (b against scipy's
+           spsolve(A^T, g), d at 3 entries against central differences);
+           forward and backward seconds and device kernels.
+15. studies: the batched study path on synthetic_grid(10_000, seed=3)
            (22,263 branches), every scenario set made from RandomState(0):
            ``NewtonPowerFlow('bandpoints', 'multifrontal', tol=5e-5)
            .solve_batch`` of 32 load scenarios (host float64 mismatch of
@@ -120,7 +151,7 @@ seconds):
            of the launch on its own layout, of the plan's whole call from
            (K, n) parts and per scenario, beside the bound and the library
            call (torch.sparse CSR @ X (n, K)).
-12. spgemm: the sparse-product path on three matrices: C = Cf - Ct of
+16. spgemm: the sparse-product path on three matrices: C = Cf - Ct of
            synthetic_grid(3000, seed=1) (the GridCal flow), the random
            10k x 10k matrix at 0.1% density of BASELINE config 2, and C of
            the 200k-bus grid.  Host: ``Cf - Ct``, ``C @ C.T``, ``gram``,
@@ -136,7 +167,7 @@ seconds):
            bound, the least-bytes bound of any layout and the launch floor
            (the kernel on a one-output plan); wall and queued times of the
            device ESC product (``ESCSpGEMM``).
-13. bsr:   the block product ``Y = A @ X``: the 16384^2 matrix of 32 x 32
+17. bsr:   the block product ``Y = A @ X``: the 16384^2 matrix of 32 x 32
            blocks (6 per block row) with X (16384, 1024), and
            ``spmm(B, X, block=(8, 128))`` for B = imag(Ybus) of the 200k-bus
            grid in float32 with X (200000, 1024); the BSR SpMM kernel
@@ -2855,6 +2886,521 @@ def studies_phase(dev):
                           k4_sweep))
 
 
+# ---------------------------------------------------------------------------
+# the symmetric and Krylov solvers, DC state estimation and the gradients
+# ---------------------------------------------------------------------------
+
+# estimation: every branch flow (sigma 0.01) and bus injection (sigma 0.02)
+# of synthetic_grid(10_000, seed=3) from its DC state with seeded noise; one
+# flow corrupted by 20 sigma must come out as the suspect
+SE_SIGMA_FLOW, SE_SIGMA_INJ = 0.01, 0.02
+SE_BAD = 4321
+SE_CHUNK = 1024
+# theta against scipy's spsolve of the same normal equations (both float64
+# direct solves of a gain matrix of condition ~1e6 here)
+SE_THETA_ATOL = 1e-8
+# Krylov: stop at ||r|| <= 1e-12 ||b||; x within 1e-8 of scipy's spsolve
+# over max|x| (cond(B + 3I) is some 1e2-1e3); refinement of a float32
+# factor with a float64 residual, two sweeps, to 1e-12 (one sweep gives
+# 5e-15 in the JAX package's docstring)
+KRYLOV_TOL = 1e-12
+KRYLOV_RTOL = 1e-8
+REFINE_RTOL = 1e-12
+GMRES_RESTART = 30
+# LDL^T solves (float64 and complex128) against scipy's splu, over max|x|
+LDLT_RTOL = 1e-10
+# gradients: exact products against scipy within 1e-10 of the largest
+# entry; central differences within 1e-5.  The product's loss sum(y^2) is
+# quadratic in each value, so its central difference is exact at any step
+# and a step of 1e-2 (relative to the entry) keeps the rounding of the
+# 1e8-sized loss out of the difference; the solve's loss takes the JAX
+# package's test's step, 1e-6
+GRAD_RTOL = 1e-10
+GRAD_FD_RTOL = 1e-5
+GRAD_FD_STEP = {"product": 1e-2, "solve": 1e-6}
+
+
+def _rel_err(x, ref):
+    x = x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+    return float(np.abs(x - ref).max() / np.abs(ref).max())
+
+
+def estimation_phase(dev):
+    """DC weighted-least-squares state estimation at 10k buses (M = 32,263
+    measurements, 9,999 states): the estimate against scipy's solve of the
+    same normal equations, then bad-data identification of one flow
+    corrupted by 20 sigma (``largest_normalized_residual``: ceil(M / 1024)
+    solves of (9999, 1024) right-hand sides on the card)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from csparse3_tpu_torch.models import estimation
+    from csparse3_tpu_torch.models.estimation import (
+        DCMeasurements, dc_state_estimation, largest_normalized_residual)
+    from csparse3_tpu_torch.models.grids import synthetic_grid
+    from csparse3_tpu_torch.models.powerflow import dc_power_flow
+
+    t_phase = time.perf_counter()
+    g = synthetic_grid(N_SOLVE, seed=3)
+    th = dc_power_flow(g, device=dev)
+    flows = (th[g.f] - th[g.t]) / g.x
+    inj = np.zeros(g.n_bus)
+    np.add.at(inj, g.f, flows)
+    np.add.at(inj, g.t, -flows)
+    rng = np.random.RandomState(0)
+    zf = flows + SE_SIGMA_FLOW * rng.randn(g.n_branch)
+    zi = inj + SE_SIGMA_INJ * rng.randn(g.n_bus)
+
+    def measurements(zf):
+        return DCMeasurements.build(
+            flows=(np.arange(g.n_branch), zf, SE_SIGMA_FLOW),
+            injections=(np.arange(g.n_bus), zi, SE_SIGMA_INJ))
+
+    meas = measurements(zf)
+    # the factor's seconds, timed inside the one estimate: the module's
+    # ldlt wrapped for this call
+    factor_s, ldlt = [], estimation.ldlt
+
+    def timed_ldlt(*args, **kw):
+        t = time.perf_counter()
+        f = ldlt(*args, **kw)
+        factor_s.append(time.perf_counter() - t)
+        return f
+
+    estimation.ldlt = timed_ldlt
+    try:
+        t0 = time.perf_counter()
+        res = dc_state_estimation(g, meas, ordering="amd")
+        t_est = time.perf_counter() - t0
+    finally:
+        estimation.ldlt = ldlt
+    H = res.H.to_scipy().tocsc()
+    z = np.concatenate([meas.flow_val, meas.inj_val])
+    G = (H.T @ sp.diags(res.weights) @ H).tocsc()
+    th_ref = spla.spsolve(G, H.T @ (res.weights * z))
+    err = float(np.abs(res.theta[res.keep] - th_ref).max())
+    log(f"estimation: buses={g.n_bus} measurements={meas.size} "
+        f"states={len(res.keep)} dof={res.dof} chi2={res.chi2:.6e} "
+        f"gain_nnz={res.G.nnz} fill_nnz={res.factor.fill_nnz} "
+        f"factor_s={sum(factor_s):.3f} estimate_s={t_est:.3f} theta_max_err_vs_scipy={err:.3e} "
+        f"bound={SE_THETA_ATOL:.0e}")
+    if not (err <= SE_THETA_ATOL and np.isfinite(res.chi2)):
+        raise AssertionError("estimation: the estimate disagrees with scipy")
+
+    zb = zf.copy()
+    zb[SE_BAD] += 20 * SE_SIGMA_FLOW
+    bad = dc_state_estimation(g, measurements(zb), ordering="amd")
+    t0 = time.perf_counter()
+    plan = bad.factor.solve_plan(device=dev)
+    t_plan = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    j, rN = largest_normalized_residual(bad, chunk=SE_CHUNK, device=dev)
+    torch.cuda.synchronize()
+    t_sweep = time.perf_counter() - t0
+    chunks = -(-bad.H.shape[0] // SE_CHUNK)
+    second = float(np.sort(rN)[-2])
+    log(f"estimation: bad data at flow {SE_BAD} (+20 sigma): j_max={j} "
+        f"rN[j_max]={rN[j]:.3f} next_largest_rN={second:.3f} "
+        f"sweep_s={t_sweep:.3f} ({chunks} solves of ({len(bad.keep)}, "
+        f"{SE_CHUNK}) on the card) solve_plan_build_s={t_plan:.3f} "
+        f"ldlt_plan_levels=({plan.lplan.nlevels}, {plan.ltplan.nlevels}) "
+        f"sweeps={type(plan.lplan).__name__}")
+    if j != SE_BAD or not np.isfinite(rN).all():
+        raise AssertionError(f"estimation: the suspect is {j}, not {SE_BAD}")
+    log(f"estimation: phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
+def _b3i_rcm():
+    """B + 3I of synthetic_grid(10_000, seed=1) (``refactor_system``) in RCM
+    order, its scipy form and a seeded right-hand side."""
+    from csparse3_tpu_torch.linalg.ordering import rcm
+    from csparse3_tpu_torch.ops.slicing import submatrix
+
+    A0 = refactor_system(N_SOLVE)
+    perm = rcm(A0)
+    A = submatrix(A0, perm, perm)
+    return A, A.to_scipy().tocsc(), np.random.RandomState(5).rand(N_SOLVE)
+
+
+def _krylov_k4_record(dev, plans, S):
+    """K4 alone at the Krylov matvec's shape (float64, one vector): each
+    plan's launch against its plain version and scipy row by row within the
+    rounding bound (``main_shape_records``' bound with u = 2^-53); queued
+    ms of the general plan's launch, of its plain version and of the
+    library call (torch.sparse CSR float64 @ x), beside its bound: the
+    bytes the function needs (the nonzero values, an int32 position each,
+    x and y), the route's bound (the listed runs streamed whole, zeros
+    included, and the index) kept as ``route_bound_ms``."""
+    import torch
+
+    from csparse3_tpu_torch.kernels import dia as kdia
+    from csparse3_tpu_torch.utils.roofline import plan_bytes
+
+    x = torch.rand(N_SOLVE, dtype=torch.float64, device=dev)
+    xh = x.cpu().numpy()
+    kmax = int(np.diff(S.tocsr().indptr).max())
+    bound = torch.as_tensor(2 * (kmax + 2) * 2.0 ** -53 * 1.01
+                            * (abs(S) @ np.abs(xh)), device=dev)
+    tiny = torch.finfo(torch.float64).tiny
+    ys = torch.as_tensor(S @ xh, device=dev)
+    err = 0.0
+    saved = dict(kdia.LAUNCHES)
+    for label, plan in plans.items():
+        yk, yp = plan(x), plan.plain(x)
+        worst = max(float(((yk - want).abs() / (bound + tiny)).max())
+                    for want in (yp, ys))
+        err = max(err, float((yk - yp).abs().max()))
+        log(f"krylov: K4[{label}] float64 slabs={tuple(plan.slabs.shape)} "
+            f"runs={plan.has_runs} run_share={plan.run_share:.5f} "
+            f"max_abs_err_vs_plain={float((yk - yp).abs().max()):.3e} "
+            f"worst_row_err_over_bound={worst:.4f} (kmax={kmax}; must be "
+            f"<= 1) bit_equal_on_repeat={torch.equal(plan(x), yk)}")
+        if worst > 1 or not torch.equal(plan(x), yk):
+            raise AssertionError(f"krylov: K4[{label}] disagrees")
+    gen = plans["general"]
+    csr = S.tocsr()
+    Ad = torch.sparse_csr_tensor(
+        torch.as_tensor(csr.indptr.astype(np.int64), device=dev),
+        torch.as_tensor(csr.indices.astype(np.int64), device=dev),
+        torch.as_tensor(csr.data, device=dev), size=csr.shape)
+    if float(((Ad @ x - ys).abs() / (bound + tiny)).max()) > 1:
+        raise AssertionError("krylov: the library product disagrees")
+    nz_bytes = (int(gen.slabs.count_nonzero()) * (gen.slabs.element_size()
+                                                  + 4)
+                + 2 * x.numel() * x.element_size())
+    rec = dict(
+        shape=f"float64 general form, B + 3I of the {N_SOLVE}-bus grid in "
+              "RCM order, one vector per launch (the Krylov and refinement "
+              "matvecs); library_ms is the float64 CSR product",
+        max_abs_err=err, ms=queued_ms(lambda: gen(x), 200),
+        plain_ms=queued_ms(lambda: gen.plain(x), 20, spin_ms=2 * 20 * wall_ms(
+            lambda: gen.plain(x), 3)),
+        library_ms=queued_ms(lambda: Ad @ x, 200),
+        nonzero_bytes=nz_bytes,
+        route_bound_ms=plan_bytes(gen, x, x) / HBM_BYTES_PER_S * 1e3,
+        **bound_record(nz_bytes, 2 * S.nnz, F64_FLOP_PER_S))
+    kdia.LAUNCHES.update(saved)  # the comparisons count no launch
+    return rec
+
+
+def krylov_phase(dev):
+    """cg / bicgstab / gmres(restart=30) and mixed-precision refinement on
+    B + 3I of the 10k grid in RCM order, float64, with K4 (``SymDIAPlan``
+    for cg, ``DIAPlan`` for the others) as the matvec: x against scipy's
+    spsolve, the residual under its bound, K4's launches per solver (one per
+    matvec), then K4 alone against its plain version.  Returns (K4 launches
+    of the four solves, record)."""
+    import torch
+
+    from csparse3_tpu_torch.kernels import dia as kdia
+    from csparse3_tpu_torch.linalg import (BandedLU, bicgstab, cg, gmres,
+                                           jacobi_prec, refine)
+    from csparse3_tpu_torch.ops.matvec import DIAPlan, SymDIAPlan
+
+    import scipy.sparse.linalg as spla
+
+    t_phase = time.perf_counter()
+    A, S, b = _b3i_rcm()
+    xr = spla.spsolve(S, b)
+    bt = torch.as_tensor(b, device=dev)
+    sym, gen = SymDIAPlan(A, device=dev), DIAPlan(A, device=dev)
+    M = jacobi_prec(A, device=dev)
+    lu32 = BandedLU(A, ordering=None, dtype=np.float32, device=dev)
+    m = GMRES_RESTART
+    solvers = {
+        # (call, expected K4 launches for `it` iterations)
+        "cg": (lambda: cg(sym, bt, M=M, tol=KRYLOV_TOL, maxiter=5000),
+               lambda it: 1 + it),
+        "bicgstab": (lambda: bicgstab(gen, bt, tol=KRYLOV_TOL,
+                                      maxiter=5000), lambda it: 1 + 2 * it),
+        "gmres": (lambda: gmres(gen, bt, tol=KRYLOV_TOL, restart=m,
+                                maxiter=200), lambda it: 1 + it * (m + 2)),
+        "refine": (lambda: (refine(lu32, gen, bt, iters=2), None, 2),
+                   lambda it: it),
+    }
+    for call, _ in solvers.values():
+        call()  # warm-up: first-use allocations and library handles
+    out = {}
+    for key in kdia.LAUNCHES:
+        kdia.LAUNCHES[key] = 0
+    for name, (call, expect) in solvers.items():
+        before = kdia.LAUNCHES["dia_spmv"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, res, it = call()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = kdia.LAUNCHES["dia_spmv"] - before
+        xh = x.cpu().numpy()
+        err = _rel_err(xh, xr)
+        rres = float(np.linalg.norm(b - S @ xh) / np.linalg.norm(b))
+        limit = REFINE_RTOL if name == "refine" else KRYLOV_RTOL
+        out[name] = dict(iterations=it, seconds=secs, launches=launches,
+                         rel_err=err, rel_residual=rres)
+        log(f"krylov[{name}]: iterations={it} seconds={secs:.4f} "
+            f"k4_launches={launches} (expected {expect(it)}) "
+            f"x_err_over_max_vs_scipy={err:.3e} (limit {limit:.0e}) "
+            f"rel_residual={rres:.3e}" + (
+                "" if res is None else f" solver_residual={float(res):.3e}"))
+        if launches != expect(it) or not err <= limit:
+            raise AssertionError(f"krylov[{name}]: failed")
+        if res is not None and not (float(res) <= KRYLOV_TOL
+                                    * np.linalg.norm(b) and it > 0):
+            raise AssertionError(f"krylov[{name}]: did not converge")
+    launches = kdia.LAUNCHES["dia_spmv"]
+    if kdia.LAUNCHES["dia_spmv_runs"] not in (0, launches) or launches != sum(
+            r["launches"] for r in out.values()):
+        raise AssertionError(f"krylov: launches {kdia.LAUNCHES}")
+    # what binds cg: its device-busy share against the host's loop (one
+    # read of the stop test per iteration)
+    wall, busy, nk, by = device_profile(solvers["cg"][0], 1)
+    k4 = sum(t for name, (c, t) in by.items() if "dia" in name.lower())
+    out["cg"].update(profiled_wall_s=wall, device_busy_s=busy,
+                     idle_share=1 - busy / wall, k4_device_s=k4)
+    log(f"krylov[cg]: profiled solve wall_s={wall:.4f} device_busy_s="
+        f"{busy:.4f} idle_share={1 - busy / wall:.4f} kernels={nk} "
+        f"k4_device_s={k4:.6f}")
+    rec = _krylov_k4_record(dev, {"symmetric": sym, "general": gen}, S)
+    rec.update(launches=launches, solvers=out)
+    log(f"krylov: K4 launch {rec['ms']:.6f} ms plain {rec['plain_ms']:.6f} "
+        f"ms library {rec['library_ms']:.6f} ms bound {rec['bound_ms']:.6f} "
+        f"ms ({rec['bound_by']}; {rec['nonzero_bytes']} bytes) route bound "
+        f"{rec['route_bound_ms']:.6f} ms; phase seconds "
+        f"{time.perf_counter() - t_phase:.1f}")
+    return launches, rec
+
+
+def ldlt_phase(dev):
+    """``ldlt(., 'amd')`` of B + 3I and of Ybus + a shunt (complex
+    symmetric) at 10k buses: solves of 1 and 1024 right-hand sides on the
+    card against scipy's splu; then ``btf_splu`` of the 10k Newton Jacobian
+    at a perturbed flat start (host), a solve against scipy."""
+    import scipy.sparse.linalg as spla
+    import torch
+
+    import csparse3_tpu_torch as pt
+    from csparse3_tpu_torch.linalg import btf_splu, ldlt
+    from csparse3_tpu_torch.models.grids import synthetic_grid, ybus
+    from csparse3_tpu_torch.models.powerflow import _jacobian
+
+    t_phase = time.perf_counter()
+    g = synthetic_grid(N_SOLVE, seed=3)
+    Y, _, _ = ybus(g)
+    n = g.n_bus
+    shunt = pt.from_triplets(np.arange(n), np.arange(n),
+                             np.full(n, 1.0 - 1.0j), (n, n))
+    rng = np.random.RandomState(7)
+    for label, M in (("bprime", refactor_system(N_SOLVE)),
+                     ("ybus", Y + shunt)):
+        cplx = label == "ybus"
+        t0 = time.perf_counter()
+        f = ldlt(M, ordering="amd")
+        t_factor = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plan = f.solve_plan(device=dev)
+        t_plan = time.perf_counter() - t0
+        B = rng.rand(n, N_RHS) + (1j * rng.rand(n, N_RHS) if cplx else 0)
+        Bt = torch.as_tensor(B, device=dev)
+        plan(Bt[:, 0])
+        plan(Bt)  # warm-up: first-use allocations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x1 = plan(Bt[:, 0])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        X = plan(Bt)
+        torch.cuda.synchronize()
+        tk = time.perf_counter() - t0
+        ref = spla.splu(M.to_scipy().tocsc()).solve(B)
+        e1, ek = _rel_err(x1, ref[:, 0]), _rel_err(X, ref)
+        log(f"ldlt[{label}]: n={n} {'complex128' if cplx else 'float64'} "
+            f"nnz={M.nnz} fill_nnz={f.fill_nnz} factor_s={t_factor:.3f} "
+            f"plan_build_s={t_plan:.3f} levels=({plan.lplan.nlevels}, "
+            f"{plan.ltplan.nlevels}) sweeps={type(plan.lplan).__name__} "
+            f"solve_1rhs_s={t1:.4f} solve_{N_RHS}rhs_s={tk:.4f} "
+            f"err_over_max_vs_scipy=({e1:.3e}, {ek:.3e}) "
+            f"(limit {LDLT_RTOL:.0e})")
+        if f.is_singular or not max(e1, ek) <= LDLT_RTOL:
+            raise AssertionError(f"ldlt[{label}]: failed")
+
+    # BTF of the Newton Jacobian (host): its block count and a solve
+    v = g.vm0 * np.exp(1j * 0.01 * np.random.RandomState(8).randn(n))
+    ibus = Y.to_scipy().tocsr() @ v
+    J = _jacobian(Y, v, ibus, np.concatenate([g.pv, g.pq]), g.pq)
+    t0 = time.perf_counter()
+    blu = btf_splu(J)
+    t_btf = time.perf_counter() - t0
+    b = rng.rand(J.n)
+    t0 = time.perf_counter()
+    x = blu.solve(b)
+    t_solve = time.perf_counter() - t0
+    err = _rel_err(x, spla.spsolve(J.to_scipy().tocsc(), b))
+    sizes = np.diff(blu.blocks)
+    log(f"ldlt: btf_splu of the {n}-bus Newton Jacobian (dim {J.n}, nnz "
+        f"{J.nnz}): blocks={blu.nblocks} largest={int(sizes.max())} "
+        f"fill={blu.fill} factor_s={t_btf:.3f} host_solve_s={t_solve:.3f} "
+        f"err_over_max_vs_scipy={err:.3e} (limit {LDLT_RTOL:.0e})")
+    if blu.is_singular or not err <= LDLT_RTOL:
+        raise AssertionError("ldlt: btf_splu solve failed")
+    log(f"ldlt: phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
+def _fd_check(label, loss, values, grad, ks, kind):
+    """Central differences of ``loss`` in ``values[k]`` for each k of ``ks``
+    (a step of GRAD_FD_STEP[kind] relative to the entry) against
+    ``grad[k]``."""
+    import torch
+
+    worst = 0.0
+    for k in ks:
+        h = GRAD_FD_STEP[kind] * max(1.0, abs(float(values[k].detach())))
+        with torch.no_grad():
+            old = values[k].clone()
+            values[k] = old + h
+            up = float(loss())
+            values[k] = old - h
+            dn = float(loss())
+            values[k] = old
+        fd, an = (up - dn) / (2 * h), float(grad[k])
+        worst = max(worst, abs(an - fd) / max(abs(fd), 1e-300))
+    log(f"grad[{label}]: central differences at entries {list(ks)} "
+        f"(gradient {[float(grad[k]) for k in ks]}): worst relative gap "
+        f"{worst:.3e} (limit {GRAD_FD_RTOL:.0e})")
+    if not worst <= GRAD_FD_RTOL:
+        raise AssertionError(f"grad[{label}]: the gradient disagrees with "
+                             "central differences")
+
+
+def _timed_grad(fwd, inputs):
+    """(grads, (forward s, backward s, forward kernels, backward kernels)):
+    one forward and one backward, each timed by the host clock to a
+    synchronize, then each once more under torch.profiler for its count of
+    device kernels."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = fwd()
+    torch.cuda.synchronize()
+    t_f = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grads = torch.autograd.grad(loss, inputs)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    _, _, k_f, _ = device_profile(fwd, 1)
+    again = fwd()
+    _, _, k_b, _ = device_profile(
+        lambda: torch.autograd.grad(again, inputs), 1)
+    return grads, (t_f, t_b, k_f, k_b)
+
+
+def grad_phase(dev):
+    """Gradients on the card, float64, outside inference mode: ``spmv`` and
+    ``SpMVPlan`` on the real part of the 10k Ybus (with respect to x against
+    A^T g from scipy, to the values at 3 entries against central
+    differences), and ``RefactorPlan`` / ``MultifrontalRefactor``
+    ``.refactor(d)(b)`` on B + 3I at 10k (with respect to b against scipy's
+    spsolve(A^T, g), to d at 3 entries against central differences).  Prints
+    the backward's seconds and device kernels beside the forward's."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+
+    import csparse3_tpu_torch as pt
+    from csparse3_tpu_torch.linalg import (MultifrontalRefactor, RefactorPlan,
+                                           splu)
+    from csparse3_tpu_torch.models.grids import synthetic_grid, ybus
+
+    if torch.is_inference_mode_enabled():
+        raise AssertionError("grad phase: runs outside inference mode")
+    t_phase = time.perf_counter()
+    Y, _, _ = ybus(synthetic_grid(N_SOLVE, seed=3))
+    ip, ix, yv = Y.np_arrays()
+    vals = np.ascontiguousarray(yv.real)
+    n = Y.n
+    S = sp.csc_matrix((vals, ix, ip), shape=(n, n))
+    x = np.random.RandomState(9).randn(n)
+    gx_ref = S.T @ (2 * (S @ x))
+    ks = (0, len(vals) // 2, len(vals) - 1)
+
+    # eager spmv: values and x both differentiable
+    d = torch.tensor(vals, device=dev, requires_grad=True)
+    xt = torch.tensor(x, device=dev, requires_grad=True)
+    A = pt.CSC(n, n, torch.as_tensor(ip, device=dev),
+               torch.as_tensor(ix, device=dev), d)
+
+    def spmv_loss():
+        return (pt.spmv(A, xt) ** 2).sum()
+
+    (gd, gx), times = _timed_grad(spmv_loss, (d, xt))
+    _grad_log("spmv", times, _rel_err(gx, gx_ref))
+    _fd_check("spmv", spmv_loss, d, gd, ks, "product")
+
+    # SpMVPlan (ELL): its values buffer and x
+    plan = pt.SpMVPlan(pt.CSC(n, n, ip, ix, vals), device=dev)
+    plan.vals.requires_grad_()
+
+    def plan_loss():
+        return (plan(xt) ** 2).sum()
+
+    (gv, gx), times = _timed_grad(plan_loss, (plan.vals, xt))
+    _grad_log("SpMVPlan", times, _rel_err(gx, gx_ref))
+    live = torch.nonzero(plan.live_slots().reshape(-1))[:, 0]
+    flat_v, flat_g = plan.vals.view(-1), gv.reshape(-1)
+    if flat_g[~plan.live_slots().reshape(-1)].abs().max() != 0:
+        raise AssertionError("grad[SpMVPlan]: a padded slot has a gradient")
+    _fd_check("SpMVPlan", plan_loss, flat_v, flat_g,
+              [int(live[i]) for i in (0, len(live) // 2, len(live) - 1)],
+              "product")
+
+    # refactor-and-solve: RefactorPlan and MultifrontalRefactor on B + 3I
+    A = refactor_system(N_SOLVE)
+    Sa = A.to_scipy().tocsc()
+    data = A.np_arrays()[2]
+    bnp = np.random.RandomState(10).rand(N_SOLVE)
+    xs = spla.spsolve(Sa, bnp)
+    gb_ref = spla.spsolve(Sa.T.tocsc(), 2 * xs)
+    t0 = time.perf_counter()
+    lu = splu(A, ordering="nd", tol=0.0)
+    plans = {"RefactorPlan": RefactorPlan(lu._h, A, device=dev),
+             "MultifrontalRefactor": MultifrontalRefactor(lu._h, A,
+                                                          device=dev)}
+    log(f"grad: B + 3I plans built in {time.perf_counter() - t0:.1f} s")
+    ks = (0, len(data) // 2, len(data) - 1)
+    for label, rp in plans.items():
+        d = torch.tensor(data, device=dev, requires_grad=True)
+        b = torch.tensor(bnp, device=dev, requires_grad=True)
+
+        def solve_loss():
+            return (rp.refactor(d)(b) ** 2).sum()
+
+        # the first backward builds the transposed level templates
+        t0 = time.perf_counter()
+        torch.autograd.grad(solve_loss(), (d, b))
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        (gd, gb), times = _timed_grad(solve_loss, (d, b))
+        _grad_log(label, times, _rel_err(gb, gb_ref),
+                  f" first_call_with_templates_s={t_first:.3f}")
+        _fd_check(label, solve_loss, d, gd, ks, "solve")
+    log(f"grad: phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
+def _grad_log(label, times, err, extra=""):
+    t_f, t_b, k_f, k_b = times
+    log(f"grad[{label}]: forward_s={t_f:.4f} backward_s={t_b:.4f} "
+        f"forward_kernels={k_f} backward_kernels={k_b} "
+        f"exact_grad_err_over_max_vs_scipy={err:.3e} (limit "
+        f"{GRAD_RTOL:.0e}){extra}")
+    if not err <= GRAD_RTOL:
+        raise AssertionError(f"grad[{label}]: the gradient disagrees with "
+                             "scipy")
+
+
+
 def main():
     import torch
 
@@ -2890,6 +3436,11 @@ def main():
         dia_launches, band, band_ctx = banded_phase(dev, ell_state)
         blocklu_launches, _ = blocklu_phase(dev, band_ctx, ell_state)
         newton_case("ieee14", ieee14(), dev)
+        estimation_phase(dev)
+        krylov_launches, krylov = krylov_phase(dev)
+        ldlt_phase(dev)
+        with torch.inference_mode(False):
+            grad_phase(dev)
         k1_batch_launches, k4_batch_launches, k1_batch, k4_batch = \
             studies_phase(dev)
         # last: these phases time with CUDA events alone, so torch.profiler
@@ -2935,7 +3486,9 @@ def main():
         # kernel at the shape the banded solves give it (float64, D=473,
         # n=10k, both real slab sets through the occupancy index they share,
         # x (n, 2)): the launches counted are those of the banded phase's
-        # three solves and of the blocklu phase's three.  bound_ms
+        # three solves, of the blocklu phase's three and of the krylov
+        # phase's four solvers (cg, bicgstab, gmres and refine, one launch
+        # per matvec; their shape, times and counts under "krylov").  bound_ms
         # counts what the route moves: the listed runs (streamed whole, their
         # zeros included), the index, x and y; nonzero_bound_ms the nonzero
         # values, a position for each, x and y: the least any layout needs;
@@ -2946,7 +3499,8 @@ def main():
         # set and the stacked (2, n) input
         dict(record("dia_spmv", "dia_spmv",
                     "csparse3_tpu/kernels/dia_pallas.py:67",
-                    dia_launches + blocklu_launches, band["dia"]),
+                    dia_launches + blocklu_launches + krylov_launches,
+                    band["dia"]),
              shape=f"float64 general form, both slab sets of the {N_SOLVE}"
                    "-bus RCM Ybus through their shared occupancy index, per "
                    "split-complex launch; library_ms is the complex128 CSR "
@@ -2956,6 +3510,7 @@ def main():
                  "nonzero_bound_ms", "dense_bound_ms", "listed_runs",
                  "index_bytes")},
              symmetric_form=band["symdia"],
+             krylov=krylov,
              # the scenario axis: the batched split-complex kernel's one
              # launch for K = 256 load scenarios, float64 symmetric form on
              # the 10k RCM Ybus (the batched fast-decoupled shape), on its

@@ -24,7 +24,14 @@ scenario axis (the Ybus SpMV kernels take a (K, n) batch in one launch;
 the level, multifrontal and banded refactorizations and solves take
 (K, nnz) values), ``DCContingency`` / ``ACContingency``, ``ptdf`` /
 ``lodf`` / ``LinearContingency``, ``short_circuit`` / ``zbus_columns`` and
-the MATPOWER reader (``parse_case``, ``load_case``).
+the MATPOWER reader (``parse_case``, ``load_case``); and the symmetric
+and iterative solvers with DC state estimation: ``ldlt`` /
+``SparseLDLT`` / ``LDLTSolvePlan``, ``btf`` / ``btf_splu``, ``cg`` /
+``bicgstab`` / ``gmres`` / ``refine`` with ``jacobi_prec`` /
+``ilu0_prec``, ``dc_state_estimation`` and
+``largest_normalized_residual``.  Products and solves are differentiable
+(``torch.autograd``) in x / b and in the matrix values: ``spmv``,
+``spmm``, ``SpMVPlan``, ``SolvePlan`` and the refactorizations' solves.
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (``config.default_device``).
@@ -93,6 +100,7 @@ from .ops.bsr_ops import (  # noqa: F401
     bsr_transpose,
 )
 from .ops.slicing import sample_offsets, sample_values, submatrix  # noqa: F401
+from .ops.reductions import diagonal, sum_duplicates  # noqa: F401
 from .kernels.bandpoints import (  # noqa: F401
     OffsetsPlan,
     SplitBandPoints,
@@ -109,11 +117,24 @@ from .linalg import (  # noqa: F401
     BandedRefactor,
     BandedSolvePlan,
     ComplexBandedSolve,
+    BTFLU,
     DenseTailTriSolvePlan,
+    LDLTSolvePlan,
     RefactorPlan,
     SolvePlan,
+    SparseLDLT,
     SparseLU,
     TriSolvePlan,
+    bicgstab,
+    btf,
+    btf_splu,
+    cg,
+    gmres,
+    ilu0_prec,
+    jacobi_prec,
+    ldlt,
+    max_transversal,
+    refine,
     splu,
     spsolve,
 )
@@ -121,11 +142,15 @@ from . import linalg, models, utils  # noqa: F401
 from .models import (  # noqa: F401
     ACContingency,
     DCContingency,
+    DCMeasurements,
     FastDecoupled,
     LinearContingency,
     NewtonPowerFlow,
     SCResult,
+    SEResult,
     dc_power_flow,
+    dc_state_estimation,
+    largest_normalized_residual,
     load_case,
     lodf,
     newton_raphson,

@@ -19,6 +19,8 @@ from torch import nn
 
 from ..config import resolve_device
 from ..native import host_ext
+from ..ops import construct
+from ..ops.matvec import _cast_grad, _wants_grad
 from ..types import CSC
 from . import ordering as ordering_mod
 from .lu_host import HostLU
@@ -27,14 +29,57 @@ from .trisolve import DenseTailTriSolvePlan, TriSolvePlan, choose_dense_tail
 __all__ = ["SparseLU", "splu", "spsolve", "SolvePlan"]
 
 
+class _Solve(torch.autograd.Function):
+    """x = A^{-1} b through ``plan``, differentiable in b and, for a plan
+    from a refactorization, in the matrix values it factored: with
+    g = dL/dx and lam = A^{-H} g (the adjoint plan, the same factors swept
+    the other way), dL/db = lam and dL/dvalues = -lam[rows] conj(x[cols])
+    on A's pattern (summed over the columns of an (n, k) b)."""
+
+    @staticmethod
+    def forward(ctx, plan, b, values):
+        with torch.inference_mode():
+            x = plan._solve(b)
+        # a copy made outside inference mode: autograd can return and save it
+        x = x.clone()
+        ctx.plan, ctx.b_dtype = plan, b.dtype
+        ctx.save_for_backward(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        x, = ctx.saved_tensors
+        with torch.inference_mode():
+            lam = plan.adjoint()._solve(g.conj()).conj()
+        lam = lam.clone()
+        gb = gv = None
+        if ctx.needs_input_grad[1]:
+            gb = _cast_grad(lam, ctx.b_dtype)
+        if ctx.needs_input_grad[2]:
+            rows, cols = plan._pattern_fn()
+            if plan.batched:  # (K, n): scenario k on values k
+                gv = -(lam[:, rows] * x[:, cols].conj())
+            else:
+                gv = -(lam[rows] * x[cols].conj())
+                gv = gv if gv.ndim == 1 else gv.sum(-1)
+            gv = _cast_grad(gv, plan.values.dtype)
+        return None, gb, gv
+
+
 class SolvePlan(nn.Module):
     """x = A^{-1} b from a factorization: permute, L-solve, U-solve,
     unpermute.  ``forward(b)`` takes b of shape (n,) or (n, k); a plan
     over a stack of K factors of one pattern (``batched``, from a
     refactorization of (K, nnz) values) takes b (K, n), one right-hand
-    side per factor."""
+    side per factor.
 
-    def __init__(self, lplan, uplan, perm_r, perm_c):
+    Differentiable (``_Solve``) in b and, for a plan a refactorization
+    made from values that require a gradient (``values``), in those
+    values; ``adjoint`` builds the plan of A^T at the first backward.  A
+    call where no input requires a gradient runs under inference mode."""
+
+    def __init__(self, lplan, uplan, perm_r, perm_c, adjoint=None):
         super().__init__()
         self.lplan = lplan
         self.uplan = uplan
@@ -44,13 +89,36 @@ class SolvePlan(nn.Module):
             perm_r, dtype=torch.int64, device=dev))
         self.register_buffer("perm_c", torch.as_tensor(
             perm_c, dtype=torch.int64, device=dev))
+        self._adjoint_fn = adjoint
+        #: the values a refactorization factored, when they require a
+        #: gradient, and the callable giving A's (row, column) int64 entry
+        #: streams in their order
+        self.values = None
+        self._pattern_fn = None
 
     @property
     def batched(self) -> bool:
         return getattr(self.lplan, "batched", False)
 
-    @torch.inference_mode()
+    def adjoint(self) -> "SolvePlan":
+        """The SolvePlan of A^T: U^T (lower) then L^T (upper) over the same
+        factors, the row and column permutations swapped; made at the
+        first call and kept."""
+        if "_adjoint" not in self.__dict__:
+            if self._adjoint_fn is None:
+                raise RuntimeError("this SolvePlan has no adjoint: it was "
+                                   "made under inference mode")
+            # kept outside the module's children: not part of its state
+            self.__dict__["_adjoint"] = self._adjoint_fn()
+        return self.__dict__["_adjoint"]
+
     def forward(self, b):
+        if _wants_grad(b, self.values):
+            return _Solve.apply(self, b, self.values)
+        with torch.inference_mode():
+            return self._solve(b)
+
+    def _solve(self, b):
         if self.batched:
             z = self.uplan(self.lplan(b[:, self.perm_r]))
             x = torch.empty_like(z)
@@ -128,8 +196,19 @@ class SparseLU:
 
             self._plans[key] = SolvePlan(
                 factor_plan(h.Lp, h.Li, h.Lx, True),
-                factor_plan(h.Up, h.Ui, h.Ux, False), h.perm_r, h.perm_c)
+                factor_plan(h.Up, h.Ui, h.Ux, False), h.perm_r, h.perm_c,
+                adjoint=lambda: self._adjoint_plan(device))
         return self._plans[key]
+
+    def _adjoint_plan(self, device) -> SolvePlan:
+        """Level plans of U^T (lower) and L^T (upper), the transposes of the
+        host factors, with the permutations swapped: x = A^{-T} b."""
+        ut, lt = (construct.transpose(f).np_arrays() for f in (self.U,
+                                                                self.L))
+        return SolvePlan(
+            TriSolvePlan(self.n, *ut, lower=True, device=device),
+            TriSolvePlan(self.n, *lt, lower=False, device=device),
+            self.perm_c, self.perm_r)
 
     def banded_solve_plan(self, s: int | None = None, device=None):
         """Block-bidiagonal solve plan on ``device`` (``linalg.banded``;

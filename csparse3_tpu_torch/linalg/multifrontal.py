@@ -344,7 +344,7 @@ class MultifrontalRefactor(nn.Module):
         # front-form solve_piv never touches them
         self._solve_plumbing = bool(solve_plumbing)
         if solve_plumbing:
-            attach_solve_templates(self, host, device)
+            attach_solve_templates(self, host, device, a_csc)
 
     # ---- views of the flat buffers ---------------------------------------
     def _group_mask(self, gid):
@@ -411,17 +411,17 @@ class MultifrontalRefactor(nn.Module):
             _sub_product_(F[..., w:, w:], L21, U12)
         return flat[..., self._exL], flat[..., self._exU]
 
-    @torch.inference_mode()
     def refactor(self, new_data, with_diag: bool = False):
         """SolvePlan with fresh numeric factors (same contract as
-        RefactorPlan.refactor; the slab retargeting is shared)."""
+        RefactorPlan.refactor, gradients included; the slab retargeting is
+        shared)."""
         if not self._solve_plumbing:
             raise ValueError(
                 "this plan was built with solve_plumbing=False (the "
                 "MultifrontalLU front-form path); rebuild with "
                 "solve_plumbing=True to use refactor()")
         Lx, Ux = self.factor_values(new_data)
-        return retarget_solve_plan(self, Lx, Ux, with_diag)
+        return retarget_solve_plan(self, Lx, Ux, with_diag, values=new_data)
 
 
 def _pivot_perm(LU, pivots):

@@ -79,7 +79,7 @@ class RefactorPlan(nn.Module):
         self.lnz, self.unz = lnz, unz
         self.dtype = torch.as_tensor(host.Lx[:0]).dtype
 
-        attach_solve_templates(self, host, device)
+        attach_solve_templates(self, host, device, a_csc)
 
         # X positions fit int32 (as in the JAX plan's slabs), which halves
         # the index bytes of the level loop, the bulk of its traffic (the
@@ -130,7 +130,6 @@ class RefactorPlan(nn.Module):
                              alpha=-1)
         return X[..., : self.lnz], X[..., self.lnz:]
 
-    @torch.inference_mode()
     def refactor(self, new_data, with_diag: bool = False):
         """SolvePlan with fresh numeric factors.
 
@@ -140,17 +139,23 @@ class RefactorPlan(nn.Module):
         zero-or-noise pivot, NOT necessarily inf/nan output).
 
         ``new_data`` (K, nnz) gives a ``batched`` SolvePlan over K factors
-        (and the diagonal as (K, n))."""
+        (and the diagonal as (K, n)).  A ``new_data`` tensor that requires
+        a gradient makes the plan's solves differentiable in it."""
         Lx, Ux = self.factor_values(new_data)
-        return retarget_solve_plan(self, Lx, Ux, with_diag)
+        return retarget_solve_plan(self, Lx, Ux, with_diag, values=new_data)
 
 
-def attach_solve_templates(obj: nn.Module, host: HostLU, device):
+def attach_solve_templates(obj: nn.Module, host: HostLU, device, a_csc):
     """Give ``obj`` what ``retarget_solve_plan`` reads: level solve-plan
     templates of the host factors (their index layout is fixed by the
     pattern; a refactorization hands them values gathered from X =
     [Lx | Ux]) and the X positions of the templates' level-ordered
-    off-diagonal entries and of U's diagonal."""
+    off-diagonal entries and of U's diagonal.  The host factors and
+    ``a_csc`` are kept for a backward pass: the transposed templates
+    (``transposed_templates``) and A's entry streams are made from them at
+    its first call."""
+    obj._host_factors = host
+    obj._a_csc = a_csc
     n = host.n
     colsL = np.repeat(np.arange(n), np.diff(host.Lp))
     colsU = np.repeat(np.arange(n), np.diff(host.Up))
@@ -169,7 +174,47 @@ def attach_solve_templates(obj: nn.Module, host: HostLU, device):
         obj.register_buffer(name, torch.as_tensor(pos, device=device))
 
 
-def retarget_solve_plan(obj, Lx, Ux, with_diag: bool = False):
+def _positions_transposed(n, Fp, Fi):
+    """CSC arrays of F^T whose values are the positions (0-based, float64:
+    exact below 2**53) of the entries of F, in F^T's canonical order."""
+    import scipy.sparse as sp
+
+    pos = np.arange(1, len(Fi) + 1, dtype=np.float64)
+    t = sp.csc_matrix((pos, Fi, Fp), shape=(n, n)).T.tocsc()
+    return t.indptr, t.indices, t.data - 1
+
+
+def transposed_templates(obj):
+    """Level solve-plan templates of U^T (lower) and L^T (upper) over the
+    pattern ``attach_solve_templates`` kept, and the X = [Lx | Ux]
+    positions of their level-ordered off-diagonal entries: made at the
+    first call (a backward pass) and kept, so that every later
+    refactorization's adjoint is a gather, as its forward plan is."""
+    if "_tr_templates" not in obj.__dict__:
+        h = obj._host_factors
+        n, lnz = h.n, len(h.Li)
+        device = obj.perm_r.device
+        out = []
+        for Fp, Fi, shift, lower in ((h.Up, h.Ui, lnz, True),
+                                     (h.Lp, h.Li, 0, False)):
+            Tp, Ti, pos = _positions_transposed(n, Fp, Fi)
+            tpl = TriSolvePlan(n, Tp, Ti, pos, lower=lower, device=device)
+            cols = np.repeat(np.arange(n), np.diff(Tp))
+            epos = (pos[Ti != cols].astype(np.int64) + shift)[tpl.e_order]
+            out += [tpl, torch.as_tensor(epos, device=device)]
+        obj._tr_templates = tuple(out)
+    return obj._tr_templates
+
+
+def _adjoint_from(obj, X, u_diag):
+    """The SolvePlan of A^T for the factors X = [Lx | Ux] (a leading
+    scenario axis gives a batched plan)."""
+    ut, ut_pos, lt, lt_pos = transposed_templates(obj)
+    return SolvePlan(ut.with_values(X[..., ut_pos], 1.0 / u_diag),
+                     lt.with_values(X[..., lt_pos]), obj.perm_c, obj.perm_r)
+
+
+def retarget_solve_plan(obj, Lx, Ux, with_diag: bool = False, values=None):
     """Shared refactor() plumbing for device refactorization classes that
     keep the RefactorPlan template layout (``_ltpl`` / ``_utpl`` solve
     plans and the ``_l_epos`` / ``_u_epos`` / ``_u_diagpos`` positions in
@@ -180,10 +225,24 @@ def retarget_solve_plan(obj, Lx, Ux, with_diag: bool = False):
     a dense tail's block inverses cannot be refreshed by a gather (the JAX
     package retargets the level layout only, too).  The JAX
     package gathers through its one-hot ``rowgather`` workaround here;
-    these are plain indexing."""
-    X = torch.cat([Lx, Ux], dim=-1)
-    u_diag = X[..., obj._u_diagpos]
-    lplan = obj._ltpl.with_values(X[..., obj._l_epos])
-    uplan = obj._utpl.with_values(X[..., obj._u_epos], 1.0 / u_diag)
-    plan = SolvePlan(lplan, uplan, obj.perm_r, obj.perm_c)
+    these are plain indexing.
+
+    With grad mode on at the call, the plan can be differentiated: it keeps
+    X for its adjoint (``SolvePlan.adjoint``, built from
+    ``transposed_templates`` at the first backward), and ``values``, when
+    it is a tensor that requires a gradient, as the input its solves are
+    differentiable in.  Under inference mode (the solvers' loops) it keeps
+    neither."""
+    grad = torch.is_grad_enabled()
+    with torch.inference_mode():
+        X = torch.cat([Lx, Ux], dim=-1)
+        u_diag = X[..., obj._u_diagpos]
+        lplan = obj._ltpl.with_values(X[..., obj._l_epos])
+        uplan = obj._utpl.with_values(X[..., obj._u_epos], 1.0 / u_diag)
+    plan = SolvePlan(lplan, uplan, obj.perm_r, obj.perm_c, adjoint=(
+        (lambda: _adjoint_from(obj, X, u_diag)) if grad else None))
+    if grad and isinstance(values, torch.Tensor) and values.requires_grad:
+        plan.values = values
+        plan._pattern_fn = lambda: obj._a_csc.to(
+            obj.perm_r.device).entry_streams()
     return (plan, u_diag) if with_diag else plan

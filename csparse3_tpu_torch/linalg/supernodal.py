@@ -338,7 +338,7 @@ class SupernodalRefactor(nn.Module):
         self.register_buffer("l_unit", dev(posL(np.arange(n), np.arange(n))))
         self.register_buffer("perm_r", dev(np.asarray(host.perm_r)))
         self.register_buffer("perm_c", dev(np.asarray(host.perm_c)))
-        attach_solve_templates(self, host, device)
+        attach_solve_templates(self, host, device, a_csc)
 
     @torch.inference_mode()
     def factor_values(self, new_data):
@@ -377,9 +377,9 @@ class SupernodalRefactor(nn.Module):
             X[nz + 1] = 0
         return X[: self.lnz], X[self.lnz: nz]
 
-    @torch.inference_mode()
     def refactor(self, new_data, with_diag: bool = False):
         """SolvePlan with fresh numeric factors (same contract as
-        RefactorPlan.refactor; the slab retargeting is shared)."""
+        RefactorPlan.refactor, gradients included; the slab retargeting is
+        shared)."""
         Lx, Ux = self.factor_values(new_data)
-        return retarget_solve_plan(self, Lx, Ux, with_diag)
+        return retarget_solve_plan(self, Lx, Ux, with_diag, values=new_data)

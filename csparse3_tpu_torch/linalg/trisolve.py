@@ -2,8 +2,9 @@
 
 Two tiers, as in the JAX package (``csparse3_tpu/linalg/trisolve.py``):
 
-* Host reference solves ``lsolve`` / ``usolve`` (column-oriented numpy
-  loops, verbatim), used as oracles.
+* Host reference solves ``lsolve`` / ``usolve`` and the transposed
+  ``ltsolve`` / ``utsolve`` (column-oriented numpy loops, verbatim), used
+  as oracles and by ``SparseLDLT.solve_host``.
 
 * Device level-scheduled solves (``TriSolvePlan``): rows of the triangular
   factor are grouped into dependency levels (level(i) = 1 + max level over
@@ -38,7 +39,8 @@ from torch import nn
 
 from ..config import resolve_device
 
-__all__ = ["lsolve", "usolve", "level_schedule", "TriSolvePlan",
+__all__ = ["lsolve", "usolve", "ltsolve", "utsolve", "level_schedule",
+           "TriSolvePlan",
            "choose_dense_tail", "DenseTailTriSolvePlan"]
 
 
@@ -79,6 +81,30 @@ def usolve(Up, Ui, Ux, b):
             x[rows] -= coeff * x[j]
         else:
             x[rows] -= coeff[:, None] * x[j][None, :]
+    return x
+
+
+def ltsolve(Lp, Li, Lx, b):
+    """x = L^{-T} b for lower-triangular CSC L (diagonal entry first in
+    each column).  b: (n,) or (n, k)."""
+    x = np.array(b, copy=True)
+    n = len(Lp) - 1
+    for j in range(n - 1, -1, -1):
+        lo, hi = Lp[j], Lp[j + 1]
+        x[j] -= np.dot(Lx[lo + 1: hi], x[Li[lo + 1: hi]])
+        x[j] /= Lx[lo]
+    return x
+
+
+def utsolve(Up, Ui, Ux, b):
+    """x = U^{-T} b for upper-triangular CSC U (diagonal entry last).
+    b: (n,) or (n, k)."""
+    x = np.array(b, copy=True)
+    n = len(Up) - 1
+    for j in range(n):
+        lo, hi = Up[j], Up[j + 1]
+        x[j] -= np.dot(Ux[lo: hi - 1], x[Ui[lo: hi - 1]])
+        x[j] /= Ux[hi - 1]
     return x
 
 

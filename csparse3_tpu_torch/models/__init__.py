@@ -1,8 +1,15 @@
 """Power-grid cases, the power-flow solvers and the studies built on them
-(contingency screening, sensitivity factors, short circuit)."""
+(contingency screening, sensitivity factors, short circuit, DC state
+estimation)."""
 
 from . import grids, powerflow  # noqa: F401
 from .contingency import ACContingency, DCContingency  # noqa: F401
+from .estimation import (  # noqa: F401
+    DCMeasurements,
+    SEResult,
+    dc_state_estimation,
+    largest_normalized_residual,
+)
 from .grids import (  # noqa: F401
     Grid,
     branch_admittances,

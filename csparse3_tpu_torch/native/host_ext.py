@@ -8,10 +8,11 @@ that machine's CPU.  A failed build raises: at 10k buses the pure-numpy LU
 would turn a broken build into a run hours long, so nothing falls back.
 
 Only the entry points the port calls are bound: sparse LU (scalar
-Gilbert-Peierls and supernodal), the AMD / RCM / nested-dissection
-orderings, the symbolic build of the device refactorization, and the CSC
-products and merges of the sparse-product path (SpGEMM, gram with its
-cached symbolic phase, axpby, transpose).  Those take int32 index arrays
+Gilbert-Peierls and supernodal), sparse LDL^T, the AMD / RCM /
+nested-dissection orderings, the maximum transversal and the block
+triangular form, the symbolic build of the device refactorization, and
+the CSC products and merges of the sparse-product path (SpGEMM, gram with
+its cached symbolic phase, axpby, transpose).  Those take int32 index arrays
 as they are (half the index traffic, no conversion copies) and anything
 else as int64.
 """
@@ -29,7 +30,8 @@ import numpy as np
 from ..linalg.lu_host import HostLU
 from ..utils.build import REPO_ROOT, BuildError, build_shared_library
 
-__all__ = ["load", "lu_factor", "lu_factor_sn", "amd", "rcm", "nd",
+__all__ = ["load", "lu_factor", "lu_factor_sn", "ldlt_factor", "amd", "rcm",
+           "nd", "max_transversal", "btf",
            "refactor_build", "csc_spgemm", "csc_axpby", "csc_gram",
            "csc_gram_cached", "csc_gram_revalue", "csc_transpose"]
 
@@ -58,6 +60,19 @@ class _LUResult(ctypes.Structure):
         ("sing", _i64p),
         ("Lx", ctypes.c_void_p),
         ("Ux", ctypes.c_void_p),
+    ]
+
+
+class _LDLTResult(ctypes.Structure):
+    _fields_ = [
+        ("n", ctypes.c_int64),
+        ("lnz", ctypes.c_int64),
+        ("nsing", ctypes.c_int64),
+        ("Lp", _i64p),
+        ("Li", _i64p),
+        ("sing", _i64p),
+        ("Lx", ctypes.c_void_p),
+        ("D", ctypes.c_void_p),
     ]
 
 
@@ -94,6 +109,16 @@ class _Lib:
                            _i64p]
         lib.lu_free.restype = None
         lib.lu_free.argtypes = [ctypes.POINTER(_LUResult)]
+        for name in ("ldlt_factor_d", "ldlt_factor_z"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.POINTER(_LDLTResult)
+            fn.argtypes = [ctypes.c_int64, _i64p, _i64p, ctypes.c_void_p]
+        lib.ldlt_free.restype = None
+        lib.ldlt_free.argtypes = [ctypes.POINTER(_LDLTResult)]
+        lib.max_transversal.restype = ctypes.c_int64
+        lib.max_transversal.argtypes = [ctypes.c_int64, _i64p, _i64p, _i64p]
+        lib.btf_order.restype = None
+        lib.btf_order.argtypes = [ctypes.c_int64] + [_i64p] * 6
         lib.lu_load_blas.restype = ctypes.c_int
         lib.lu_load_blas.argtypes = [ctypes.c_char_p]
         for name in ("amd_order", "rcm_order"):
@@ -264,6 +289,48 @@ def lu_factor_sn(n, Ap, Ai, Ax, q=None):
     if not res:
         return None
     return _unpack_lu(L.lib, res, n, qa, vdt)
+
+
+def ldlt_factor(n, Ap, Ai, Ax):
+    """A = L D L^T of a symmetric CSC (values: both triangles stored), no
+    pivoting.  Returns (Lp, Li, Lx, D, singular columns) with L unit lower
+    (unit diagonal stored first in each column)."""
+    L = load()
+    Ap, Ai = _as_i64(Ap), _as_i64(Ai)
+    Ax, sfx, vdt = _values(Ax)
+    res = getattr(L.lib, "ldlt_factor_" + sfx)(
+        n, _ptr(Ap), _ptr(Ai), Ax.ctypes.data_as(ctypes.c_void_p))
+    r = res.contents
+    try:
+        return (_icopy(r.Lp, n + 1), _icopy(r.Li, r.lnz),
+                _vcopy(r.Lx, r.lnz, vdt), _vcopy(r.D, n, vdt),
+                _icopy(r.sing, r.nsing))
+    finally:
+        L.lib.ldlt_free(res)
+
+
+def max_transversal(n, Ap, Ai):
+    """Maximum bipartite matching of columns to rows (MC21 class): (match,
+    size), match[c] the row of column c or -1; size == n iff the matrix is
+    structurally nonsingular."""
+    Ap, Ai = _as_i64(Ap), _as_i64(Ai)
+    out = np.empty(n, dtype=np.int64)
+    size = load().lib.max_transversal(n, _ptr(Ap), _ptr(Ai), _ptr(out))
+    return out, int(size)
+
+
+def btf(n, Ap, Ai):
+    """Block triangular form: (p, q, blocks) with A[p][:, q] block upper
+    triangular, block b spanning rows and columns [blocks[b],
+    blocks[b + 1])."""
+    Ap, Ai = _as_i64(Ap), _as_i64(Ai)
+    p = np.empty(n, dtype=np.int64)
+    q = np.empty(n, dtype=np.int64)
+    bp = np.zeros(n + 1, dtype=np.int64)
+    nb = np.zeros(1, dtype=np.int64)
+    load().lib.btf_order(n, _ptr(Ap), _ptr(Ai), _ptr(p), _ptr(q), _ptr(bp),
+                         _ptr(nb))
+    return p, q, bp[: int(nb[0]) + 1]
 
 
 def _order(name, n, Ap, Ai, *extra):

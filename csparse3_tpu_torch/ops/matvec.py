@@ -72,23 +72,84 @@ def _stream_product(rows, cols, vals, m, x):
     return y.index_add_(0, rows, prod)
 
 
-@torch.inference_mode()
+def _wants_grad(*tensors) -> bool:
+    """Whether autograd records this call: grad mode on and some input
+    requiring a gradient.  Every other call runs under inference mode."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _save(ctx, *tensors):
+    """Keep ``tensors`` for backward through ``save_for_backward`` (its
+    version check raises on an in-place change between forward and
+    backward), except inference tensors (plan buffers built under
+    inference mode), which cannot be saved and are kept by reference."""
+    ctx.save_for_backward(*(None if t.is_inference() else t
+                            for t in tensors))
+    ctx.kept = [t if t.is_inference() else None for t in tensors]
+
+
+def _saved(ctx):
+    """The tensors ``_save`` kept, in order."""
+    return [k if s is None else s for s, k in zip(ctx.saved_tensors,
+                                                   ctx.kept)]
+
+
+def _cast_grad(grad, dtype):
+    """``grad`` in an input's ``dtype`` (a real input of a complex product
+    takes the real part)."""
+    if grad.is_complex() and not dtype.is_complex:
+        grad = grad.real
+    return grad.to(dtype)
+
+
+class _StreamSpMV(torch.autograd.Function):
+    """y = A x over entry streams (rows, cols, vals), differentiable in the
+    values and in x: with g = dL/dy, dL/dx = A^H g and dL/dvals =
+    g[rows] conj(x[cols]) (summed over the columns of an (n, k) x), the
+    conjugate-Wirtinger convention of torch for complex values."""
+
+    @staticmethod
+    def forward(ctx, rows, cols, vals, m, x):
+        _save(ctx, rows, cols, vals, x)
+        return _stream_product(rows, cols, vals, m, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, cols, vals, x = _saved(ctx)
+        gv = gx = None
+        if ctx.needs_input_grad[2]:
+            gv = g[rows] * x[cols].conj()
+            gv = _cast_grad(gv if gv.ndim == 1 else gv.sum(1), vals.dtype)
+        if ctx.needs_input_grad[4]:
+            gx = _cast_grad(_stream_product(cols, rows, vals.conj(),
+                                            x.shape[0], g), x.dtype)
+        return None, None, gv, None, gx
+
+
+def _stream_spmv(rows, cols, vals, m, x):
+    if _wants_grad(vals, x):
+        return _StreamSpMV.apply(rows, cols, vals, m, x)
+    with torch.inference_mode():
+        return _stream_product(rows, cols, vals, m, x)
+
+
 def spmv(a: CSC, x):
     """y = A @ x on x's device.  A is placed there at the first call (the
-    placed copy and its entry streams are kept on ``a``)."""
+    placed copy and its entry streams are kept on ``a``).  Differentiable
+    in x and in ``a.data`` when either requires a gradient."""
     _check(a.m, a.n, x)
     a = a.to(x.device)
     rows, cols = a.entry_streams()
-    return _stream_product(rows, cols, a.data[: a.nnz], a.m, x)
+    return _stream_spmv(rows, cols, a.data[: a.nnz], a.m, x)
 
 
-@torch.inference_mode()
 def spmm(a: CSC, X, *, block=None, device=None):
     """Y = A @ X for dense X of shape (n, k), on ``device`` (None: X's
     device for a tensor; for numpy where ``a`` was placed, else the CUDA
     card).  ``block=None`` is the entry-stream product.  ``block=(R, C)``
     packs A to BSR blocks of that shape once, cached on ``a``, and calls
-    ``bsr_spmm``: the CUDA kernel on a card."""
+    ``bsr_spmm``: the CUDA kernel on a card (not differentiable)."""
     if isinstance(X, torch.Tensor) and device is None:
         device = X.device
     device = resolve_device(device, a)
@@ -100,7 +161,8 @@ def spmm(a: CSC, X, *, block=None, device=None):
     if bsr is None or (bsr.R, bsr.C) != tuple(block):
         bsr = a.to_bsr(block=block)
     bsr = a._bsr_cache = bsr.to(device)  # the placed one: uploaded once
-    return bsr_spmm(bsr, X)
+    with torch.inference_mode():
+        return bsr_spmm(bsr, X)
 
 
 def bsr_spmm(a: BSR, X):
@@ -114,9 +176,43 @@ def bsr_spmm(a: BSR, X):
                                a.data[:k], X, a.column_lists())
 
 
+class _EllSpMV(torch.autograd.Function):
+    """y = A x over the ELL slabs (m, W) of ``plan``, differentiable in the
+    slab values and in x (as ``_StreamSpMV``); the padded slots get a zero
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, plan, vals, x):
+        ctx.plan = plan
+        _save(ctx, vals, x)
+        return plan._ell_product(vals, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, x = _saved(ctx)
+        cols = ctx.plan.cols
+        gv = gx = None
+        if ctx.needs_input_grad[1]:
+            xc = x[cols].conj()
+            gv = g[:, None] * xc if x.ndim == 1 else (
+                g[:, None, :] * xc).sum(-1)
+            gv = _cast_grad(gv * ctx.plan.live_slots(), vals.dtype)
+        if ctx.needs_input_grad[2]:
+            w = vals.conj()
+            w = (w * g[:, None]).reshape(-1) if g.ndim == 1 else (
+                w[:, :, None] * g[:, None, :]).reshape(-1, g.shape[1])
+            gx = torch.zeros((x.shape[0],) + tuple(w.shape[1:]),
+                             dtype=w.dtype, device=w.device)
+            gx = _cast_grad(gx.index_add_(0, cols.reshape(-1), w), x.dtype)
+        return None, gv, gx
+
+
 class SpMVPlan(nn.Module):
     """Precomputed structure for repeated y = A x with a fixed pattern,
-    placed on ``device``; ``forward(x)`` takes (n,) or (n, k)."""
+    placed on ``device``; ``forward(x)`` takes (n,) or (n, k).  The values
+    ``vals`` are a buffer: set ``plan.vals.requires_grad_()`` (on a plan
+    built outside inference mode) and a product is differentiable in them,
+    in the plan's layout (the ELL padding gets a zero gradient), as in x."""
 
     def __init__(self, a: CSC, layout: str | None = None,
                  max_waste: float = 4.0, device=None):
@@ -155,6 +251,7 @@ class SpMVPlan(nn.Module):
         ell_cols[r_s, slot] = c_s
         ell_vals[r_s, slot] = v_s
         self.rows = None
+        self._row_len = counts
         buf("cols", ell_cols)
         buf("vals", ell_vals)
 
@@ -162,21 +259,35 @@ class SpMVPlan(nn.Module):
     def W(self) -> int:
         return self.cols.shape[1] if self.layout == "ell" else 0
 
-    @torch.inference_mode()
+    def live_slots(self):
+        """(m, W) bool: the ELL slots that hold an entry (made at the first
+        call and kept; the gradient of the values reads it)."""
+        live = self.__dict__.get("_live")
+        if live is None or live.device != self.cols.device:
+            row_len = torch.as_tensor(self._row_len, device=self.cols.device)
+            self._live = (torch.arange(self.W, device=self.cols.device)
+                          < row_len[:, None])
+        return self._live
+
+    def _ell_product(self, vals, x):
+        if x.ndim == 1:
+            # (m, W) gather + dense row reduction, scatter-free
+            return (vals * x[self.cols]).sum(dim=1)
+        # multi-RHS: one ELL slot at a time keeps the gather at (m, k)
+        dtype = torch.promote_types(vals.dtype, x.dtype)
+        y = torch.zeros((self.m, x.shape[1]), dtype=dtype, device=x.device)
+        for w in range(self.cols.shape[1]):
+            y += vals[:, w, None] * x[self.cols[:, w]]
+        return y
+
     def forward(self, x):
         _check(self.m, self.n, x)
         if self.layout == "stream":
-            return _stream_product(self.rows, self.cols, self.vals, self.m,
-                                   x)
-        if x.ndim == 1:
-            # (m, W) gather + dense row reduction, scatter-free
-            return (self.vals * x[self.cols]).sum(dim=1)
-        # multi-RHS: one ELL slot at a time keeps the gather at (m, k)
-        dtype = torch.promote_types(self.vals.dtype, x.dtype)
-        y = torch.zeros((self.m, x.shape[1]), dtype=dtype, device=x.device)
-        for w in range(self.cols.shape[1]):
-            y += self.vals[:, w, None] * x[self.cols[:, w]]
-        return y
+            return _stream_spmv(self.rows, self.cols, self.vals, self.m, x)
+        if _wants_grad(self.vals, x):
+            return _EllSpMV.apply(self, self.vals, x)
+        with torch.inference_mode():
+            return self._ell_product(self.vals, x)
 
 
 class SplitSpMV(nn.Module):

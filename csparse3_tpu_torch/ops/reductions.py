@@ -1,0 +1,28 @@
+"""Reductions and structural cleanups, as the JAX package's
+``csparse3_tpu/ops/reductions.py``: the main diagonal (a segment sum on
+the matrix's device, ``index_add_`` here) and ``sum_duplicates`` (a
+canonicalization on the host)."""
+
+from __future__ import annotations
+
+import torch
+
+from ..types import CSC
+from . import construct
+
+__all__ = ["diagonal", "sum_duplicates"]
+
+
+def diagonal(a: CSC):
+    """Main diagonal as a dense vector on the matrix's device, length
+    min(m, n); duplicate diagonal entries add up."""
+    rows, cols = a.entry_streams()
+    data = a.data[: a.nnz]
+    d = min(a.m, a.n)
+    on = rows == cols
+    out = torch.zeros(d, dtype=data.dtype, device=data.device)
+    return out.index_add_(0, rows[on], data[on])
+
+
+def sum_duplicates(a: CSC) -> CSC:
+    return construct.canonicalize(a, sum_duplicates=True)

@@ -100,7 +100,8 @@ class _SparseBase:
         if self._np is not None:
             a0, a1, a2 = self._np
         else:
-            a0, a1, a2 = (self._field(i).cpu().numpy() for i in range(3))
+            a0, a1, a2 = (self._field(i).detach().cpu().numpy()
+                          for i in range(3))
         return (a0 if self._names[0] == "indptr" else a0[:k]), a1[:k], a2[:k]
 
     def __repr__(self):
@@ -232,6 +233,17 @@ class CSC(_SparseBase):
 
         return spgemm.spgemm(self, other)
 
+    def __eq__(self, other):
+        """The exact compare ``ops.arithmetic.equal``: shapes, patterns and
+        values equal."""
+        from .ops import arithmetic
+
+        if not isinstance(other, CSC):
+            return NotImplemented
+        return arithmetic.equal(self, other)
+
+    __hash__ = None  # equal by value, so not hashable
+
     def to_scipy(self):
         import scipy.sparse as sp
 
@@ -282,6 +294,35 @@ class CSR(_SparseBase):
     @property
     def T(self) -> CSC:
         return self.t()
+
+    # operators delegate to the CSC ones, as the JAX package's CSR does:
+    # CSR (op) CSR comes back as CSR, CSR (op) anything else as CSC (op) it
+    # gives
+    def __matmul__(self, other):
+        if isinstance(other, CSR):
+            return (self.to_csc() @ other.to_csc()).to_csr()
+        return self.to_csc() @ other
+
+    def __mul__(self, other):
+        if isinstance(other, CSR):
+            return (self.to_csc() * other.to_csc()).to_csr()
+        return self.to_csc() * other
+
+    def __rmul__(self, other):
+        return self.to_csc().__rmul__(other)
+
+    def __add__(self, other):
+        other = other.to_csc() if isinstance(other, CSR) else other
+        return (self.to_csc() + other).to_csr()
+
+    def __sub__(self, other):
+        other = other.to_csc() if isinstance(other, CSR) else other
+        return (self.to_csc() - other).to_csr()
+
+    def __neg__(self):
+        ip, ix, dt = self.np_arrays()
+        return CSR(self.m, self.n, ip, ix, -dt, canonical=self.canonical,
+                   device=self._device)
 
     def to_scipy(self):
         import scipy.sparse as sp

@@ -1367,3 +1367,183 @@ def test_sensitivity_and_short_circuit_on_cuda_match_cpu(cuda):
     for got, want in ((res.ifault, ref.ifault), (res.vpost, ref.vpost),
                       (res.iflow, ref.iflow)):
         _close_to(torch.view_as_real(got), torch.view_as_real(want), 1e-10)
+
+
+# -- the symmetric and Krylov solvers, estimation and the gradients ------------
+
+def _bprime_rcm(n, seed=1):
+    """B' + 3I of synthetic_grid(n, seed) in RCM order (banded)."""
+    from csparse3_tpu_torch.linalg.ordering import rcm
+    from csparse3_tpu_torch.ops.slicing import submatrix
+
+    g = synthetic_grid(n, seed=seed)
+    bp = 1.0 / g.x
+    diag = np.arange(n)
+    A = pt.from_triplets(np.concatenate([g.f, g.t, g.f, g.t, diag]),
+                         np.concatenate([g.f, g.t, g.t, g.f, diag]),
+                         np.concatenate([bp, bp, -bp, -bp, np.full(n, 3.0)]),
+                         (n, n))
+    return submatrix(A, rcm(A), rcm(A))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["cg", "bicgstab", "gmres", "refine"])
+def test_krylov_k4_matches_plain_version(cuda, solver):
+    """The Krylov solvers with the DIA kernel as their matvec reach the same
+    x as with the kernel's plain version, one launch per matvec.  cg, gmres
+    and refine take the same iterations; BiCGSTAB's residual is not
+    monotone, and the kernel's other summation order (within the rounding
+    bound) moves where it crosses the stop bound by a few iterations."""
+    from csparse3_tpu_torch.linalg import (BandedLU, bicgstab, cg, gmres,
+                                           jacobi_prec, refine)
+
+    A = _bprime_rcm(2000)
+    plan = (pt.SymDIAPlan if solver == "cg" else pt.DIAPlan)(A, device=cuda)
+    b = torch.as_tensor(np.random.RandomState(3).rand(2000), device=cuda)
+    if solver == "refine":
+        lu = BandedLU(A, ordering=None, dtype=np.float32, device=cuda)
+
+        def run(mv):
+            return refine(lu, mv, b, iters=2), None, 2
+    else:
+        kw = dict(tol=1e-12)
+        if solver == "cg":
+            kw["M"] = jacobi_prec(A, device=cuda)
+        if solver == "gmres":
+            kw["restart"] = 30
+        fn = {"cg": cg, "bicgstab": bicgstab, "gmres": gmres}[solver]
+
+        def run(mv):
+            return fn(mv, b, **kw)
+    before = kdia.LAUNCHES["dia_spmv"]
+    x, _, it = run(plan)
+    launches = kdia.LAUNCHES["dia_spmv"] - before
+    x_p, res_p, it_p = run(plan.plain)
+    assert kdia.LAUNCHES["dia_spmv"] - before == launches
+    if solver == "bicgstab":
+        assert abs(it - it_p) <= 5 and float(res_p) <= 1e-12 * float(
+            b.norm())
+    else:
+        assert it == it_p
+    expect = {"cg": 1 + it, "bicgstab": 1 + 2 * it,
+              "gmres": 1 + it * 32, "refine": 2}[solver]
+    assert launches == expect
+    # both stop at ||r|| <= 1e-12 ||b||; cond(A) ~ 1e2 bounds the gap
+    _close_to(x, x_p, 1e-9 if solver == "bicgstab" else 1e-11)
+    import scipy.sparse.linalg as spla
+    _close_to(x, torch.as_tensor(spla.spsolve(A.to_scipy().tocsc(),
+                                              b.cpu().numpy())), 1e-8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["real", "complex"])
+def test_ldlt_plan_on_cuda_matches_host(cuda, kind):
+    from csparse3_tpu_torch.linalg import ldlt
+
+    if kind == "real":
+        A = _bprime_rcm(3000)
+    else:
+        A, _, _ = ybus(synthetic_grid(3000, seed=2))
+        A = A + pt.from_triplets(np.arange(3000), np.arange(3000),
+                                 np.full(3000, 1.0 - 1.0j), (3000, 3000))
+    f = ldlt(A, ordering="amd")
+    rng = np.random.RandomState(4)
+    B = rng.rand(3000, 7) + (1j * rng.rand(3000, 7) if kind == "complex"
+                             else 0)
+    plan = f.solve_plan(device=cuda)
+
+    def parts(t):
+        return torch.view_as_real(t) if t.is_complex() else t
+
+    for b in (B[:, 0], B):
+        x = plan(torch.as_tensor(b, device=cuda))
+        assert x.is_cuda
+        _close_to(parts(x), parts(torch.as_tensor(f.solve_host(b))), 1e-10)
+    x = f.solve(B[:, 0])  # numpy b, no device: the card
+    assert x.is_cuda
+
+
+@pytest.mark.gpu
+def test_estimation_bad_data_on_cuda_matches_cpu(cuda):
+    from csparse3_tpu_torch.models.estimation import (
+        DCMeasurements, dc_state_estimation, largest_normalized_residual)
+
+    g = synthetic_grid(1500, seed=4)
+    rng = np.random.RandomState(5)
+    th = 0.1 * rng.randn(g.n_bus)
+    flows = (th[g.f] - th[g.t]) / g.x
+    inj = np.zeros(g.n_bus)
+    np.add.at(inj, g.f, flows)
+    np.add.at(inj, g.t, -flows)
+    zf = flows + 0.01 * rng.randn(g.n_branch)
+    zf[77] += 0.2
+    res = dc_state_estimation(g, DCMeasurements.build(
+        flows=(np.arange(g.n_branch), zf, 0.01),
+        injections=(np.arange(g.n_bus), inj + 0.02 * rng.randn(g.n_bus),
+                    0.02)))
+    j, rN = largest_normalized_residual(res, chunk=512)
+    j_c, rN_c = largest_normalized_residual(res, chunk=512, device="cpu")
+    assert j == j_c == 77
+    np.testing.assert_allclose(rN, rN_c, rtol=0, atol=1e-8)
+
+
+def _grad_cases(device):
+    """Gradients of one eager spmv, one SpMVPlan product and the level and
+    multifrontal refactor solves, on ``device``, from the same numpy
+    inputs."""
+    from csparse3_tpu_torch.linalg import (MultifrontalRefactor,
+                                           RefactorPlan, splu)
+
+    Y, _, _ = ybus(synthetic_grid(1200, seed=3))
+    ip, ix, yv = Y.np_arrays()
+    n = Y.n
+    x = torch.tensor(np.random.RandomState(6).randn(n), device=device,
+                     requires_grad=True)
+    d = torch.tensor(yv.real.copy(), device=device, requires_grad=True)
+    A = pt.CSC(n, n, torch.as_tensor(ip, device=device),
+               torch.as_tensor(ix, device=device), d)
+    out = list(torch.autograd.grad((pt.spmv(A, x) ** 2).sum(), (d, x)))
+    plan = pt.SpMVPlan(pt.CSC(n, n, ip, ix, yv.real.copy()), device=device)
+    plan.vals.requires_grad_()
+    out += torch.autograd.grad((plan(x) ** 2).sum(), (plan.vals, x))
+    B = _bprime_rcm(1200)
+    lu = splu(B, ordering="nd", tol=0.0)
+    b = torch.tensor(np.random.RandomState(7).rand(1200), device=device,
+                     requires_grad=True)
+    for cls in (RefactorPlan, MultifrontalRefactor):
+        rp = cls(lu._h, B, device=device)
+        dv = torch.tensor(B.np_arrays()[2], device=device,
+                          requires_grad=True)
+        out += torch.autograd.grad((rp.refactor(dv)(b) ** 2).sum(), (dv, b))
+    return out
+
+
+@pytest.mark.gpu
+def test_gradients_on_cuda_match_cpu(cuda):
+    got, want = _grad_cases(cuda), _grad_cases("cpu")
+    for g, w in zip(got, want):
+        assert g.is_cuda
+        _close_to(g, w, 1e-10)
+
+
+@pytest.mark.gpu
+def test_launch_counts_unchanged_with_grad_mode_on(cuda):
+    """The solvers run their loops under inference mode whatever the
+    caller's grad mode: K1 once per Newton mismatch evaluation, K4 3 it + 1
+    times per batched fast-decoupled solve, and a solve whose inputs need
+    no gradient records no graph."""
+    g = synthetic_grid(2000, seed=3)
+    with torch.enable_grad():
+        pf = NewtonPowerFlow(g, spmv="bandpoints", tol=5e-5, device=cuda)
+        _, _, it, _ = pf.solve()
+        assert pf._yplan.kernel_launches == it + 1
+        g_rcm, _ = rcm_grid(g)
+        sb = _load_batch(g_rcm, 4)
+        fd = FastDecoupled(g_rcm, spmv="symdia", solver="blocklu")
+        before = kdia.LAUNCHES["dia_spmv"]
+        _, _, its = fd.solve_batch(sb)
+        assert kdia.LAUNCHES["dia_spmv"] - before == 3 * int(its.max()) + 1
+        A = _bprime_rcm(500)
+        x = pt.linalg.splu(A).solve_plan(device=cuda)(
+            torch.ones(500, dtype=torch.float64, device=cuda))
+        assert x.is_inference() and not x.requires_grad
