@@ -134,11 +134,12 @@ seconds):
            scenarios (each within 1e-6 of its single solve, with its
            iteration count; K4 3 it + 2 times with the batch's residual
            check) and ``NewtonPowerFlow('dia', 'blocklu').solve_batch`` of
-           16; ``DCContingency`` over all 22,263 outages (batch printed; 32
-           sampled outages' flows within 1e-8 of scipy spsolve, ``ok`` equal
-           to a host islanding check on those and on every flagged one);
-           ``LinearContingency`` over all outages (the same flows within
-           1e-8 where neither islands, equal ``ok``); ``ACContingency(
+           16; ``DCContingency`` over the first 4,000 of the 22,263 outages
+           (batch printed; 32 sampled outages' flows within 1e-8 of scipy
+           spsolve, ``ok`` equal to a host islanding check on those and on
+           every flagged one); ``LinearContingency`` over all outages (on
+           the DC sweep's outages the same flows within 1e-8 where neither
+           islands, equal ``ok``); ``ACContingency(
            solver='multifrontal')`` on 128 outages (4 against the host
            Newton within 1e-6); ``short_circuit`` at all 10,000 buses (16 Z
            columns within 1e-10 of scipy splu); ``parse_case`` of IEEE-14
@@ -180,6 +181,30 @@ seconds):
            ``A @ A``, with its wall and queued ms per call; times of kernel,
            plain version, the library call (torch.sparse BSR ``@ X``) and
            the entry-stream ``spmm``.
+18. islands (run after grad, before studies): the canonical GridCal flow
+           at 1M buses (synthetic_grid(1_000_000, seed=0)), intact and
+           with 30% of the branches out (kept where
+           RandomState(0).rand(n_branch) > 0.3):
+           ``LilMat`` bulk chunks -> C = Cf - Ct -> the branch graph
+           A = C C^T and the bus graph C^T C -> ``islands`` and
+           ``component_labels`` on the card, the labels equal to scipy's
+           ``connected_components`` exactly (the intact grid one island
+           each); rounds, wall seconds and the device ms of a round (queued
+           CUDA events).  Then ``norm`` (1, inf, 'fro') of the last A on the
+           card within 1e-12 of scipy; ``pack_4_by_4`` of the split-complex
+           1M Ybus (re, -im; im, re) equal to scipy ``bmat``; an npz round
+           trip of A (read back by the port and by scipy, equal) and of
+           config 3's ``BandedLU`` stacks (the solve on the card after the
+           load equal to the one before).
+19. spike: BASELINE config 5: B' + 3I of the same grid (``from_triplets``,
+           ``diags``, ``add``) in RCM order, ``StreamedSPIKE(A, P=8,
+           ordering=None, s=2560)`` in float32 on the card; two solves (the
+           first computes the tips and the reduced factor, the second keeps
+           them) of RandomState(3) and (4) right-hand sides, each with a
+           float64 host residual < 1e-4; wall seconds beside the operations'
+           bound at the float32 peak, and the peak device memory.  Then a
+           20k-bus system against the device ``BandedLU`` (float64) within
+           1e-4 of max|x|.
 
 Prints one JSON line of kernel records, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -2118,6 +2143,10 @@ N_SCEN_BLOCKLU = 16    # load scenarios of the batched Newton 'blocklu' solve
 N_AC_OUTAGES = 128     # outages of the AC contingency
 AC_BATCH = 32          # AC outages per batched Newton
 N_SAMPLED = 32         # DC outages checked on the host
+# DC contingency outages swept: the first 4,000 branches of 22,263 (the
+# sweep is launch-bound, so its scenarios/s holds on a prefix; the whole
+# sweep took 60-91 s of the script's 1200 s limit)
+N_DC_OUTAGES = 4000
 # batch sizes of the K1 and K4 sweeps (K4: the symmetric form; the general
 # form at N_SCEN_BLOCKLU is added to its sweep)
 K1_SWEEP = (1, 8, 32, 128)
@@ -2748,7 +2777,8 @@ def studies_phase(dev):
                                launches=k4_fdpf_pairs + k4_newton_pairs)
     del pf, vm, va
 
-    # ---- (c) DC contingency over every branch
+    # ---- (c) DC contingency over the first N_DC_OUTAGES branches
+    n_dc = min(N_DC_OUTAGES, m)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
     dc = DCContingency(g, device=dev)
@@ -2757,12 +2787,12 @@ def studies_phase(dev):
     # refactorization and the retargeted solve plans, and its vectors
     per = 8 * (getattr(rp, "front_floats", 0) + 6 * (rp.lnz + rp.unz)
                + 4 * n + 3 * m)
-    batch = int(max(1, min(m, STUDY_BYTES // per)))
+    batch = int(max(1, min(n_dc, STUDY_BYTES // per)))
     t_build = time.perf_counter() - t0
     dc.run(np.arange(2))
-    (fl, th, ok), secs = _timed(lambda: dc.run(batch=batch))
+    (fl, th, ok), secs = _timed(lambda: dc.run(np.arange(n_dc), batch=batch))
     ok_h = ok.cpu().numpy()
-    sample = np.random.RandomState(0).choice(m, N_SAMPLED, replace=False)
+    sample = np.random.RandomState(0).choice(n_dc, N_SAMPLED, replace=False)
     worst = 0.0
     for k in sample:
         ref = _dc_oracle(g, k)
@@ -2775,8 +2805,9 @@ def studies_phase(dev):
     check = np.union1d(sample, flagged)
     islands = np.array([_islands(g, k) for k in check])
     ok_match = bool((ok_h[check] == ~islands).all())
-    _study_line("dc_contingency", secs, m,
-                f" batch={batch} plan={type(rp).__name__} build_s="
+    _study_line("dc_contingency", secs, n_dc,
+                f" outages=the first {n_dc} of {m} batch={batch} plan="
+                f"{type(rp).__name__} build_s="
                 f"{t_build:.3f} front_floats="
                 f"{getattr(rp, 'front_floats', 0)} lnz={rp.lnz} "
                 f"solve_levels=({rp._ltpl.nlevels}, {rp._utpl.nlevels}) "
@@ -2791,17 +2822,18 @@ def studies_phase(dev):
         raise AssertionError("studies dc contingency disagrees with the "
                              "host")
 
-    # ---- (d) LODF screening of every branch, against (c)
+    # ---- (d) LODF screening of every branch, against (c) on its outages
     def screen():
         lc = LinearContingency(g, device=dev)
         return lc, lc.run()
 
     (lc, (fl_l, ok_l)), secs = _timed(screen)
+    fl_l, ok_l = fl_l[:n_dc], ok_l[:n_dc]
     both = (ok_l & ok).cpu().numpy()
     same_ok = bool(torch.equal(ok_l, ok))
     worst = 0.0
-    for s in range(0, m, 2048):
-        e = min(s + 2048, m)
+    for s in range(0, n_dc, 2048):
+        e = min(s + 2048, n_dc)
         sel = torch.as_tensor(both[s:e], device=dev)
         d = (fl_l[s:e] - fl[s:e]).abs().amax(1)
         scale = fl[s:e].abs().amax(1).clamp_min(1e-300)
@@ -2809,7 +2841,8 @@ def studies_phase(dev):
             worst = max(worst, float((d / scale)[sel].max()))
     _study_line("linear_contingency", secs, m,
                 f" (ptdf {tuple(lc.H.shape)} + lodf + screening) "
-                f"max_rel_flow_diff_vs_dc_contingency={worst:.3e} (bound "
+                f"max_rel_flow_diff_vs_dc_contingency(first {n_dc} "
+                f"outages)={worst:.3e} (bound "
                 f"{DC_FLOW_RTOL:.0e}) ok_equal={same_ok}")
     if worst > DC_FLOW_RTOL or not same_ok:
         raise AssertionError("studies: LODF screening disagrees with the "
@@ -3400,6 +3433,264 @@ def _grad_log(label, times, err, extra=""):
                              "scipy")
 
 
+# ---------------------------------------------------------------------------
+# 18-19. the rest of the public surface at 1M buses: islands, config 5
+# ---------------------------------------------------------------------------
+
+N_SURFACE = 1_000_000   # buses of the islands and StreamedSPIKE phases
+OUT_SHARE = 0.3         # branches out: kept where RandomState(0).rand > this
+NORM_RTOL = 1e-12       # device norms against scipy's
+SPIKE_P = 8             # StreamedSPIKE chunks (BASELINE config 5)
+SPIKE_S = 2560          # StreamedSPIKE block size (BASELINE config 5)
+SPIKE_RESIDUAL = 1e-4   # float64 host residual of a float32 SPIKE solve
+N_SPIKE_CHECK = 20_000  # buses of the SPIKE check against device BandedLU
+SPIKE_CHECK_RTOL = 1e-4
+
+
+def _branch_incidence(grid, keep, dev):
+    """C = Cf - Ct (branch x bus) of the kept branches, built as the GridCal
+    flow builds it: two ``LilMat`` from bulk triplet chunks."""
+    from csparse3_tpu_torch import LilMat
+
+    f, t = grid.f[keep], grid.t[keep]
+    k = np.arange(len(f))
+    cf = LilMat(len(f), grid.n_bus, device=dev).add_triplets(k, f, 1.0)
+    ct = LilMat(len(f), grid.n_bus, device=dev).add_triplets(k, t, 1.0)
+    return cf.to_csc() - ct.to_csc()
+
+
+def _islands_case(label, M):
+    """Connected components of M's pattern on the card against scipy's
+    (exact labels: both number components by their least node).  Returns
+    the number of components."""
+    import torch
+    from scipy.sparse.csgraph import connected_components
+
+    from csparse3_tpu_torch import component_labels
+    from csparse3_tpu_torch.ops.graph import (edge_stream, label_round,
+                                              propagate_labels)
+
+    t0 = time.perf_counter()
+    src, dst = edge_stream(M)               # uploads the entry streams
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    (raw, rounds), wall = _timed(lambda: propagate_labels(M))
+    lab0 = torch.arange(M.n, dtype=torch.int64, device=src.device)
+    round_ms = min(queued_ms(lambda: label_round(lab0, src, dst), 5)
+                   for _ in range(2))
+    del src, dst, lab0, raw
+    labels, wall_l = _timed(lambda: component_labels(M))
+    isl, wall_i = _timed(M.islands)
+    t0 = time.perf_counter()
+    ncomp, ref = connected_components(M.to_scipy(), directed=False)
+    t_sp = time.perf_counter() - t0
+    same = bool(np.array_equal(labels, ref))
+    lists_ok = (len(isl) == ncomp and bool(np.array_equal(
+        np.concatenate(isl), np.argsort(labels, kind="stable"))))
+    log(f"islands[{label}]: shape={M.shape} stored={M.nnz} islands="
+        f"{len(isl)} rounds={rounds} propagate_wall_s={wall:.4f} "
+        f"device_ms_per_round={round_ms:.4f} (queued; x rounds = "
+        f"{round_ms * rounds:.3f} ms) component_labels_wall_s={wall_l:.4f} "
+        f"islands_wall_s={wall_i:.4f} stream_upload_s={t_up:.3f} "
+        f"scipy_connected_components_s={t_sp:.3f} labels_equal_scipy={same} "
+        f"island_lists_ok={lists_ok}")
+    if not (same and lists_ok):
+        raise AssertionError(f"islands[{label}] disagree with scipy")
+    return ncomp
+
+
+def islands_phase(dev, g):
+    """The canonical GridCal flow at N_SURFACE buses: LilMat -> C = Cf - Ct
+    -> A = C C^T (branch graph) and C^T C (bus graph) -> islands on the
+    card, intact and with OUT_SHARE of the branches out; then norms,
+    pack_4_by_4 and the io round trips.  Every check raises."""
+    import tempfile
+
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from csparse3_tpu_torch import BandedLU, CSC, norm, pack_4_by_4
+    from csparse3_tpu_torch.models.grids import ybus
+    from csparse3_tpu_torch.utils import io as pio
+
+    t_phase = time.perf_counter()
+    out = np.random.RandomState(0).rand(g.n_branch) > OUT_SHARE
+    for name, keep in (("intact", np.ones(g.n_branch, dtype=bool)),
+                       ("out30", out)):
+        t0 = time.perf_counter()
+        C = _branch_incidence(g, keep, dev)
+        t_c = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        A = C * C.t()
+        t_a = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        Bg = C.t() * C
+        t_b = time.perf_counter() - t0
+        log(f"islands[{name}]: branches={int(keep.sum())} buses={g.n_bus} "
+            f"host_s: LilMat_to_C={t_c:.2f} C_Ct={t_a:.2f} Ct_C={t_b:.2f}")
+        n_br = _islands_case(f"{name} branch graph C C^T", A)
+        n_bus = _islands_case(f"{name} bus graph C^T C", Bg)
+        if name == "intact" and (n_br, n_bus) != (1, 1):
+            raise AssertionError("islands: the intact grid is not one "
+                                 "island")
+        del Bg
+
+    # norms of the last branch graph on the card against scipy
+    S = A.to_scipy()
+    worst = 0.0
+    for o in (1, np.inf, "fro"):
+        got = norm(A, o)
+        if got.device.type != "cuda":
+            raise AssertionError("norm: not on the card")
+        ref = spla.norm(S, o)
+        worst = max(worst, abs(float(got) - ref) / ref)
+    log(f"norm: 1, inf, fro of {A.shape} ({A.nnz} stored) on the card "
+        f"max_rel_err_vs_scipy={worst:.3e} (bound {NORM_RTOL:.0e})")
+    if worst > NORM_RTOL:
+        raise AssertionError("norm disagrees with scipy")
+
+    # pack_4_by_4 of the split-complex Ybus against scipy bmat, exactly
+    Y = ybus(g)[0]
+    ip, ix, dt = Y.np_arrays()
+    re, im, nim = (CSC(Y.m, Y.n, ip, ix, v, device=dev)
+                   for v in (dt.real.copy(), dt.imag.copy(), -dt.imag))
+    t0 = time.perf_counter()
+    P4 = pack_4_by_4(re, nim, im, re)
+    t_p = time.perf_counter() - t0
+    ref = sp.bmat([[re.to_scipy(), nim.to_scipy()],
+                   [im.to_scipy(), re.to_scipy()]], format="csc")
+    ref.sort_indices()
+    same = P4.shape == ref.shape and all(
+        np.array_equal(a, b) for a, b in zip(P4.np_arrays(), (
+            ref.indptr, ref.indices, ref.data)))
+    log(f"pack_4_by_4: (re, -im; im, re) of Ybus {Y.shape} -> {P4.shape} "
+        f"stored={P4.nnz} host_s={t_p:.2f} equal_to_scipy_bmat={same}")
+    if not same:
+        raise AssertionError("pack_4_by_4 disagrees with scipy")
+    del P4, ref, re, im, nim, Y
+
+    # io: A through an npz file (the port, scipy), config 3's BandedLU
+    # through its stacks, solving after the load
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pio.save_npz(f"{tmp}/a.npz", A, compressed=False)
+        A2 = pio.load_npz(f"{tmp}/a.npz", device=dev)
+        t_io = time.perf_counter() - t0
+        same_a = all(np.array_equal(a, b) for a, b in zip(A2.np_arrays(),
+                                                          A.np_arrays()))
+        same_sp = (sp.load_npz(f"{tmp}/a.npz") != S).nnz == 0
+        lu = BandedLU(refactor_system(N_SOLVE), device=dev)
+        b = torch.as_tensor(np.random.RandomState(0).rand(lu.n), device=dev)
+        x1 = lu(b)
+        pio.save_banded(f"{tmp}/lu.npz", lu)
+        x2 = pio.load_banded(f"{tmp}/lu.npz", device=dev)(b)
+        same_x = bool(torch.equal(x1, x2))
+    log(f"io: npz of A ({A.nnz} stored) save+load_s={t_io:.2f} "
+        f"arrays_equal={same_a} scipy_reads_it={same_sp}; BandedLU of "
+        f"config 3 (n={lu.n}, s={lu.s}) saved and loaded: solve on the card "
+        f"equal to the solve before={same_x}")
+    if not (same_a and same_sp and same_x):
+        raise AssertionError("io round trip changed the data")
+    log(f"islands: phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
+def _bprime_3i(g, dev):
+    """B' + 3I of a grid (the series susceptances), built with
+    ``from_triplets``, ``diags`` and ``add``."""
+    from csparse3_tpu_torch import add, diags, from_triplets
+
+    n = g.n_bus
+    bp = 1.0 / g.x
+    rows = np.concatenate([g.f, g.t, g.f, g.t])
+    cols = np.concatenate([g.f, g.t, g.t, g.f])
+    vals = np.concatenate([bp, bp, -bp, -bp])
+    return add(from_triplets(rows, cols, vals, (n, n), device=dev),
+               diags(np.full(n, 3.0), device=dev))
+
+
+def spike_flops(sk, first):
+    """Operations one solve of ``sk`` (symmetric form) asks for: per chunk
+    two factorizations of m blocks (per block an s x s inverse, 2 s^3, and
+    two s x s products, 4 s^3; the first block one product), the tips on
+    the first solve (8 s^3 a block), the reduced factor on the first solve
+    (per interface an inverse and eight products), and the sweeps."""
+    s3, m, P = float(sk.s) ** 3, sk.m, sk.P
+    factor = (6 * m - 2) * s3
+    tips = (8 * (m - 1) + 4) * s3 if first else 0.0
+    reduced = 18 * (P - 1) * s3 if first else 0.0
+    sweeps = 2 * 3 * 2 * P * m * float(sk.s) ** 2
+    return P * (2 * factor + tips) + reduced + sweeps
+
+
+def spike_phase(dev, g):
+    """BASELINE config 5 on one card: B' + 3I of the N_SURFACE-bus grid in
+    RCM order, StreamedSPIKE(P=8, s=2560) in float32, two solves against
+    the float64 host residual; then a 20k-bus system against the device
+    BandedLU.  Every check raises."""
+    import torch
+
+    from csparse3_tpu_torch import StreamedSPIKE
+    from csparse3_tpu_torch.linalg import BandedLU, rcm
+    from csparse3_tpu_torch.models.grids import synthetic_grid
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    A0 = _bprime_3i(g, dev)
+    perm = rcm(A0)
+    A = A0[perm, perm]
+    t_build = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    sk = StreamedSPIKE(A, P=SPIKE_P, ordering=None, s=SPIKE_S, device=dev)
+    torch.cuda.synchronize()
+    t_sym = time.perf_counter() - t0
+    log(f"spike: B'+3I n={A.n} stored={A.nnz} build+rcm_s={t_build:.1f} "
+        f"symbolic_s={t_sym:.2f} P={sk.P} m={sk.m} s={sk.s} bw={sk.bw} "
+        f"symmetric={sk._sym} float32")
+    S = A.to_scipy().tocsr()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i, (seed, first) in enumerate(((3, True), (4, False))):
+        b = np.random.RandomState(seed).rand(A.n).astype(np.float32)
+        x, secs = _timed(lambda: sk(b))
+        res = float(np.linalg.norm(S @ x.astype(np.float64) - b)
+                    / np.linalg.norm(b))
+        flops = spike_flops(sk, first)
+        bound_s = flops / F32_FLOP_PER_S
+        what = "first: tips, reduced factor" if first else "warm: tips kept"
+        log(f"spike: solve {i + 1} ({what}) wall_s={secs:.3f} "
+            f"flops={flops:.4e} flop_bound_s={bound_s:.3f} (float32 at {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s; "
+            f"{bound_s / secs:.3f} of it) rel_residual_f64={res:.3e} "
+            f"(bound {SPIKE_RESIDUAL:.0e})")
+        if not res < SPIKE_RESIDUAL:
+            raise AssertionError("spike: residual above its bound")
+    peak = torch.cuda.max_memory_allocated(dev)
+    chunk = sk.m * sk.s * sk.s * 4
+    log(f"spike: peak_device_GB={peak / 1e9:.2f} (above the "
+        f"{base / 1e9:.2f} GB held before; one chunk's (m, s, s) float32 "
+        f"stack {chunk / 1e9:.3f} GB, all P chunks' "
+        f"{SPIKE_P * chunk / 1e9:.1f} GB)")
+    del sk, A, A0, S
+
+    # the 20k-bus system against the device BandedLU (float64)
+    gc = synthetic_grid(N_SPIKE_CHECK, seed=0)
+    Ac = _bprime_3i(gc, dev)
+    pc = rcm(Ac)
+    Ac = Ac[pc, pc]
+    b = np.random.RandomState(3).rand(Ac.n)
+    x = StreamedSPIKE(Ac, P=4, ordering=None, device=dev)(b)
+    lu, _ = BandedLU.factor_device(Ac, ordering=None, dtype=torch.float64,
+                                   device=dev)
+    ref = lu(b).cpu().numpy()
+    err = float(np.abs(x - ref).max() / np.abs(ref).max())
+    log(f"spike: {N_SPIKE_CHECK}-bus B'+3I (RCM) StreamedSPIKE(P=4) float32 "
+        f"against the device BandedLU float64: max_err_over_max={err:.3e} "
+        f"(bound {SPIKE_CHECK_RTOL:.0e})")
+    if not err <= SPIKE_CHECK_RTOL:
+        raise AssertionError("spike disagrees with the device BandedLU")
+    log(f"spike: phase seconds {time.perf_counter() - t_phase:.1f}")
+
 
 def main():
     import torch
@@ -3441,6 +3732,14 @@ def main():
         ldlt_phase(dev)
         with torch.inference_mode(False):
             grad_phase(dev)
+        # the rest of the public surface at 1M buses (no kernel of ours)
+        t0 = time.perf_counter()
+        g1m = synthetic_grid(N_SURFACE, seed=0)
+        log(f"surface: synthetic_grid({N_SURFACE}, seed=0) branches="
+            f"{g1m.n_branch} seconds {time.perf_counter() - t0:.1f}")
+        islands_phase(dev, g1m)
+        spike_phase(dev, g1m)
+        del g1m
         k1_batch_launches, k4_batch_launches, k1_batch, k4_batch = \
             studies_phase(dev)
         # last: these phases time with CUDA events alone, so torch.profiler

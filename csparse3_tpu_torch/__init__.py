@@ -32,6 +32,12 @@ and iterative solvers with DC state estimation: ``ldlt`` /
 ``largest_normalized_residual``.  Products and solves are differentiable
 (``torch.autograd``) in x / b and in the matrix values: ``spmv``,
 ``spmm``, ``SpMVPlan``, ``SolvePlan`` and the refactorizations' solves.
+And the rest of the public surface: the builders (``TripletBuilder`` /
+``LilMat`` / ``CooMat``), connected components on the device
+(``islands``, ``component_labels``), stacking, ``norm``, ``validate``, the
+constructors (``eye``, ``diag``, ``diags``, ``random_csc``, ...),
+``utils.io`` and ``utils.profiling``; and the single-card streamed SPIKE
+solver (``linalg.StreamedSPIKE``).
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (``config.default_device``).
@@ -45,17 +51,35 @@ from .types import BSR, COO, CSC, CSR, DIA  # noqa: F401
 from .ops.construct import (  # noqa: F401
     bsr_to_dense,
     canonicalize,
+    compress_indptr,
+    coo_to_csc,
     csc_to_bsr,
     csc_to_coo,
     csc_to_csr,
     csc_to_dense,
     csc_to_dia,
+    dense_to_csc,
     dia_to_csc,
     csr_to_csc,
+    diag,
+    diags,
+    expand_indptr,
+    eye,
     from_triplets,
+    random_csc,
     to_scipy,
     transpose,
 )
+from .builder import CooMat, LilMat, TripletBuilder  # noqa: F401
+from .ops.graph import component_labels, islands  # noqa: F401
+from .ops.norms import norm  # noqa: F401
+from .ops.stacking import block, hstack, pack_4_by_4, vstack  # noqa: F401
+from .ops.validate import (  # noqa: F401
+    has_canonical_format,
+    has_sorted_indices,
+    validate,
+)
+from .utils.misc import dense_to_str, slice_to_range  # noqa: F401
 from .ops.matvec import (  # noqa: F401
     DIAPlan,
     SplitDIA,
@@ -124,6 +148,7 @@ from .linalg import (  # noqa: F401
     SolvePlan,
     SparseLDLT,
     SparseLU,
+    StreamedSPIKE,
     TriSolvePlan,
     bicgstab,
     btf,
@@ -139,6 +164,7 @@ from .linalg import (  # noqa: F401
     spsolve,
 )
 from . import linalg, models, utils  # noqa: F401
+from .utils import io, profiling  # noqa: F401
 from .models import (  # noqa: F401
     ACContingency,
     DCContingency,
@@ -168,3 +194,13 @@ from .utils.interop import (  # noqa: F401
     dia_from_arrays,
     grid_from_arrays,
 )
+
+# the reference library's names
+CscMat = CSC
+Diag = diag
+Diags = diags
+
+
+def scipy_to_mat(a, device=None) -> CSC:
+    """Adopt a scipy sparse matrix as a CSC."""
+    return CSC.from_scipy(a, device=device)

@@ -4,9 +4,9 @@ The JAX package's ``Config`` also selects a compute backend ('xla',
 'pallas' or 'numpy'); the port has none to select: host work is numpy,
 device work is torch, and a CUDA kernel runs exactly when its input lies
 on a CUDA device.  What stays is the index dtype of host construction
-(``ops.construct``) and the default BSR block shape, with the JAX
-package's defaults; the other fields come back with the modules that read
-them.
+(``ops.construct``), the value dtype of the constructors that take
+none, and the default BSR block shape, with the JAX package's
+defaults; the other fields come back with the modules that read them.
 
 ``default_device`` is where every entry point of the port runs when the
 caller names no device: the CUDA card.  There is no quiet CPU default: a
@@ -28,6 +28,9 @@ __all__ = ["Config", "get_config", "default_device", "resolve_device"]
 class Config:
     # numpy dtype of CSC/CSR index arrays built on the host
     index_dtype: np.dtype = np.int32
+    # numpy dtype of the values ``eye``, ``diag`` and ``random_csc`` make
+    # when the caller names none
+    value_dtype: np.dtype = np.float64
     # (R, C) of ``csc_to_bsr`` when the caller names no block
     bsr_block: tuple = (8, 128)
 

@@ -1,8 +1,8 @@
 """Sparse LU and LDL^T (host factorizations), level-scheduled and
 dense-tail triangular solves, device refactorization (level-scheduled,
 supernodal and multifrontal), the from-scratch multifrontal device LU, the
-banded block-Thomas solvers, the block triangular form with its block-wise
-LU, and the Krylov solvers."""
+banded block-Thomas solvers and the single-card streamed SPIKE solver, the
+block triangular form with its block-wise LU, and the Krylov solvers."""
 
 from .lu_host import HostLU, lu_factor_host  # noqa: F401
 from .trisolve import (  # noqa: F401
@@ -35,9 +35,11 @@ from .banded import (  # noqa: F401
     BandedSolvePlan,
     ComplexBandedSolve,
     bandwidth,
+    spike_tips_device,
     thomas_factor_device,
     thomas_sweeps,
 )
+from .spike_stream import StreamedSPIKE, spike_reduced_factor  # noqa: F401
 from .btf import BTFLU, btf, btf_splu, max_transversal  # noqa: F401
 from .iterative import (  # noqa: F401
     bicgstab,

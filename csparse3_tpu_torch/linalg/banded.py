@@ -43,8 +43,7 @@ Deviations from the JAX package, by design:
   package's takes only values of the embedding);
 * ``precision='high'`` and ``'default'`` both allow TF32 products (10-bit
   mantissa).  The JAX package's are 3-pass and 1-pass bfloat16 products;
-* ``spike_tips_device``, the pytree methods and the debug timer switch are
-  not ported.
+* the pytree methods and the debug timer switch are not ported.
 """
 
 from __future__ import annotations
@@ -59,8 +58,8 @@ from ..types import CSC
 
 __all__ = ["BandedLU", "BandedRefactor", "BandedSolvePlan",
            "ComplexBandedSolve", "bandwidth", "is_symmetric_csc",
-           "thomas_factor_device", "thomas_factor_device_sym",
-           "thomas_sweeps", "thomas_sweeps_sym"]
+           "spike_tips_device", "thomas_factor_device",
+           "thomas_factor_device_sym", "thomas_sweeps", "thomas_sweeps_sym"]
 
 PRECISIONS = ("highest", "high", "default")
 
@@ -380,6 +379,45 @@ def thomas_sweeps_sym(sinv, uhat, bb, precision="highest"):
         for k in range(1, len(ys)):
             addmm_(ys[k], uh[k - 1].mT, ys[k - 1], alpha=-1)
         return _backward(sinv, uhat, y)
+
+
+@torch.inference_mode()
+def spike_tips_device(sinv, uhat, Bp, Cp, ehat=None, precision="highest"):
+    """The first and last (s, s) blocks of the SPIKE spikes of one chunk,
+    without forming the spikes.  With T the chunk's block-tridiagonal
+    matrix (factored into ``sinv``, ``uhat`` and, for general input,
+    ``ehat``), W = T^{-1} [B; 0; ..; 0] and V = T^{-1} [0; ..; 0; C]:
+
+      W: y_0 = B,  y_k = -Ehat_k y_{k-1}                 (forward)
+         x_{m-1} = Sinv_{m-1} y_{m-1},  x_k = Sinv_k y_k - Uhat_k x_{k+1}
+      V: x_{m-1} = Sinv_{m-1} C,        x_k = -Uhat_k x_{k+1}
+
+    ``ehat=None`` is the symmetric form (Ehat_k = Uhat_{k-1}^T).  Memory:
+    one (m, s, s) stack for the forward chain y, and the backward
+    recurrences carry one (s, s) block each (two (s, s) buffers in turn)
+    and keep no per-step outputs: those would be two more (m, s, s) stacks,
+    20 GB at 1M buses and s = 2560.  Returns (Wt, Wb, Vt, Vb)."""
+    m = sinv.shape[0]
+    with _matmul_precision(precision):
+        y = torch.empty_like(sinv)
+        y[0] = Bp
+        for k in range(1, m):
+            ek = uhat[k - 1].mT if ehat is None else ehat[k]
+            torch.mm(ek, y[k - 1], out=y[k])
+            y[k].neg_()
+        Wb = sinv[m - 1] @ y[m - 1]
+        Wt = Wb
+        buf = (torch.empty_like(Wb), torch.empty_like(Wb))
+        for k in range(m - 2, -1, -1):
+            torch.mm(sinv[k], y[k], out=buf[k % 2])
+            Wt = buf[k % 2].addmm_(uhat[k], Wt, alpha=-1)
+        del y
+        Vb = sinv[m - 1] @ Cp
+        Vt = Vb
+        buf = (torch.empty_like(Vb), torch.empty_like(Vb))
+        for k in range(m - 2, -1, -1):
+            Vt = torch.mm(uhat[k], Vt, out=buf[k % 2]).neg_()
+    return Wt, Wb, Vt, Vb
 
 
 def _inverse_into(S, out, info):

@@ -17,7 +17,9 @@ from ..config import get_config
 from ..types import BSR, COO, CSC, CSR, DIA
 
 __all__ = [
+    "expand_indptr",
     "expand_indptr_np",
+    "compress_indptr",
     "from_triplets",
     "coo_to_csc",
     "csc_to_coo",
@@ -32,6 +34,15 @@ __all__ = [
     "csc_to_dense",
     "coo_to_dense",
     "to_scipy",
+    "dense_to_csc",
+    "eye",
+    "diag",
+    "diags",
+    "random_csc",
+    "real_equivalent",
+    "complex_rhs_to_real",
+    "real_x_to_complex",
+    "complex_embed_block_size",
 ]
 
 
@@ -42,6 +53,28 @@ def expand_indptr_np(indptr, nnz: int | None = None):
     reps = np.diff(indptr)
     out = np.repeat(np.arange(n, dtype=indptr.dtype), reps)
     return out if nnz is None else out[:nnz]
+
+
+def expand_indptr(indptr, nnz: int):
+    """indptr -> per-entry segment ids on the index's device: entry k
+    belongs to the number of segment boundaries <= k, less one."""
+    indptr = torch.as_tensor(indptr)
+    k = torch.arange(nnz, dtype=indptr.dtype, device=indptr.device)
+    return (torch.searchsorted(indptr, k, right=True) - 1).to(indptr.dtype)
+
+
+def compress_indptr(seg_ids, nseg: int, nnz: int | None = None):
+    """Sorted per-entry segment ids -> indptr of length nseg + 1, in the
+    configured index dtype, on the ids' device; ids >= nseg are not
+    counted."""
+    seg_ids = torch.as_tensor(seg_ids)
+    counts = torch.bincount(seg_ids.long(), minlength=nseg)[:nseg]
+    indptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    return indptr.to(_torch_dtype(get_config().index_dtype))
+
+
+def _torch_dtype(np_dtype):
+    return torch.from_numpy(np.empty(0, dtype=np_dtype)).dtype
 
 
 def from_triplets(rows, cols, vals, shape, *, sum_duplicates=True,
@@ -255,3 +288,119 @@ def coo_to_dense(a: COO):
 def to_scipy(a):
     """scipy.sparse matrix of a CSC / CSR / COO container."""
     return a.to_scipy()
+
+
+def dense_to_csc(arr, device=None) -> CSC:
+    """CSC of the nonzeros of a dense array (numpy or a tensor); a tensor's
+    device is the result's unless ``device`` names another."""
+    if isinstance(arr, torch.Tensor):
+        device = arr.device if device is None else device
+        arr = arr.detach().cpu().numpy()
+    arr_np = np.asarray(arr)
+    rows, cols = np.nonzero(arr_np)
+    return from_triplets(rows, cols, arr_np[rows, cols], arr_np.shape,
+                         device=device)
+
+
+def eye(n, dtype=None, k: int = 0, device=None) -> CSC:
+    """n x n identity, or ones on diagonal ``k`` (k > 0 above the main
+    one)."""
+    dtype = dtype or get_config().value_dtype
+    if k >= 0:
+        rows = np.arange(0, n - k)
+        cols = rows + k
+    else:
+        cols = np.arange(0, n + k)
+        rows = cols - k
+    return from_triplets(rows, cols, np.ones(len(rows), dtype=dtype), (n, n),
+                         device=device)
+
+
+def diag(m, n, value, device=None) -> CSC:
+    """m x n matrix with ``value`` on the main diagonal."""
+    d = min(m, n)
+    idx = np.arange(d)
+    vals = np.full(d, value, dtype=get_config().value_dtype)
+    return from_triplets(idx, idx, vals, (m, n), device=device)
+
+
+def diags(array, device=None) -> CSC:
+    """Square diagonal matrix from a vector (numpy or a tensor, placed on
+    the tensor's device)."""
+    if isinstance(array, torch.Tensor):
+        device = array.device if device is None else device
+        array = array.detach().cpu().numpy()
+    array = np.asarray(array)
+    d = array.shape[0]
+    idx = np.arange(d)
+    return from_triplets(idx, idx, array, (d, d), device=device)
+
+
+def random_csc(m, n, density=0.01, seed=0, dtype=None, device=None) -> CSC:
+    """Random test matrix: ``int(m n density)`` triplets from numpy's
+    ``default_rng(seed)`` (the JAX package's draws, so the same matrix),
+    duplicates summed."""
+    dtype = dtype or get_config().value_dtype
+    rng = np.random.default_rng(seed)
+    k = int(m * n * density)
+    rows = rng.integers(0, m, size=k)
+    cols = rng.integers(0, n, size=k)
+    vals = rng.standard_normal(k).astype(dtype)
+    return from_triplets(rows, cols, vals, (m, n), device=device)
+
+
+def real_equivalent(a: CSC, interleave: bool = True) -> CSC:
+    """Split-complex real doubling of a complex matrix: each entry p + iq
+    stamps the real block [[p, -q], [q, p]].  Interleaved (the default),
+    the variables are (re z0, im z0, re z1, ...) and bandwidth bw becomes
+    2 bw + 1, so a complex banded system rides the real banded solvers;
+    ``interleave=False`` stacks them as [[Re, -Im], [Im, Re]].  Real input
+    comes back unchanged.  Host numpy; the result keeps ``a``'s device."""
+    ip, ix, dt = a.np_arrays()
+    dt = np.asarray(dt)
+    if not np.iscomplexobj(dt):
+        return a
+    rows = np.asarray(ix, dtype=np.int64)
+    cols = np.repeat(np.arange(a.n, dtype=np.int64), np.diff(np.asarray(ip)))
+    p, q = np.ascontiguousarray(dt.real), np.ascontiguousarray(dt.imag)
+    if interleave:
+        r2 = np.concatenate([2 * rows, 2 * rows, 2 * rows + 1, 2 * rows + 1])
+        c2 = np.concatenate([2 * cols, 2 * cols + 1, 2 * cols, 2 * cols + 1])
+    else:
+        r2 = np.concatenate([rows, rows, rows + a.m, rows + a.m])
+        c2 = np.concatenate([cols, cols + a.n, cols, cols + a.n])
+    v2 = np.concatenate([p, -q, q, p])
+    return from_triplets(r2, c2, v2, (2 * a.m, 2 * a.n), device=a._device)
+
+
+def complex_rhs_to_real(b, perm):
+    """Inbound half of the interleaved embedding (host): apply the
+    complex-level ordering ``perm`` and interleave re / im into a real
+    (2n, B) array.  Returns (b2, squeeze); pair with ``real_x_to_complex``."""
+    b = np.asarray(b)
+    squeeze = b.ndim == 1
+    if squeeze:
+        b = b[:, None]
+    bp = b[perm]
+    b2 = np.empty((2 * b.shape[0], b.shape[1]),
+                  dtype=np.float64 if b.real.dtype == np.float64
+                  else np.float32)
+    b2[0::2] = bp.real
+    b2[1::2] = bp.imag
+    return b2, squeeze
+
+
+def real_x_to_complex(x2, perm, squeeze):
+    """Outbound half of ``complex_rhs_to_real``."""
+    x2 = np.asarray(x2)
+    xp = x2[0::2] + 1j * x2[1::2]
+    x = np.empty_like(xp)
+    x[perm] = xp
+    return x[:, 0] if squeeze else x
+
+
+def complex_embed_block_size(s):
+    """Block size for the interleaved embedding: bandwidth bw maps to
+    2 bw + 1, so a block size legal for the complex system (s >= bw) maps
+    to 2 s + 8 (>= 2 s + 1, and a multiple of 8 stays one)."""
+    return None if s is None else 2 * s + 8

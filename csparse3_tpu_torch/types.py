@@ -134,8 +134,7 @@ class CSC(_SparseBase):
         placed = self.__dict__.setdefault("_placed", {})
         key = str(torch.device(device))
         if key not in placed:
-            arrays = self._np if self._np is not None else self._arrays
-            placed[key] = CSC(self.m, self.n, *arrays, nnz=self.nnz,
+            placed[key] = CSC(self.m, self.n, *self._given(), nnz=self.nnz,
                               canonical=self.canonical, device=device)
         return placed[key]
 
@@ -155,6 +154,76 @@ class CSC(_SparseBase):
         from .ops import slicing
 
         return slicing.getitem(self, key)
+
+    def __setitem__(self, key, value):
+        raise TypeError(
+            "CSC is immutable; build with TripletBuilder / LilMat instead "
+            "(matches reference csc.py:288-292)")
+
+    def _given(self):
+        """The three arrays as given: the host copies where there are."""
+        return self._np if self._np is not None else self._arrays
+
+    def _revalued(self, data) -> "CSC":
+        """This pattern with new values (numpy or a tensor), on this
+        container's device."""
+        ip, ix, _ = self._given()
+        return CSC(self.m, self.n, ip, ix, data, nnz=self.nnz,
+                   canonical=self.canonical, device=self._device)
+
+    def copy(self) -> "CSC":
+        """A copy with its own arrays, on this container's device."""
+        ip, ix, dt = (a.copy() if isinstance(a, np.ndarray) else a.clone()
+                      for a in self._given())
+        return CSC(self.m, self.n, ip, ix, dt, nnz=self.nnz,
+                   canonical=self.canonical, device=self._device)
+
+    def astype(self, dtype) -> "CSC":
+        """Values cast to ``dtype`` (numpy or torch), on this container's
+        device."""
+        dt = self._given()[2]
+        if isinstance(dt, np.ndarray):
+            if isinstance(dtype, torch.dtype):
+                dtype = torch.empty((), dtype=dtype).numpy().dtype
+            return self._revalued(dt.astype(dtype))
+        if not isinstance(dtype, torch.dtype):
+            dtype = torch.from_numpy(np.empty(0, dtype=dtype)).dtype
+        return self._revalued(dt.to(dtype))
+
+    def conj(self) -> "CSC":
+        dt = self._given()[2]
+        return self._revalued(np.conj(dt) if isinstance(dt, np.ndarray)
+                              else dt.conj().resolve_conj())
+
+    @classmethod
+    def from_dense(cls, arr, device=None) -> "CSC":
+        from .ops import construct
+
+        return construct.dense_to_csc(arr, device=device)
+
+    def get_nnz(self) -> int:
+        return self.nnz
+
+    def islands(self):
+        """Connected components of the pattern (``ops.graph.islands``)."""
+        from .ops import graph
+
+        return graph.islands(self)
+
+    def norm(self, ord=1):
+        from .ops import norms
+
+        return norms.norm(self, ord=ord)
+
+    def diagonal(self):
+        from .ops import reductions
+
+        return reductions.diagonal(self)
+
+    def sum(self, axis=None):
+        from .ops import reductions
+
+        return reductions.sum(self, axis=axis)
 
     def todense(self):
         from .ops import construct

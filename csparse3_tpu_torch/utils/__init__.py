@@ -1,1 +1,2 @@
-"""Build helpers and interop with the JAX package's state."""
+"""Build helpers, interop with the JAX package's state, persistence
+(``io``), profiling and small host utilities (``misc``)."""

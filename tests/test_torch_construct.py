@@ -148,6 +148,10 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "from csparse3_tpu_torch.ops import (arithmetic, bsr_ops, "
             "spgemm, spgemm_device)\n"
             "from csparse3_tpu_torch.kernels import bsr_spmm, spgemm\n"
+            "from csparse3_tpu_torch import builder\n"
+            "from csparse3_tpu_torch.linalg import spike_stream\n"
+            "from csparse3_tpu_torch.ops import graph, norms, stacking\n"
+            "from csparse3_tpu_torch.utils import io, misc, profiling\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'csparse3_tpu'))\n"
             "assert not bad, bad\n")

@@ -181,6 +181,11 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
             "from csparse3_tpu_torch.models import estimation\n"
             "from csparse3_tpu_torch.ops import reductions\n"
             "from csparse3_tpu_torch.native import host_ext\n"
+            "from csparse3_tpu_torch import builder\n"
+            "from csparse3_tpu_torch.linalg import spike_stream\n"
+            "from csparse3_tpu_torch.ops import (graph, norms, stacking, "
+            "validate)\n"
+            "from csparse3_tpu_torch.utils import io, misc, profiling\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

@@ -2,7 +2,8 @@
 BSR SpMM kernels against their plain PyTorch versions, the device solvers
 against the same solves on the CPU, and the supernodal / multifrontal
 fronts (torch ops, no kernel of ours) against the CPU, the host factors
-and scipy.
+and scipy; the connected components, ``norm`` and ``StreamedSPIKE`` on
+the card against the CPU.
 
 Every test here needs a card and skips without one.  The file imports
 neither jax nor the JAX package, so it runs where only torch is installed:
@@ -1547,3 +1548,86 @@ def test_launch_counts_unchanged_with_grad_mode_on(cuda):
         x = pt.linalg.splu(A).solve_plan(device=cuda)(
             torch.ones(500, dtype=torch.float64, device=cuda))
         assert x.is_inference() and not x.requires_grad
+
+
+def _branch_graphs(n, seed, out_frac):
+    """(C C^T, C^T C) of synthetic_grid(n, seed) with ``out_frac`` of its
+    branches out, built through ``LilMat`` bulk chunks on the host."""
+    g = synthetic_grid(n, seed=seed)
+    keep = np.random.RandomState(0).rand(g.n_branch) > out_frac
+    f, t = g.f[keep], g.t[keep]
+    k = np.arange(len(f))
+    cf = pt.LilMat(len(f), n, device="cpu").add_triplets(k, f, 1.0)
+    ct = pt.LilMat(len(f), n, device="cpu").add_triplets(k, t, 1.0)
+    C = cf.to_csc() - ct.to_csc()
+    return C * C.t(), C.t() * C
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_frac", [0.0, 0.3])
+def test_component_labels_on_cuda_equal_cpu(cuda, out_frac):
+    from scipy.sparse.csgraph import connected_components
+
+    from csparse3_tpu_torch.ops.graph import propagate_labels
+
+    for A in _branch_graphs(20_000, 0, out_frac):
+        want = pt.component_labels(A)
+        Ac = A.to(cuda)
+        raw, rounds = propagate_labels(Ac)
+        assert raw.is_cuda
+        np.testing.assert_array_equal(pt.component_labels(Ac), want)
+        np.testing.assert_array_equal(
+            want, connected_components(A.to_scipy(), directed=False)[1])
+        for a, b in zip(Ac.islands(), pt.islands(A)):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ord_", [1, np.inf, "fro"])
+def test_norm_on_cuda_matches_cpu(cuda, ord_):
+    A = ybus(synthetic_grid(20_000, seed=1))[0]
+    got = pt.norm(A.to(cuda), ord_)
+    assert got.is_cuda and got.ndim == 0
+    want = pt.norm(A.to("cpu"), ord_)
+    assert abs(float(got) - float(want)) <= 1e-13 * float(want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sym", [True, False])
+def test_streamed_spike_on_cuda_matches_cpu(cuda, sym):
+    """The solver on the card against the same solver on the CPU, two
+    solves each (the second on the kept tips): float64 within 1e-10 of
+    max|x| (the same algorithm); float32 within 1e-4, the float32 solver's
+    own accuracy (its residual is ~1e-5, so two float32 runs with other
+    BLAS orders differ by about that: 1.3e-5 of max|x| measured)."""
+    n = 20_000
+    g = synthetic_grid(n, seed=3)
+    bp = 1.0 / g.x
+    d = np.arange(n)
+    A = pt.from_triplets(np.concatenate([g.f, g.t, g.f, g.t, d]),
+                         np.concatenate([g.f, g.t, g.t, g.f, d]),
+                         np.concatenate([bp, bp, -bp, -bp,
+                                         np.full(n, 3.0)]), (n, n),
+                         device="cpu")
+    if not sym:
+        ip, ix, dt = A.np_arrays()
+        cols = np.repeat(np.arange(n), np.diff(ip))
+        A = pt.CSC(n, n, ip, ix, np.where(ix < cols, 0.9 * dt, dt),
+                   device="cpu")
+    perm = pt.linalg.rcm(A)
+    A = A[perm, perm]
+    S = A.to_scipy()
+    for dtype, tol in ((np.float64, 1e-10), (np.float32, 1e-4)):
+        gpu = pt.StreamedSPIKE(A, P=4, ordering=None, dtype=dtype,
+                               device=cuda)
+        cpu = pt.StreamedSPIKE(A, P=4, ordering=None, dtype=dtype,
+                               device="cpu")
+        assert gpu._sym == sym
+        for seed in (0, 1):
+            b = np.random.RandomState(seed).rand(n)
+            x, want = gpu(b), cpu(b)
+            assert x.dtype == dtype
+            np.testing.assert_allclose(x, want, rtol=0,
+                                       atol=tol * np.abs(want).max())
+            assert (np.linalg.norm(S @ x.astype(np.float64) - b)
+                    / np.linalg.norm(b)) < tol
