@@ -61,7 +61,8 @@ seconds):
            host's and a solve's relative residual (< 1e-3 in float32,
            < 1e-10 in float64).  Last, IEEE-14 with solver='multifrontal'.
 8. banded: the same grid in RCM order (``rcm_grid``):
-           NewtonPowerFlow(spmv='dia') in float64 must converge to 1e-10,
+           NewtonPowerFlow(spmv='dia', solver='multifrontal') in float64
+           must converge to 1e-10,
            give a host float64 mismatch <= 1e-8, launch the DIA kernel once
            per slab set per mismatch evaluation and agree with the 'ell'
            state of phase 6 mapped by vm_old[perm] = vm_new;
@@ -121,7 +122,7 @@ seconds):
            A^T g from scipy within 1e-10, the values at 3 entries against
            central differences within 1e-5; the ELL padding zero), and of
            sum(x^2) for ``RefactorPlan`` / ``MultifrontalRefactor``
-           ``.refactor(d)(b)`` on B + 3I at 10k (b against scipy's
+           ``.refactor(d)(b)`` on B + 3I at 3000 buses (b against scipy's
            spsolve(A^T, g), d at 3 entries against central differences);
            forward and backward seconds and device kernels.
 15. studies: the batched study path on synthetic_grid(10_000, seed=3)
@@ -204,7 +205,32 @@ seconds):
            float64 host residual < 1e-4; wall seconds beside the operations'
            bound at the float32 peak, and the peak device memory.  Then a
            20k-bus system against the device ``BandedLU`` (float64) within
-           1e-4 of max|x|.
+           1e-4 of max|x|.  Then config 5 distributed, on the same RCM
+           B' + 3I once the StreamedSPIKE is freed, over
+           ``Mesh.virtual(8, cuda:0)``: ``partition_rows`` and
+           ``dist_spmv`` against scipy (1e-12 of max|y|), and
+           ``DistBandedLU.factor_device(A, ordering=None, s=2560)`` in
+           float32 (P = 8, m = 49): factor seconds, a first and a warm solve
+           of the RandomState(3) right-hand side, each with a float64 host
+           residual < 1e-4 and within 1e-4 of max|x| of the StreamedSPIKE
+           solution, the peak device memory.
+20. parallel (after spike): the distributed layer on
+           ``Mesh.virtual(8, cuda:0)`` at the sizes of the JAX package's
+           multi-device dry run: B' + 3I of synthetic_grid(100_000, seed=1)
+           in RCM order: ``partition_rows`` must give a ring with k >= 1,
+           its far-coupled variant k >= 2 and its random permutation the
+           all-gather strategy, each ``dist_spmv`` within 1e-12 of scipy;
+           the ring product's time beside the one-device ``spmv`` of the
+           same matrix; BlockJacobi's 8 block plans built and applied
+           under 'auto' and 'level' alone; ``dist_cg`` with
+           ``BlockJacobi`` (tol 1e-6, residual < 1e-4), ``DiagJacobi``
+           and no preconditioner (their iteration counts); the host-factored ``DistBandedLU`` at 100k;
+           ``DistBandedLU.factor_device`` of the complex 25k system
+           Ybus(synthetic_grid(25_000, seed=2)) + (3 + 0.5j) I;
+           ``SchurLU(S=8).device_plan().dist_solve`` at 50k buses.  Each
+           solve's float64 host residual < 1e-4.  In the studies phase,
+           ``run_sharded`` of the DC, linear and AC studies over the same
+           mesh against ``run`` on the same outages.
 
 Prints one JSON line of kernel records, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -1042,7 +1068,11 @@ def banded_phase(dev, ell_state):
     t0 = time.perf_counter()
     g, perm = rcm_grid(synthetic_grid(N_SOLVE, seed=3))
     t1 = time.perf_counter()
-    pf = NewtonPowerFlow(g, spmv="dia", device=dev)
+    # 'multifrontal', a depth cut: the 'level' refactor build on the RCM
+    # Jacobian took 68.5 s, so the RCM-ordered Newton 'level' solve is no
+    # longer driven (Newton 'level' runs on the natural order in the newton
+    # phase, K4 under 'level' through FastDecoupled below)
+    pf = NewtonPowerFlow(g, spmv="dia", solver="multifrontal", device=dev)
     t_build = time.perf_counter() - t1
     fds = {}
     for sp in ("symdia", "dia"):
@@ -2847,6 +2877,12 @@ def studies_phase(dev):
     if worst > DC_FLOW_RTOL or not same_ok:
         raise AssertionError("studies: LODF screening disagrees with the "
                              "DC contingency")
+    from csparse3_tpu_torch.parallel import Mesh
+
+    mesh = Mesh.virtual(MESH_S, dev)
+    ks_sh = np.arange(N_SHARDED)
+    _sharded_check("dc", dc, mesh, ks_sh)
+    _sharded_check("linear", lc, mesh, ks_sh)
     del dc, fl, th, lc, fl_l
 
     # ---- (e) AC contingency, 'multifrontal'
@@ -2877,6 +2913,7 @@ def studies_phase(dev):
     if not agree or worst > AC_STATE_ATOL:
         raise AssertionError("studies ac contingency disagrees with the "
                              "host Newton")
+    _sharded_check("ac", ac, mesh, ks[:N_SHARDED_AC])
     del ac, vm, va
 
     # ---- (f) short circuit at every bus
@@ -2951,6 +2988,10 @@ LDLT_RTOL = 1e-10
 GRAD_RTOL = 1e-10
 GRAD_FD_RTOL = 1e-5
 GRAD_FD_STEP = {"product": 1e-2, "solve": 1e-6}
+# buses of the B + 3I system of the refactor-solve gradients: its level and
+# front plans build ~14x faster than at N_SOLVE (host build, measured on a
+# CPU), and the gradients' checks do not depend on the size
+N_GRAD_SOLVE = 3_000
 
 
 def _rel_err(x, ref):
@@ -3335,7 +3376,7 @@ def grad_phase(dev):
     ``SpMVPlan`` on the real part of the 10k Ybus (with respect to x against
     A^T g from scipy, to the values at 3 entries against central
     differences), and ``RefactorPlan`` / ``MultifrontalRefactor``
-    ``.refactor(d)(b)`` on B + 3I at 10k (with respect to b against scipy's
+    ``.refactor(d)(b)`` on B + 3I at 3000 buses (with respect to b against scipy's
     spsolve(A^T, g), to d at 3 entries against central differences).  Prints
     the backward's seconds and device kernels beside the forward's."""
     import scipy.sparse as sp
@@ -3390,10 +3431,10 @@ def grad_phase(dev):
               "product")
 
     # refactor-and-solve: RefactorPlan and MultifrontalRefactor on B + 3I
-    A = refactor_system(N_SOLVE)
+    A = refactor_system(N_GRAD_SOLVE)
     Sa = A.to_scipy().tocsc()
     data = A.np_arrays()[2]
-    bnp = np.random.RandomState(10).rand(N_SOLVE)
+    bnp = np.random.RandomState(10).rand(N_GRAD_SOLVE)
     xs = spla.spsolve(Sa, bnp)
     gb_ref = spla.spsolve(Sa.T.tocsc(), 2 * xs)
     t0 = time.perf_counter()
@@ -3651,9 +3692,11 @@ def spike_phase(dev, g):
         f"symmetric={sk._sym} float32")
     S = A.to_scipy().tocsr()
     torch.cuda.reset_peak_memory_stats(dev)
+    xs_sk = {}
     for i, (seed, first) in enumerate(((3, True), (4, False))):
         b = np.random.RandomState(seed).rand(A.n).astype(np.float32)
         x, secs = _timed(lambda: sk(b))
+        xs_sk[seed] = x
         res = float(np.linalg.norm(S @ x.astype(np.float64) - b)
                     / np.linalg.norm(b))
         flops = spike_flops(sk, first)
@@ -3671,7 +3714,9 @@ def spike_phase(dev, g):
         f"{base / 1e9:.2f} GB held before; one chunk's (m, s, s) float32 "
         f"stack {chunk / 1e9:.3f} GB, all P chunks' "
         f"{SPIKE_P * chunk / 1e9:.1f} GB)")
-    del sk, A, A0, S
+    del sk
+    spike_distributed(dev, A, S, xs_sk[3])
+    del A, A0, S
 
     # the 20k-bus system against the device BandedLU (float64)
     gc = synthetic_grid(N_SPIKE_CHECK, seed=0)
@@ -3690,6 +3735,286 @@ def spike_phase(dev, g):
     if not err <= SPIKE_CHECK_RTOL:
         raise AssertionError("spike disagrees with the device BandedLU")
     log(f"spike: phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
+# ---------------------------------------------------------------------------
+# the distributed layer (Mesh.virtual on the card)
+# ---------------------------------------------------------------------------
+
+MESH_S = 8               # positions of the virtual mesh (the dry run's 8)
+N_PAR = 100_000          # buses of the ring, Krylov and host SPIKE stages
+N_PAR_COMPLEX = 25_000   # buses of the complex device SPIKE stage
+N_SCHUR = 50_000         # buses of the Schur stage
+PAR_RESIDUAL = 1e-4      # float64 host residual of every distributed solve
+PAR_SPMV_RTOL = 1e-12    # dist_spmv (float64) against scipy, of max|y|
+PAR_CG_TOL = 1e-6        # the dry run's CG tolerance
+SHARDED_RTOL = 1e-12     # run_sharded against run, of the largest value
+N_SHARDED = 300          # DC and linear outages of run_sharded
+N_SHARDED_AC = 32        # AC outages of run_sharded
+
+
+def _host_residual(S, x, b):
+    x = x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+    return float(np.linalg.norm(S @ x.astype(np.result_type(x, np.float64))
+                                - b) / np.linalg.norm(b))
+
+
+def _spmv_check(label, part, A, x, mesh):
+    """dist_spmv of ``part`` against scipy on the host; returns the padded
+    product."""
+    from csparse3_tpu_torch.parallel import dist_spmv
+
+    y, secs = _timed(lambda: dist_spmv(part, x, mesh))
+    ref = A.to_scipy() @ x
+    err = _rel_err(y[: A.n], ref)
+    log(f"parallel[{label}]: {part!r} entries_per_group={part.e_vals.shape[-1]}"
+        f" first_call_s={secs:.3f} max_err_over_max_vs_scipy={err:.3e} "
+        f"(bound {PAR_SPMV_RTOL:.0e})")
+    if not err <= PAR_SPMV_RTOL:
+        raise AssertionError(f"parallel[{label}]: dist_spmv disagrees with "
+                             "scipy")
+    return y
+
+
+def parallel_phase(dev):
+    """The distributed layer on Mesh.virtual(MESH_S, dev), at the JAX
+    package's dry-run sizes (see the module docstring).  Every check
+    raises."""
+    import torch
+
+    from csparse3_tpu_torch import add, diags, from_triplets, spmv
+    from csparse3_tpu_torch.linalg import rcm
+    from csparse3_tpu_torch.models.grids import synthetic_grid, ybus
+    from csparse3_tpu_torch.parallel import (BlockJacobi, DiagJacobi,
+                                             DistBandedLU, Mesh, SchurLU,
+                                             dist_cg, dist_spmv,
+                                             partition_rows, spmv_local)
+
+    t_phase = time.perf_counter()
+    mesh = Mesh.virtual(MESH_S, dev)
+    N = N_PAR
+    t0 = time.perf_counter()
+    A0 = _bprime_3i(synthetic_grid(N, seed=1), dev)
+    perm = rcm(A0)
+    A = A0[perm, perm]
+    S = A.to_scipy().tocsr()
+    x = np.linspace(0.0, 1.0, N)
+    log(f"parallel: {mesh!r}; B'+3I n={N} stored={A.nnz} (RCM) build_s="
+        f"{time.perf_counter() - t0:.1f}")
+
+    # ---- the ring, its product against one device's
+    t0 = time.perf_counter()
+    part = partition_rows(A, MESH_S)
+    t_part = time.perf_counter() - t0
+    if not (part.strategy == "ring" and part.k >= 1):
+        raise AssertionError(f"parallel: expected a k >= 1 ring, got {part}")
+    log(f"parallel: partition_rows host_s={t_part:.2f}")
+    _spmv_check("ring", part, A, x, mesh)
+    xt = torch.as_tensor(part.pad_vector(x), device=dev)
+    xs = mesh.scatter(xt, part.mloc)
+    dist_ms = cuda_ms(lambda: dist_spmv(part, xt, mesh), 20)
+    local_ms = cuda_ms(lambda: spmv_local(part, xs, mesh), 20)
+    x1 = xt[:N]
+    one_ms = cuda_ms(lambda: spmv(A, x1), 20)
+    log(f"parallel[ring]: dist_spmv_ms={dist_ms:.4f} (padded x in, product "
+        f"on one device out) spmv_local_ms={local_ms:.4f} (per-position "
+        f"slices; {MESH_S} positions x {2 * part.k + 1} groups) "
+        f"one_device_spmv_ms={one_ms:.4f} (entry streams, the same matrix) "
+        f"ratio_local_over_one={local_ms / one_ms:.2f}")
+
+    # ---- k >= 2: long lines at ~1.5x the block width
+    mloc = part.mloc
+    far = np.arange(0, N - 3 * mloc // 2 - 1, N // 64)
+    A2 = add(A, from_triplets(
+        np.concatenate([far, far + 3 * mloc // 2]),
+        np.concatenate([far + 3 * mloc // 2, far]),
+        np.full(2 * len(far), 0.01), (N, N), device=dev))
+    part2 = partition_rows(A2, MESH_S)
+    if not (part2.strategy == "ring" and part2.k >= 2):
+        raise AssertionError(f"parallel: expected a k >= 2 ring, got {part2}")
+    _spmv_check("ring_k2", part2, A2, x, mesh)
+    del A2, part2
+
+    # ---- a random permutation: the all-gather strategy
+    rp = np.random.RandomState(0).permutation(N)
+    Ar = A[rp, rp]
+    part_ag = partition_rows(Ar, MESH_S)
+    if part_ag.strategy != "allgather":
+        raise AssertionError(f"parallel: expected allgather, got {part_ag}")
+    _spmv_check("allgather", part_ag, Ar, x, mesh)
+    del Ar, part_ag
+
+    # ---- distributed CG: BlockJacobi (the dry run's), DiagJacobi, none
+    b = np.random.RandomState(0).rand(N)
+    t0 = time.perf_counter()
+    bj = BlockJacobi.build(A, part)
+    t_bj = time.perf_counter() - t0
+    # the block plans on the card: 'auto' (dense tails, BlockJacobi's)
+    # against 'level' (the JAX package's layout), built and applied alone
+    ones = [torch.ones(part.mloc, dtype=torch.float64, device=dev)] * MESH_S
+    for style in ("auto", "level"):
+        plans, t_pl = _timed(lambda: [lu.solve_plan(style, device=dev)
+                                      for lu in bj.lus])
+        ms = cuda_ms(lambda: [p(r) for p, r in zip(plans, ones)], 5)
+        log(f"parallel[block_jacobi plans {style}]: device_build_s="
+            f"{t_pl:.2f} apply_ms={ms:.3f} ({MESH_S} blocks of "
+            f"{part.mloc}, one right-hand side each)")
+    del plans, ones
+    for name, prec, maxiter in (("block_jacobi", bj, 200),
+                                ("diag_jacobi", DiagJacobi.build(A, part),
+                                 5000),
+                                ("none", None, 5000)):
+        (xs_, res, it), secs = _timed(lambda: dist_cg(
+            part, b, mesh, prec=prec, tol=PAR_CG_TOL, maxiter=maxiter))
+        rel = _host_residual(S, xs_, b)
+        extra = f" build_s={t_bj:.2f}" if prec is bj else ""
+        log(f"parallel[dist_cg {name}]: iterations={it} wall_s={secs:.3f} "
+            f"ms_per_iteration={1e3 * secs / max(it, 1):.3f} "
+            f"rel_residual_f64={rel:.3e} (bound {PAR_RESIDUAL:.0e}){extra}")
+        if not (rel < PAR_RESIDUAL and it < maxiter):
+            raise AssertionError(f"parallel: dist_cg {name} did not "
+                                 "converge")
+    del bj
+
+    # ---- the host-factored SPIKE at 100k
+    t0 = time.perf_counter()
+    dk = DistBandedLU(A, mesh=mesh, ordering=None)
+    t_fac = time.perf_counter() - t0
+    for what in ("first (uploads the stacks)", "warm"):
+        xk, secs = _timed(lambda: dk(b))
+        rel = _host_residual(S, xk, b)
+        log(f"parallel[DistBandedLU host]: P={dk.P} s={dk.s} m={dk.m} "
+            f"float64 host_factor_s={t_fac:.2f} solve {what} wall_s="
+            f"{secs:.3f} rel_residual_f64={rel:.3e} (bound "
+            f"{PAR_RESIDUAL:.0e})")
+        if not rel < PAR_RESIDUAL:
+            raise AssertionError("parallel: host DistBandedLU residual")
+    del dk, part, A, A0, S
+
+    # ---- the device SPIKE factor of a complex system
+    Nc = N_PAR_COMPLEX
+    Yc = ybus(synthetic_grid(Nc, seed=2))[0]
+    Ac = add(Yc.to(dev), diags(np.full(Nc, 3.0 + 0.5j), device=dev))
+    dkd, t_dfac = _timed(lambda: DistBandedLU.factor_device(Ac, mesh=mesh))
+    bc = (np.random.RandomState(4).rand(Nc)
+          + 1j * np.random.RandomState(5).rand(Nc))
+    xkd, secs = _timed(lambda: dkd(bc))
+    rel = _host_residual(Ac.to_scipy().tocsr(), xkd, bc)
+    log(f"parallel[DistBandedLU.factor_device complex]: n={Nc} (real "
+        f"embedding {2 * Nc}, s={dkd.s}, m={dkd.m}, P={dkd.P}) float32 "
+        f"factor_s={t_dfac:.2f} solve_s={secs:.3f} rel_residual_f64="
+        f"{rel:.3e} (bound {PAR_RESIDUAL:.0e})")
+    if not rel < PAR_RESIDUAL:
+        raise AssertionError("parallel: complex device SPIKE residual")
+    del dkd, Ac, Yc
+
+    # ---- Schur-complement domain decomposition at 50k
+    Ns = N_SCHUR
+    As0 = _bprime_3i(synthetic_grid(Ns, seed=1), dev)
+    ps = rcm(As0)
+    As = As0[ps, ps]
+    t0 = time.perf_counter()
+    schur = SchurLU(As, S=MESH_S)
+    plan = schur.device_plan(device=dev)
+    t_schur = time.perf_counter() - t0
+    bs = np.ones(Ns)
+    for what in ("first (places the shards)", "warm"):
+        xd, secs = _timed(lambda: plan.dist_solve(bs, mesh, axis="rows"))
+        rel = _host_residual(As.to_scipy().tocsr(), xd, bs)
+        log(f"parallel[SchurLU]: n={Ns} S={MESH_S} interface="
+            f"{schur.n_interface} build_s={t_schur:.2f} dist_solve {what} "
+            f"wall_s={secs:.3f} rel_residual_f64={rel:.3e} (bound "
+            f"{PAR_RESIDUAL:.0e})")
+        if not rel < PAR_RESIDUAL:
+            raise AssertionError("parallel: Schur residual")
+    log(f"parallel: phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
+def _sharded_check(name, study, mesh, ks, rtol=SHARDED_RTOL):
+    """``study.run_sharded`` against ``study.run`` on the same outages: the
+    masks and counts equal, the values of the outages ``run`` marks sound
+    (its last output) within ``rtol`` of the largest; raises."""
+    import torch
+
+    got, t_sh = _timed(lambda: study.run_sharded(mesh, ks))
+    want, t_run = _timed(lambda: study.run(ks))
+    ok = want[-1]
+    worst, bits = 0.0, True
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.device != w.device:
+            raise AssertionError(f"studies[{name} run_sharded]: shape or "
+                                 "device differs from run")
+        if w.dtype in (torch.bool, torch.int64):
+            if not torch.equal(g, w):
+                raise AssertionError(f"studies[{name} run_sharded]: a mask "
+                                     "or count differs from run")
+            continue
+        g, w = g[ok], w[ok]
+        bits &= bool(torch.equal(g, w))
+        worst = max(worst, float((g - w).abs().max())
+                    / max(float(w.abs().max()), 1e-300))
+    log(f"studies[{name} run_sharded]: outages={len(ks)} (sound "
+        f"{int(ok.sum())}) over {mesh!r} wall_s={t_sh:.3f} (run alone "
+        f"{t_run:.3f}) max_rel_diff_vs_run={worst:.3e} (bound {rtol:.0e}) "
+        f"bitwise_equal={bits}")
+    if worst > rtol:
+        raise AssertionError(f"studies[{name} run_sharded] disagrees with "
+                             "run")
+
+
+def spike_distributed(dev, A, S, x_sk):
+    """Config 5 distributed: the RCM B' + 3I ``A`` (scipy ``S``) over
+    Mesh.virtual(SPIKE_P, dev): ``partition_rows`` + ``dist_spmv`` against
+    scipy, then ``DistBandedLU.factor_device`` in float32 (s = SPIKE_S), a
+    first and a warm solve of the RandomState(3) right-hand side against
+    the host residual and against StreamedSPIKE's solution ``x_sk``.
+    Every check raises."""
+    import torch
+
+    from csparse3_tpu_torch.parallel import (DistBandedLU, Mesh, dist_spmv,
+                                             partition_rows)
+
+    mesh = Mesh.virtual(SPIKE_P, dev)
+    t0 = time.perf_counter()
+    part = partition_rows(A, SPIKE_P)
+    t_part = time.perf_counter() - t0
+    log(f"spike[distributed]: {mesh!r} partition_rows host_s={t_part:.2f}")
+    x = np.linspace(0.0, 1.0, A.n)
+    _spmv_check("config5 ring", part, A, x, mesh)
+    xt = torch.as_tensor(part.pad_vector(x), device=dev)
+    ms = cuda_ms(lambda: dist_spmv(part, xt, mesh), 10)
+    log(f"spike[distributed]: dist_spmv_ms={ms:.3f} (n={A.n}, float64)")
+    del part, xt
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dk, t_fac = _timed(lambda: DistBandedLU.factor_device(
+        A, mesh=mesh, ordering=None, s=SPIKE_S))
+    held = torch.cuda.memory_allocated(dev) - base
+    b = np.random.RandomState(3).rand(A.n).astype(np.float32)
+    # the kept factors, read once: the least bytes a solve must move
+    stacks = (2 if dk._sym else 3) * dk.P * dk.m * dk.s ** 2 * 4
+    bound_ms = 1e3 * stacks / HBM_BYTES_PER_S
+    for what in ("first", "warm"):
+        x, secs = _timed(lambda: dk(b))
+        res = float(np.linalg.norm(S @ x.astype(np.float64) - b)
+                    / np.linalg.norm(b))
+        err = float(np.abs(x - x_sk).max() / np.abs(x_sk).max())
+        log(f"spike[distributed]: DistBandedLU.factor_device P={dk.P} "
+            f"s={dk.s} m={dk.m} symmetric={dk._sym} float32 factor_s="
+            f"{t_fac:.3f} solve {what} wall_s={secs:.4f} (byte bound of the "
+            f"kept factors read once {bound_ms:.2f} ms) rel_residual_f64="
+            f"{res:.3e} (bound {SPIKE_RESIDUAL:.0e}) max_err_over_max_vs_"
+            f"StreamedSPIKE={err:.3e} (bound {SPIKE_CHECK_RTOL:.0e})")
+        if not (res < SPIKE_RESIDUAL and err <= SPIKE_CHECK_RTOL):
+            raise AssertionError("spike[distributed]: residual or agreement "
+                                 "with StreamedSPIKE out of bounds")
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    log(f"spike[distributed]: peak_device_GB={peak / 1e9:.2f} held_after_"
+        f"factor_GB={held / 1e9:.2f} (above the {base / 1e9:.2f} GB held "
+        f"before; kept factor stacks {stacks / 1e9:.2f} GB)")
+    del dk
 
 
 def main():
@@ -3740,6 +4065,7 @@ def main():
         islands_phase(dev, g1m)
         spike_phase(dev, g1m)
         del g1m
+        parallel_phase(dev)
         k1_batch_launches, k4_batch_launches, k1_batch, k4_batch = \
             studies_phase(dev)
         # last: these phases time with CUDA events alone, so torch.profiler

@@ -37,7 +37,11 @@ And the rest of the public surface: the builders (``TripletBuilder`` /
 (``islands``, ``component_labels``), stacking, ``norm``, ``validate``, the
 constructors (``eye``, ``diag``, ``diags``, ``random_csc``, ...),
 ``utils.io`` and ``utils.profiling``; and the single-card streamed SPIKE
-solver (``linalg.StreamedSPIKE``).
+solver (``linalg.StreamedSPIKE``); and the distributed layer
+(``parallel``: ``Mesh``, ``RowPartition`` / ``partition_rows``, the ring
+and all-gather ``dist_spmv``, ``dist_cg`` / ``dist_bicgstab`` with
+``BlockJacobi`` / ``DiagJacobi``, ``SchurLU``, ``DistBandedLU``) with the
+studies' ``run_sharded``.
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (``config.default_device``).
@@ -163,7 +167,7 @@ from .linalg import (  # noqa: F401
     splu,
     spsolve,
 )
-from . import linalg, models, utils  # noqa: F401
+from . import linalg, models, parallel, utils  # noqa: F401
 from .utils import io, profiling  # noqa: F401
 from .models import (  # noqa: F401
     ACContingency,
@@ -192,7 +196,9 @@ from .utils.interop import (  # noqa: F401
     bsr_from_arrays,
     csc_from_arrays,
     dia_from_arrays,
+    dist_banded_from_host,
     grid_from_arrays,
+    row_partition_from_arrays,
 )
 
 # the reference library's names

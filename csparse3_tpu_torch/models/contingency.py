@@ -18,9 +18,15 @@ branch outage, re-solve the network and report the post-outage state:
   uses the KLU-style pivot ratio min|U_kk| / max|U_kk| of each scenario's
   own refactorization, thresholded at 1000 eps of the dtype.
 
+``run_sharded(mesh, outages)`` spreads the outage list over the positions
+of a ``parallel.Mesh`` (scenario data parallel, no communication): the
+list is padded to a multiple of the mesh size with repeats of its first
+outage, each position runs its part through ``run`` on its device (one
+study object per distinct device), and the padding is dropped.
+
 Deviation from the JAX package, by design: the results stay on the device
-as tensors (the JAX package returns host numpy).  The ``run_sharded``
-methods, which need a device mesh, are not ported.
+as tensors (the JAX package returns host numpy), ``run_sharded``'s on the
+mesh's first device.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from ..linalg import splu
 from ..linalg.multifrontal import MultifrontalRefactor
 from ..ops import construct
 from ..ops.slicing import sample_offsets
+from ..types import _placed_on
 from .grids import SLACK, Grid, branch_admittances
 
 __all__ = ["ACContingency", "DCContingency"]
@@ -47,6 +54,39 @@ def _check_outages(outages, n_branch):
         raise IndexError(
             f"outage ids out of range [0, {n_branch}): {bad[:5]}...")
     return outages
+
+
+def _replica(study, device):
+    """``study`` itself when it runs on ``device``, else its copy built
+    there (made at the first call and kept)."""
+    if _placed_on(study.device, device):
+        return study
+    replicas = study.__dict__.setdefault("_replicas", {})
+    key = str(torch.device(device))
+    if key not in replicas:
+        replicas[key] = type(study)(study.grid, device=device, **study._kw)
+    return replicas[key]
+
+
+def _sharded(study, mesh, outages, axis):
+    """``study.run`` of ``outages`` (None: every branch) spread over the
+    positions of ``mesh``: padded to a multiple of the mesh size with
+    repeats of the first outage, one part a position on its device, the
+    parts joined on the first position's device, the padding dropped."""
+    mesh.check_axis(axis)
+    if outages is None:
+        outages = np.arange(study.n_branch)
+    outages = _check_outages(outages, study.n_branch)
+    dev0 = mesh.devices[0]
+    K, S = len(outages), mesh.size
+    if K == 0:
+        return _replica(study, dev0).run(outages)
+    ks = np.concatenate([outages, np.full((-K) % S, outages[0])])
+    per = len(ks) // S
+    parts = [_replica(study, dev).run(ks[p * per:(p + 1) * per])
+             for p, dev in enumerate(mesh.devices)]
+    return tuple(torch.cat([part[i].to(dev0) for part in parts])[:K]
+                 for i in range(len(parts[0])))
 
 
 def _outage_values(base, pos, delta, ks):
@@ -85,6 +125,7 @@ class ACContingency:
         tol = 1e-8 if tol is None else tol
         self.pf = NewtonPowerFlow(grid, tol=tol, max_iter=max_iter,
                                   device=device, **pf_kwargs)
+        self._kw = dict(tol=tol, max_iter=max_iter, **pf_kwargs)
         self.grid = grid
         self.tol = tol
         self.device = self.pf.device
@@ -141,6 +182,12 @@ class ACContingency:
         ok = torch.isfinite(res) & (res < 10 * self.tol)
         return vm, va, iters, ok
 
+    def run_sharded(self, mesh, outages=None, axis: str | None = None):
+        """``run`` of ``outages`` spread over the positions of ``mesh``
+        (module docstring); returns what ``run`` returns, on the mesh's
+        first device."""
+        return _sharded(self, mesh, outages, axis)
+
 
 class DCContingency:
     """DC (B' theta = P) N-1 screening for a grid, on ``device`` (None:
@@ -154,6 +201,7 @@ class DCContingency:
 
     def __init__(self, grid: Grid, ordering="auto", device=None):
         self.device = resolve_device(device)
+        self._kw = dict(ordering=ordering)
         n = grid.n_bus
         f, t = np.asarray(grid.f), np.asarray(grid.t)
         bsus = 1.0 / np.asarray(grid.x)
@@ -275,3 +323,9 @@ class DCContingency:
             ok[s:e] = (torch.isfinite(fl).all(1) & torch.isfinite(th_r).all(1)
                        & torch.isfinite(rcond) & (rcond > tol))
         return flows, theta, ok
+
+    def run_sharded(self, mesh, outages=None, axis: str | None = None):
+        """``run`` of ``outages`` spread over the positions of ``mesh``
+        (module docstring); returns what ``run`` returns, on the mesh's
+        first device."""
+        return _sharded(self, mesh, outages, axis)

@@ -18,9 +18,12 @@ device:
 Conventions: flows are in the from->to direction in p.u.; the slack bus
 absorbs injection imbalance (PTDF columns at slack buses are 0).
 
+``LinearContingency.run_sharded`` spreads the outage list over the
+positions of a ``parallel.Mesh`` as the contingency studies' do
+(``models/contingency.py``).
+
 Deviation from the JAX package, by design: the results are tensors on the
-device (the JAX package returns host numpy).  ``run_sharded`` is not
-ported.
+device (the JAX package returns host numpy).
 """
 
 from __future__ import annotations
@@ -186,6 +189,7 @@ class LinearContingency:
                  device=None):
         self.grid = grid
         self.device = resolve_device(device)
+        self._kw = dict(ordering=ordering, tol=tol)
         H = ptdf(grid, ordering=ordering, device=self.device)
         L, ok = lodf(grid, H=H, tol=tol)
         P = torch.as_tensor(np.asarray(grid.pg) - np.asarray(grid.pd),
@@ -207,7 +211,7 @@ class LinearContingency:
         outage (its flow row is not meaningful)."""
         if outages is None:
             outages = np.arange(self.n_branch)
-        outages = np.asarray(outages, dtype=np.int64)
+        outages = np.ascontiguousarray(outages, dtype=np.int64)
         if outages.size and (outages.min() < 0
                              or outages.max() >= self.n_branch):
             raise IndexError("outage branch index out of range")
@@ -218,3 +222,11 @@ class LinearContingency:
         fl = self.lodf[:, ks].T.mul_(F0[ks][:, None]).add_(F0[None, :])
         fl[torch.arange(len(outages), device=self.device), ks] = 0.0
         return fl, self._ok[ks]
+
+    def run_sharded(self, mesh, outages=None, axis: str | None = None):
+        """``run`` of ``outages`` spread over the positions of ``mesh``
+        (``models/contingency.py``); returns ``(flows, ok)`` on the mesh's
+        first device."""
+        from .contingency import _sharded
+
+        return _sharded(self, mesh, outages, axis)

@@ -15,7 +15,8 @@ from ..models.grids import Grid
 from ..types import BSR, CSC, DIA
 
 __all__ = ["csc_from_arrays", "bsr_from_arrays", "dia_from_arrays",
-           "grid_from_arrays", "banded_from_stacks"]
+           "grid_from_arrays", "banded_from_stacks",
+           "row_partition_from_arrays", "dist_banded_from_host"]
 
 
 def csc_from_arrays(m, n, indptr, indices, data, device=None) -> CSC:
@@ -59,3 +60,32 @@ def banded_from_stacks(ehat, sinv, uhat, perm, n, s, bw, device=None):
         np.asarray(ehat), np.asarray(sinv), np.asarray(uhat),
         np.asarray(perm, dtype=np.int64), int(n), int(s), int(bw),
         device=device)
+
+
+def row_partition_from_arrays(m, n, S, mloc, k, strategy, e_rows, e_cols,
+                              e_vals):
+    """``parallel.RowPartition`` from the fields of a JAX package
+    ``RowPartition`` (its static fields and its three leaves as host
+    arrays); placed on a mesh at its first distributed call."""
+    from ..parallel import RowPartition
+
+    return RowPartition(int(m), int(n), int(S), int(mloc), int(k),
+                        str(strategy), np.array(e_rows),
+                        np.array(e_cols), np.array(e_vals))
+
+
+def dist_banded_from_host(ehat, sinv, uhat, Wsp, Vsp, r_eh, r_si, r_uh,
+                          perm, n, s, bw, m, P, mesh):
+    """``parallel.DistBandedLU`` from the host factor state of a JAX package
+    ``DistBandedLU`` built by its host constructor (its ``_h`` stacks, in
+    that order, and ``perm``, ``n``, ``s``, ``bw``, ``m``, ``P``), on a port
+    ``Mesh`` of P positions; the stacks upload at the first device solve,
+    ``solve_host`` works at once."""
+    from ..parallel import DistBandedLU
+
+    if mesh.size != int(P):
+        raise ValueError(f"mesh has {mesh.size} positions, the factor "
+                         f"{int(P)} chunks")
+    return DistBandedLU._from_host(
+        (ehat, sinv, uhat, Wsp, Vsp, r_eh, r_si, r_uh), perm, int(n),
+        int(s), int(bw), int(m), mesh)

@@ -21,8 +21,10 @@ import torch
 
 import csparse3_tpu as jt
 import csparse3_tpu.linalg as jlin
+import csparse3_tpu.parallel as jpar
 import csparse3_tpu_torch as pt
 import csparse3_tpu_torch.linalg as plin
+import csparse3_tpu_torch.parallel as ppar
 from csparse3_tpu.ops import construct as jcon
 from csparse3_tpu.ops import reductions as jred
 from csparse3_tpu_torch.ops import construct as pcon
@@ -334,17 +336,14 @@ def test_reference_aliases():
     _same_csc(pt.Diags(np.arange(3.0)), jt.Diags(np.arange(3.0)))
 
 
-# public names of the JAX package that the port does not have, each for a
-# reason: ``parallel`` is the distributed layer (ROADMAP M7, later); every
-# name of ROADMAP's "Not to port" list is already absent from the JAX
-# package's export lists or present in the port under the same name
-NOT_PORTED = {"parallel"}
-
-
-@pytest.mark.parametrize("pair", ["package", "linalg"])
+# every public name of the JAX package, of its ``linalg`` and of its
+# ``parallel`` exists in the port; every name of ROADMAP's "Not to port"
+# list is absent from the JAX package's export lists or present in the port
+# under the same name
+@pytest.mark.parametrize("pair", ["package", "linalg", "parallel"])
 def test_export_checklist(pair):
-    ref, port = {"package": (jt, pt), "linalg": (jlin, plin)}[pair]
+    ref, port = {"package": (jt, pt), "linalg": (jlin, plin),
+                 "parallel": (jpar, ppar)}[pair]
     names = {n for n in dir(ref) if not n.startswith("_")}
-    missing = sorted(n for n in names - NOT_PORTED if not hasattr(port, n))
+    missing = sorted(n for n in names if not hasattr(port, n))
     assert not missing, missing
-    assert all(not hasattr(port, n) for n in NOT_PORTED & names)
