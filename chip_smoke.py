@@ -117,14 +117,28 @@ seconds):
            right-hand sides on the card within 1e-10 of scipy's splu; then
            ``btf_splu`` of the 10k Newton Jacobian: block count, a host
            solve within 1e-10 of scipy.
-14. grad:  outside inference mode, float64: gradients of sum(y^2) for
-           ``spmv`` and ``SpMVPlan`` on real(Ybus) at 10k (x against
-           A^T g from scipy within 1e-10, the values at 3 entries against
-           central differences within 1e-5; the ELL padding zero), and of
-           sum(x^2) for ``RefactorPlan`` / ``MultifrontalRefactor``
+14. grad:  outside inference mode: gradients of sum(y^2) for ``spmv`` and
+           ``SpMVPlan`` on real(Ybus) at 10k, float64 (x against A^T g from
+           scipy within 1e-10, the values at 3 entries against central
+           differences within 1e-5; the ELL padding zero), and of sum(x^2)
+           for ``RefactorPlan`` / ``MultifrontalRefactor``
            ``.refactor(d)(b)`` on B + 3I at 3000 buses (b against scipy's
-           spsolve(A^T, g), d at 3 entries against central differences);
-           forward and backward seconds and device kernels.
+           spsolve(A^T, g), d at 3 entries against central differences),
+           ``BandedLU`` and ``LDLTSolvePlan`` (b) and ``BandedRefactor`` (b
+           and the values) on the RCM B + 3I at 10k.  Then the plans whose
+           backward products run the hand kernels on transposed plans:
+           ``DIAPlan``, ``SplitDIA`` and ``SplitSymDIA`` on the 10k RCM
+           Ybus in float64 and ``SplitDIA`` on the 200k RCM Ybus in float32
+           (K4: x and the slabs), ``SpGEMMPlan`` and ``GramPlan`` on the
+           200k-bus connectivity matrix (K6: the values), ``BSR @ X`` with
+           imag(Ybus) of 200k buses in (8, 128) blocks, X (n, 1024) (K5: X
+           and the blocks).  Float32 gradients are held to scipy row by row
+           within the rounding bound, and to central differences of the
+           float64 plain product within 1e-3.  Each backward launch of K4,
+           K5 and K6 is held to its plain version and timed beside it, its
+           bound and its library call (K5 also on the block transpose's
+           (128, 8) blocks); forward and backward seconds and device
+           kernels of every case.
 15. studies: the batched study path on synthetic_grid(10_000, seed=3)
            (22,263 branches), every scenario set made from RandomState(0):
            ``NewtonPowerFlow('bandpoints', 'multifrontal', tol=5e-5)
@@ -359,15 +373,16 @@ def profiler_note(fn, reps, pattern):
 
 
 def device_profile(fn, reps):
-    """Run ``fn`` ``reps`` times under torch.profiler.  Returns (wall s,
-    device-busy s as the union of kernel intervals, kernel launches,
-    {kernel name: (count, device s)})."""
+    """Run ``fn`` ``reps`` times under torch.profiler, recording the card's
+    activity alone: the host's op records are not read, and turning them
+    into events costs the host ~60 us each (tens of seconds after a solve
+    of 86k launches).  Returns (wall s, device-busy s as the union of
+    kernel intervals, kernel launches, {kernel name: (count, device s)})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -2987,6 +3002,10 @@ LDLT_RTOL = 1e-10
 # package's test's step, 1e-6
 GRAD_RTOL = 1e-10
 GRAD_FD_RTOL = 1e-5
+# a float32 gradient against central differences of the float64 loss of
+# the same values: the float32 product's rounding, relative to an output
+# that cancels (Ybus rows sum to ~0), reaches ~1e-4 of the gradient
+GRAD_FD_RTOL_F32 = 1e-3
 GRAD_FD_STEP = {"product": 1e-2, "solve": 1e-6}
 # buses of the B + 3I system of the refactor-solve gradients: its level and
 # front plans build ~14x faster than at N_SOLVE (host build, measured on a
@@ -3322,10 +3341,10 @@ def ldlt_phase(dev):
     log(f"ldlt: phase seconds {time.perf_counter() - t_phase:.1f}")
 
 
-def _fd_check(label, loss, values, grad, ks, kind):
+def _fd_check(label, loss, values, grad, ks, kind, rtol=GRAD_FD_RTOL):
     """Central differences of ``loss`` in ``values[k]`` for each k of ``ks``
     (a step of GRAD_FD_STEP[kind] relative to the entry) against
-    ``grad[k]``."""
+    ``grad[k]``, within ``rtol``."""
     import torch
 
     worst = 0.0
@@ -3342,28 +3361,53 @@ def _fd_check(label, loss, values, grad, ks, kind):
         worst = max(worst, abs(an - fd) / max(abs(fd), 1e-300))
     log(f"grad[{label}]: central differences at entries {list(ks)} "
         f"(gradient {[float(grad[k]) for k in ks]}): worst relative gap "
-        f"{worst:.3e} (limit {GRAD_FD_RTOL:.0e})")
-    if not worst <= GRAD_FD_RTOL:
+        f"{worst:.3e} (limit {rtol:.0e})")
+    if not worst <= rtol:
         raise AssertionError(f"grad[{label}]: the gradient disagrees with "
                              "central differences")
+
+
+#: launches of the hand kernels made by the timed backward passes of the
+#: grad phase (``_timed_grad``): the counts set to 0 just before each
+#: backward and read just after it, then added here
+BACKWARD_LAUNCHES = {"dia_spmv": 0, "spgemm_numeric": 0, "bsr_spmm": 0}
+
+
+def _kernel_counts():
+    from csparse3_tpu_torch.kernels import bsr_spmm as kbsr
+    from csparse3_tpu_torch.kernels import dia as kdia
+    from csparse3_tpu_torch.kernels import spgemm as kspg
+
+    return {"dia_spmv": kdia.LAUNCHES, "spgemm_numeric": kspg.LAUNCHES,
+            "bsr_spmm": kbsr.LAUNCHES}
 
 
 def _timed_grad(fwd, inputs):
     """(grads, (forward s, backward s, forward kernels, backward kernels)):
     one forward and one backward, each timed by the host clock to a
     synchronize, then each once more under torch.profiler for its count of
-    device kernels."""
+    device kernels.  One untimed forward and backward go first (lazily
+    loaded kernels, the allocator's first blocks).  The launches of the hand
+    kernels in the timed backward go to ``BACKWARD_LAUNCHES`` (the last of
+    them in ``_timed_grad.last``)."""
     import torch
 
+    torch.autograd.grad(fwd(), inputs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss = fwd()
     torch.cuda.synchronize()
     t_f = time.perf_counter() - t0
+    counts = _kernel_counts()
+    for name, c in counts.items():
+        c[name] = 0
     t0 = time.perf_counter()
     grads = torch.autograd.grad(loss, inputs)
     torch.cuda.synchronize()
     t_b = time.perf_counter() - t0
+    _timed_grad.last = {name: c[name] for name, c in counts.items()}
+    for name, k in _timed_grad.last.items():
+        BACKWARD_LAUNCHES[name] += k
     _, _, k_f, _ = device_profile(fwd, 1)
     again = fwd()
     _, _, k_b, _ = device_profile(
@@ -3460,18 +3504,651 @@ def grad_phase(dev):
         _grad_log(label, times, _rel_err(gb, gb_ref),
                   f" first_call_with_templates_s={t_first:.3f}")
         _fd_check(label, solve_loss, d, gd, ks, "solve")
-    log(f"grad: phase seconds {time.perf_counter() - t_phase:.1f}")
+    del plans, lu
+    t0 = time.perf_counter()
+    _grad_solve_cases(dev)
+    log(f"grad: banded and LDL^T cases seconds {time.perf_counter() - t0:.1f}")
+
+    # the plans that run K4, K5 and K6: their backward products run the
+    # same kernels on the transposed plans
+    t0 = time.perf_counter()
+    g200 = synthetic_grid(N_KERNEL, seed=0)
+    Y0, _, _ = ybus(g200)
+    log(f"grad: synthetic_grid({N_KERNEL}, seed=0) and its Ybus in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for key in BACKWARD_LAUNCHES:
+        BACKWARD_LAUNCHES[key] = 0
+    out = {}
+    for key, case, arg in (("dia_spmv", _grad_band_cases, Y0),
+                           ("spgemm_numeric", _grad_spgemm_cases, g200),
+                           ("bsr_spmm", _grad_bsr_case, Y0)):
+        t0 = time.perf_counter()
+        out[key] = case(dev, arg)
+        torch.cuda.empty_cache()
+        log(f"grad: {key} backward cases seconds "
+            f"{time.perf_counter() - t0:.1f}")
+    for key, rec in out.items():
+        rec["launches"] = BACKWARD_LAUNCHES[key]
+        if not rec["launches"]:
+            raise AssertionError(f"grad: no backward launched {key}")
+    torch.cuda.empty_cache()
+    log(f"grad: backward launches of the hand kernels {BACKWARD_LAUNCHES}; "
+        f"phase seconds {time.perf_counter() - t_phase:.1f}")
+    return out
 
 
 def _grad_log(label, times, err, extra=""):
+    """Log a gradient's times and kernels, and hold ``err`` (its error over
+    the largest entry against scipy; None where ``extra`` holds the check)
+    to GRAD_RTOL."""
     t_f, t_b, k_f, k_b = times
+    check = "" if err is None else (
+        f" exact_grad_err_over_max_vs_scipy={err:.3e} (limit "
+        f"{GRAD_RTOL:.0e})")
     log(f"grad[{label}]: forward_s={t_f:.4f} backward_s={t_b:.4f} "
-        f"forward_kernels={k_f} backward_kernels={k_b} "
-        f"exact_grad_err_over_max_vs_scipy={err:.3e} (limit "
-        f"{GRAD_RTOL:.0e}){extra}")
-    if not err <= GRAD_RTOL:
+        f"forward_kernels={k_f} backward_kernels={k_b}{check}{extra}")
+    if err is not None and not err <= GRAD_RTOL:
         raise AssertionError(f"grad[{label}]: the gradient disagrees with "
                              "scipy")
+
+
+def _pair(re, im):
+    """The two real plans of an adjoint pair as one module (for
+    ``plan_bytes``, ``run_route_bytes``)."""
+    from torch import nn
+
+    m = nn.Module()
+    m.re, m.im = re, im
+    return m
+
+
+def _row_ratio(got, ref, bound):
+    """max_i |got_i - ref_i| / bound_i for tensors on one device."""
+    import torch
+
+    tiny = torch.finfo(torch.float64).tiny
+    return float(((got.double() - ref.double()).abs()
+                  / (bound.double() + tiny)).max())
+
+
+def _rows_bound(S, v, u, dev):
+    """The row-wise rounding bound (k + 2) u (|S| |v|) of a product S v
+    (k the longest row of S), as a tensor on ``dev``."""
+    import torch
+
+    S = S.tocsr()
+    k = int(np.diff(S.indptr).max())
+    return torch.as_tensor((k + 2) * u * 1.01 * (abs(S) @ np.abs(v)),
+                           device=dev)
+
+
+def _time_pair(kernel, plain, reps, plain_reps):
+    """(kernel ms, plain ms): queued device ms, runs plain, kernel, kernel,
+    plain on one card."""
+    for _ in range(3):
+        kernel()
+    t = [queued_ms(plain, plain_reps), queued_ms(kernel, reps),
+         queued_ms(kernel, reps), queued_ms(plain, plain_reps)]
+    return min(t[1], t[2]), min(t[0], t[3])
+
+
+def _lib_ms(fn, reps=20):
+    """Device ms of one library call (torch.profiler's busy time)."""
+    for _ in range(3):
+        fn()
+    _, busy, _, _ = device_profile(fn, reps)
+    return busy / reps * 1e3
+
+
+def _band_backward_record(label, adj, g2, S_adj, dev, u, rate, cdtype):
+    """K4 as a split band's backward launches it: one launch of the
+    split-complex run kernel over the adjoint pair ``adj`` = (re, im,
+    shared) on g = (gr, gi) (``g2`` (2, n)), held row by row to its plain
+    walk and to scipy's A^H g (``S_adj``) within the rounding bound; its
+    time beside the plain walk's, its route bound and the library call
+    (torch.sparse CSR of A^H times g)."""
+    import torch
+
+    from csparse3_tpu_torch.kernels import dia as kdia
+    from csparse3_tpu_torch.ops.matvec import _split_apply
+
+    re, im, shared = adj
+    if not shared:
+        raise AssertionError(f"grad[{label}]: the adjoint pair shares no "
+                             "index")
+    sym, gn2 = re.symmetric, g2.T.contiguous()
+    vals = (re.run_values, im.run_values)
+
+    def kernel():
+        return kdia.dia_split_cuda(re.slabs, im.slabs, gn2, re.omin, sym,
+                                   re.runs, vals)
+
+    def plain():
+        return torch.stack(_split_apply(re, im, True, g2[0], g2[1],
+                                        plain=True))
+
+    before = kdia.LAUNCHES["dia_spmv"]
+    yk = kernel()
+    yp = plain()
+    if kdia.LAUNCHES["dia_spmv"] != before + 1:
+        raise AssertionError(f"grad[{label}]: not one launch")
+    gh = g2.double().cpu().numpy()
+    z = S_adj @ (gh[0] + 1j * gh[1])
+    A = S_adj.tocsr()
+    bound = _rows_bound(abs(A.real) + abs(A.imag), np.abs(gh).sum(0), u,
+                        dev)
+    zt = torch.as_tensor(np.stack([z.real, z.imag]), device=dev)
+    ratios = {"vs_runs_plain": _row_ratio(yk, yp, 2 * bound),
+              "vs_scipy": _row_ratio(yk, zt, bound)}
+    err = float((yk - yp).abs().max())
+    ms, plain_ms = _time_pair(kernel, plain, 200, 5)
+    lib = _csr_tensor(S_adj, dev, cdtype)
+    gc = torch.complex(g2[0], g2[1])
+    lib_ms = _lib_ms(lambda: lib @ gc)
+    nbytes, listed, _ = run_route_bytes(_pair(re, im), gn2, yk)
+    nnz = sum(int(p.slabs.count_nonzero()) * 2 - int(
+        p.slabs[0].count_nonzero()) if sym else int(
+            p.slabs.count_nonzero()) for p in (re, im))
+    rec = dict(launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, listed_runs=listed, bytes=nbytes,
+               **bound_record(nbytes, 2 * 2 * nnz, rate))
+    log(f"grad[{label}]: backward K4 launch on the adjoint pair "
+        f"(A_r^T, -A_i^T; {listed} listed runs, one shared index): "
+        f"max_abs_err_vs_plain={err:.3e} worst_row_err_over_bound: "
+        + " ".join(f"{k}={v:.4f}" for k, v in ratios.items())
+        + f" (bound (k+2) u |A||g| per row, twice that against the plain "
+        f"walk; must be <= 1) kernel_device_ms={ms:.6f} "
+        f"runs_plain_device_ms={plain_ms:.6f} bound_ms="
+        f"{rec['bound_ms']:.6f} ({rec['bound_by']}, {nbytes} bytes) "
+        f"share_of_bound={rec['bound_ms'] / ms:.4f} "
+        f"library_csr_A^H_g_device_ms={lib_ms:.6f}")
+    if not all(v <= 1 for v in ratios.values()):
+        raise AssertionError(f"grad[{label}]: the backward launch disagrees")
+    return rec
+
+
+def _nonzero_entries(t, count=3):
+    """``count`` flat indices of nonzero entries of ``t``, spread over it:
+    entries the forward reads (a packed run, a listed column)."""
+    import torch
+
+    nz = torch.nonzero(t.detach().reshape(-1))[:, 0].cpu().numpy()
+    return [int(nz[i]) for i in np.linspace(0, len(nz) - 1, count).astype(
+        int)]
+
+
+def _grad_band_cases(dev, Y0):
+    """K4 backward: ``DIAPlan``, ``SplitDIA`` and ``SplitSymDIA`` on the
+    10k RCM Ybus in float64 (the banded solves' shape), ``SplitDIA`` on the
+    RCM order of ``Y0``, the 200k-bus Ybus, in float32.  Returns the
+    backward record (10k ``SplitDIA``'s launch at the top, the others under
+    their names)."""
+    import scipy.sparse as sp
+    import torch
+
+    import csparse3_tpu_torch as pt
+    from csparse3_tpu_torch.kernels import dia as kdia
+    from csparse3_tpu_torch.linalg.ordering import rcm
+    from csparse3_tpu_torch.models.grids import (rcm_grid, synthetic_grid,
+                                                 ybus)
+
+    Y10, _, _ = ybus(rcm_grid(synthetic_grid(N_SOLVE, seed=3))[0])
+    n = Y10.n
+    ip, ix, yv = Y10.np_arrays()
+    rng = np.random.RandomState(12)
+    u64 = 2.0 ** -53
+
+    # DIAPlan on real(Ybus): slabs and x
+    Sr = sp.csc_matrix((yv.real, ix, ip), shape=(n, n))
+    plan = pt.DIAPlan(pt.CSC(n, n, ip, ix, yv.real.copy()), device=dev)
+    plan.slabs.requires_grad_()
+    x = torch.tensor(rng.randn(n), device=dev, requires_grad=True)
+
+    def dia_loss():
+        return (plan(x) ** 2).sum()
+
+    plan.transposed()  # built once, outside the timed backward
+    (gs, gx), times = _timed_grad(dia_loss, (plan.slabs, x))
+    if _timed_grad.last["dia_spmv"] != 1:
+        raise AssertionError(f"grad[DIAPlan]: backward launches "
+                             f"{_timed_grad.last}, not one K4 launch")
+    xh = x.detach().cpu().numpy()
+    _grad_log("DIAPlan 10k f64", times,
+              _rel_err(gx, Sr.T @ (2 * (Sr @ xh))))
+    _fd_check("DIAPlan 10k f64", lambda: (plan.plain(x) ** 2).sum(),
+              plan.slabs.view(-1), gs.reshape(-1),
+              _nonzero_entries(plan.slabs), "product")
+    t = plan.transposed()
+    g1 = (2 * plan(x)).detach()[None]
+    yk, yp = t.apply_bn(g1), t.apply_bn(g1, plain=True)
+    one = dict(launches=_timed_grad.last["dia_spmv"],
+               max_abs_err=float((yk - yp).abs().max()))
+    one["ms"], one["plain_ms"] = _time_pair(
+        lambda: t.apply_bn(g1), lambda: t.apply_bn(g1, plain=True), 200, 5)
+    log(f"grad[DIAPlan 10k f64]: backward K4 launch on the transposed plan "
+        f"(one slab set, {sum(r.numel() for r in t.runs[1::2])} listed "
+        f"runs): max_abs_err_vs_plain={one['max_abs_err']:.3e} "
+        f"kernel_device_ms={one['ms']:.6f} runs_plain_device_ms="
+        f"{one['plain_ms']:.6f}")
+    if one["max_abs_err"] > 1e-12 * float(yp.abs().max()):
+        raise AssertionError("grad[DIAPlan]: the transposed launch disagrees")
+    del plan, t, gs
+    out = {"DIAPlan": one}
+
+    def split_case(label, plan, Y, u, rate, fd_rtol, cdtype):
+        """x and both slab sets of the split ``plan`` for sum(yr^2 + yi^2),
+        dx against scipy 2 A^H y, the slabs at 3 nonzeros against central
+        differences of the float64 plain product, and the record of the
+        backward launch."""
+        m = Y.n
+        for p in (plan.re, plan.im):
+            p.slabs.requires_grad_()
+        dtype = plan.re.slabs.dtype
+        xr = torch.tensor(rng.randn(m), dtype=dtype, device=dev,
+                          requires_grad=True)
+        xi = torch.tensor(rng.randn(m), dtype=dtype, device=dev,
+                          requires_grad=True)
+
+        def loss():
+            yr, yi = plan(xr, xi)
+            return (yr ** 2).sum() + (yi ** 2).sum()
+
+        t0 = time.perf_counter()
+        plan.adjoint()  # built once, outside the timed backward
+        log(f"grad[{label}]: adjoint pair (transposed slabs, index, packed "
+            f"runs) built in {time.perf_counter() - t0:.1f} s")
+        grads, times = _timed_grad(
+            loss, (plan.re.slabs, plan.im.slabs, xr, xi))
+        if _timed_grad.last["dia_spmv"] != 1:
+            raise AssertionError(f"grad[{label}]: backward launches "
+                                 f"{_timed_grad.last}, not one K4 launch")
+        S = Y.to_scipy().tocsc()
+        if plan.re.symmetric:
+            S = (sp.triu(S) + sp.triu(S, 1).T).tocsc()
+        SH = S.conj().T.tocsc()
+        with torch.no_grad():
+            y2 = torch.stack(plan(xr, xi))
+        yh = y2.double().cpu().numpy()
+        ref = SH @ (2 * (yh[0] + 1j * yh[1]))
+        dx = torch.stack(grads[2:])
+        bound = _rows_bound(abs(SH.real) + abs(SH.imag),
+                            2 * np.abs(yh).sum(0), u, dev)
+        ratio = _row_ratio(dx, torch.as_tensor(np.stack(
+            [ref.real, ref.imag]), device=dev), bound)
+        _grad_log(label, times, None, f" dx_worst_row_err_over_bound_vs_"
+                  f"scipy_2A^H_y={ratio:.4f} (bound (k+2) u |A||g| per row; "
+                  f"must be <= 1)")
+        if not ratio <= 1:
+            raise AssertionError(f"grad[{label}]: dx disagrees with scipy")
+        re, im = plan.re, plan.im
+
+        def loss64():
+            # the plain walk of the same runs in float64, on the slabs as
+            # they are now: the product the gradient is of, without the
+            # float32 rounding of the loss
+            x64 = (xr.detach().double(), xi.detach().double())
+            yr, yi = kdia.split_complex_apply(
+                *(functools.partial(kdia.dia_spmv_runs_plain,
+                                    p.slabs.detach().double(), omin=p.omin,
+                                    symmetric=p.symmetric, runs=p.runs)
+                  for p in (re, im)), *x64)
+            return float((yr ** 2).sum() + (yi ** 2).sum())
+
+        _fd_check(label, loss64, re.slabs.view(-1), grads[0].reshape(-1),
+                  _nonzero_entries(re.slabs), "product", fd_rtol)
+        g2 = (2 * y2).to(dtype)
+        rec = _band_backward_record(label, plan.adjoint(), g2, SH, dev, u,
+                                    rate, cdtype)
+        rec["launches"] = _timed_grad.last["dia_spmv"]
+        return rec
+
+    Y10c = pt.CSC(n, n, ip, ix, yv)
+    for cls in (pt.SplitDIA, pt.SplitSymDIA):
+        out[cls.__name__] = split_case(
+            f"{cls.__name__} 10k f64", cls(Y10c, device=dev), Y10c, u64,
+            F64_FLOP_PER_S, GRAD_FD_RTOL, np.complex128)
+    torch.cuda.empty_cache()
+
+    # SplitDIA on the 200k RCM Ybus, float32 (the dia phase's matrix)
+    t0 = time.perf_counter()
+    perm = rcm(Y0)
+    Yp = Y0[perm, perm]
+    ip2, ix2, dt2 = Yp.np_arrays()
+    Y200 = pt.CSC(Yp.m, Yp.n, ip2, ix2, dt2.astype(np.complex64))
+    plan = pt.SplitDIA(Y200, device=dev)
+    log(f"grad[SplitDIA 200k f32]: RCM and plan build seconds "
+        f"{time.perf_counter() - t0:.1f}")
+    big = split_case("SplitDIA 200k f32", plan, Y200, 2.0 ** -24,
+                     F32_FLOP_PER_S, GRAD_FD_RTOL_F32, np.complex64)
+    del plan
+    torch.cuda.empty_cache()
+    return dict(out["SplitDIA"], full_size_float32=big,
+                symmetric_form=out["SplitSymDIA"],
+                transposed_one_slab_set=out["DIAPlan"])
+
+
+def _on_pattern(M, rows, cols):
+    """The entries of the scipy matrix M at (rows, cols), as a vector."""
+    return np.asarray(M.tocsr()[rows, cols]).ravel()
+
+
+def _grad_spgemm_cases(dev, grid):
+    """K6 backward on the connectivity matrix C of ``grid`` (200k buses),
+    float32: ``SpGEMMPlan`` of C @ C^T (the gradients of both value arrays)
+    and ``GramPlan`` of C C^T, each gradient two launches of the kernel over
+    the products sorted by entry; against scipy's G B^T and A^T G on the
+    operands' patterns, row by row within the rounding bound, and central
+    differences of the float64 plain pass.  Returns the backward record of
+    the launch that gives dA."""
+    import scipy.sparse as sp
+    import torch
+
+    import csparse3_tpu_torch as pt
+    from csparse3_tpu_torch.kernels import spgemm as kspg
+    from csparse3_tpu_torch.models.grids import connectivity
+
+    u = 2.0 ** -24
+    Cf, Ct = connectivity(grid)
+    C = Cf - Ct
+    CT = C.T
+    rng = np.random.RandomState(13)
+    ipa, ixa, _ = C.np_arrays()
+    ipb, ixb, _ = CT.np_arrays()
+    a_np = rng.randn(C.nnz).astype(np.float32)
+    b_np = rng.randn(CT.nnz).astype(np.float32)
+    t0 = time.perf_counter()
+    plan = pt.spgemm_symbolic(C, CT, device=dev)
+    gplan = pt.gram_symbolic(C, device=dev)
+    maps = [plan.grad_maps(side, nv) for side, nv in ((0, C.nnz),
+                                                      (1, CT.nnz))]
+    gplan.grad_maps(0, C.nnz)
+    gplan.grad_maps(1, C.nnz)
+    log(f"grad[SpGEMMPlan conn200k f32]: symbolic phases and the maps by "
+        f"entry built in {time.perf_counter() - t0:.1f} s; {plan.n_products} "
+        f"products, {C.nnz} entries of A, {plan.out_nnz} outputs")
+    a = torch.tensor(a_np, device=dev, requires_grad=True)
+    b = torch.tensor(b_np, device=dev, requires_grad=True)
+    w = torch.tensor(rng.rand(plan.out_nnz).astype(np.float32), device=dev)
+    wg = torch.tensor(rng.rand(gplan.out_nnz).astype(np.float32), device=dev)
+
+    def loss():
+        return (w * plan.numeric(a, b).data ** 2).sum()
+
+    def gram_loss():
+        return (wg * gplan.numeric(a).data ** 2).sum()
+
+    (ga, gb), times = _timed_grad(loss, (a, b))
+    if _timed_grad.last["spgemm_numeric"] != 2:
+        raise AssertionError(f"grad[SpGEMMPlan]: backward launches "
+                             f"{_timed_grad.last}, not two K6 launches")
+    # scipy: G = dL/dC on C's pattern, dA = G B^T and dB = A^T G on the
+    # operands' patterns; bound (L + 1) u (|G| |B|^T) per entry, L the
+    # products of the longest run
+    t_ip, t_ix, _ = plan.template.np_arrays()
+    with torch.no_grad():
+        d = plan.numeric(a, b).data
+    gdat = (2 * w * d).double().cpu().numpy()
+    Gs = sp.csc_matrix((gdat, t_ix, t_ip), shape=(C.m, C.m))
+    As = sp.csc_matrix((a_np.astype(np.float64), ixa, ipa), shape=C.shape)
+    Bs = sp.csc_matrix((b_np.astype(np.float64), ixb, ipb), shape=CT.shape)
+    ra, ca = ixa, np.repeat(np.arange(C.n), np.diff(ipa))
+    rb, cb = ixb, np.repeat(np.arange(CT.n), np.diff(ipb))
+    ratios = {}
+    for name, got, ref, absum, L in (
+            ("dA", ga, _on_pattern(Gs @ Bs.T, ra, ca),
+             _on_pattern(abs(Gs) @ abs(Bs).T, ra, ca), maps[0][0]),
+            ("dB", gb, _on_pattern(As.T @ Gs, rb, cb),
+             _on_pattern(abs(As).T @ abs(Gs), rb, cb), maps[1][0])):
+        Lmax = int(L.diff().max())
+        bound = torch.as_tensor((Lmax + 1) * u * 1.01 * absum, device=dev)
+        ratios[name] = _row_ratio(got, torch.as_tensor(ref, device=dev),
+                                  bound)
+    _grad_log("SpGEMMPlan conn200k f32", times, None,
+              " worst_entry_err_over_bound_vs_scipy: " + " ".join(
+                  f"{k}={v:.4f}" for k, v in ratios.items())
+              + " (bound (L+1) u |G||B^T| per entry; must be <= 1)")
+    if not all(v <= 1 for v in ratios.values()):
+        raise AssertionError("grad[SpGEMMPlan]: disagrees with scipy")
+
+    def loss64():
+        d64 = kspg.spgemm_numeric_plain(plan.gid, plan.pa_s, plan.pb_s,
+                                        a.detach().double(),
+                                        b.detach().double(), plan.out_nnz)
+        return float((w.double() * d64 ** 2).sum())
+
+    _fd_check("SpGEMMPlan conn200k f32", loss64, a, ga,
+              _nonzero_entries(ga), "product", GRAD_FD_RTOL_F32)
+
+    (gg,), times = _timed_grad(gram_loss, (a,))
+    if _timed_grad.last["spgemm_numeric"] != 2:
+        raise AssertionError(f"grad[GramPlan]: backward launches "
+                             f"{_timed_grad.last}, not two K6 launches")
+    g_ip, g_ix, _ = gplan.template.np_arrays()
+    with torch.no_grad():
+        dg = gplan.numeric(a).data
+    Gg = sp.csc_matrix(((2 * wg * dg).double().cpu().numpy(), g_ix, g_ip),
+                       shape=(C.m, C.m))
+    Gsym = Gg + Gg.T
+    bound = torch.as_tensor((2 * int(gplan.seg_ptr.diff().max()) + 2) * u
+                            * 1.01 * _on_pattern(abs(Gsym) @ abs(As), ra, ca),
+                            device=dev)
+    ratio = _row_ratio(gg, torch.as_tensor(_on_pattern(Gsym @ As, ra, ca),
+                                           device=dev), bound)
+    _grad_log("GramPlan conn200k f32", times, None,
+              f" worst_entry_err_over_bound_vs_scipy_(G+G^T)A={ratio:.4f} "
+              f"(must be <= 1)")
+    if not ratio <= 1:
+        raise AssertionError("grad[GramPlan]: disagrees with scipy")
+
+    def gram64():
+        lower = kspg.spgemm_numeric_plain(gplan.gid, gplan.pa_s, gplan.pb_s,
+                                          a.detach().double(),
+                                          a.detach().double(),
+                                          gplan.seg_ptr.numel() - 1)
+        full = lower.index_select(0, gplan.sel_full)
+        return float((wg.double() * full ** 2).sum())
+
+    _fd_check("GramPlan conn200k f32", gram64, a, gg, _nonzero_entries(gg),
+              "product", GRAD_FD_RTOL_F32)
+
+    # the launch that gives dA, alone, against its plain version
+    seg_ptr, gid, pa, pb = maps[0]
+    g = (2 * w * d).detach()
+    bv = b.detach()
+
+    def kernel():
+        return kspg.spgemm_numeric_cuda(seg_ptr, pa, pb, g, bv)
+
+    def plain():
+        return kspg.spgemm_numeric_plain(gid, pa, pb, g, bv, C.nnz)
+
+    yk, yp = kernel(), plain()
+    Lmax = int(seg_ptr.diff().max())
+    absum = torch.as_tensor(_on_pattern(abs(Gs) @ abs(Bs).T, ra, ca),
+                            device=dev)
+    r_plain = _row_ratio(yk, yp, 2 * (Lmax + 1) * u * 1.01 * absum)
+    err = float((yk - yp).abs().max())
+    ms, plain_ms = _time_pair(kernel, plain, 200, 50)
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        seg_ptr, pa, pb, g, bv, yk))
+    rec = dict(launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=None, products=plan.n_products, outputs=C.nnz,
+               **bound_record(nbytes, 2 * plan.n_products))
+    log(f"grad[SpGEMMPlan conn200k f32]: backward K6 launch for dA (the "
+        f"products sorted by entry of A: {C.nnz} outputs of "
+        f"{plan.n_products} products, longest run {Lmax}): "
+        f"max_abs_err_vs_plain={err:.3e} worst_entry_err_over_bound_vs_plain"
+        f"={r_plain:.4f} (must be <= 1) kernel_device_ms={ms:.6f} "
+        f"plain_device_ms={plain_ms:.6f} bound_ms={rec['bound_ms']:.6f} "
+        f"({rec['bound_by']}, {nbytes} bytes) share_of_bound="
+        f"{rec['bound_ms'] / ms:.4f}; library: none (dA is a sum over the "
+        f"products of each entry of A: no one torch call computes it)")
+    if not r_plain <= 1:
+        raise AssertionError("grad[SpGEMMPlan]: the dA launch disagrees")
+    return rec
+
+
+def _grad_bsr_case(dev, Y0):
+    """K5 backward: ``BSR @ X`` with imag(Ybus) of 200k buses in (8, 128)
+    blocks and X (n, 1024), float32: dX = A^H G through the kernel on the
+    adjoint in A's own blocks (``bsr_adjoint``), against scipy on 16
+    columns and the plain version; the block values' gradient (plain
+    torch) at 3 stored nonzeros against central differences of the
+    float64 plain product.  Also times the kernel on the block transpose
+    ((128, 8) blocks).  Returns the backward record."""
+    import torch
+
+    import csparse3_tpu_torch as pt
+    from csparse3_tpu_torch.kernels import bsr_spmm as kbsr
+    from csparse3_tpu_torch.ops.bsr_ops import bsr_transpose
+    from csparse3_tpu_torch.ops.matvec import bsr_adjoint
+
+    u = 2.0 ** -24
+    K_RHS = 1024
+    ip, ix, dt = Y0.np_arrays()
+    Bm = pt.CSC(Y0.m, Y0.n, ip, ix,
+                np.ascontiguousarray(dt.imag).astype(np.float32), device=dev)
+    S = Bm.to_scipy().astype(np.float64).tocsc()
+    packed = Bm.to_bsr(block=(8, 128))
+    bip, bix, bdata = packed.np_arrays()
+    d = torch.tensor(bdata, device=dev, requires_grad=True)
+    B = pt.BSR(Bm.m, Bm.n, 8, 128, bip, bix, d, device=dev)
+    n = Bm.n
+    X = torch.tensor(np.random.RandomState(14).rand(n, K_RHS).astype(
+        np.float32), device=dev, requires_grad=True)
+    t0 = time.perf_counter()
+    adj = bsr_adjoint(B)
+    cols = B.column_lists()
+    log(f"grad[BSR @ X ybus200k f32]: adjoint in (8, 128) blocks and the "
+        f"column lists built in {time.perf_counter() - t0:.1f} s: "
+        f"{adj.nnz_blocks} blocks for {B.nnz_blocks} of A")
+
+    def loss():
+        return ((B @ X) ** 2).sum()
+
+    (gd, gX), times = _timed_grad(loss, (d, X))
+    if _timed_grad.last["bsr_spmm"] != 1:
+        raise AssertionError(f"grad[BSR @ X]: backward launches "
+                             f"{_timed_grad.last}, not one K5 launch")
+    with torch.no_grad():
+        G = 2 * (B @ X)
+    Gh = G[:, :16].double().cpu().numpy()
+    ref = torch.as_tensor(S.T @ Gh, device=dev)
+    ratio = _row_ratio(gX[:, :16], ref,
+                       _rows_bound(S.T, np.abs(Gh), u, dev))
+    _grad_log("BSR @ X ybus200k f32", times, None,
+              f" dX[:, :16]_worst_row_err_over_bound_vs_scipy_A^T_G="
+              f"{ratio:.4f} (bound (k+2) u |A^T||G| per row; must be <= 1)")
+    if not ratio <= 1:
+        raise AssertionError("grad[BSR @ X]: dX disagrees with scipy")
+
+    def loss64():
+        k = B.nnz_blocks
+        Y = kbsr.bsr_spmm_plain(B.m, B.n, B.indptr, B.indices[:k],
+                                d.detach().double(), X.detach().double(),
+                                cols)
+        return float((Y ** 2).sum())
+
+    _fd_check("BSR @ X ybus200k f32", loss64, d.view(-1), gd.reshape(-1),
+              _nonzero_entries(d), "product", GRAD_FD_RTOL_F32)
+    del gd
+
+    # the backward launch alone: K5 on the adjoint, and on the transpose
+    Gd = G.detach()
+    k = adj.nnz_blocks
+    acols = adj.column_lists()
+    args = (adj.m, adj.n, adj.indptr, adj.indices[:k], adj.data[:k], Gd)
+
+    def kernel():
+        return kbsr.bsr_spmm_cuda(*args, acols)
+
+    yk = kernel()
+    yw = kbsr.bsr_spmm_plain(*args, acols)
+    yp = kbsr.bsr_spmm_plain(*args)
+    bound = _rows_bound(S.T, np.abs(Gh), u, dev)
+    r_plain = max(_row_ratio(yk[:, :16], y[:, :16], 2 * bound)
+                  for y in (yw, yp))
+    err = float((yk - yp).abs().max())
+    del yw, yp
+    ms, lists_plain_ms = _time_pair(
+        kernel, lambda: kbsr.bsr_spmm_plain(*args, acols), 20, 2)
+    plain_ms = queued_ms(lambda: kbsr.bsr_spmm_plain(*args), 2)
+    with torch.no_grad():
+        T = bsr_transpose(B)
+    tk = T.nnz_blocks
+    targs = (T.m, T.n, T.indptr, T.indices[:tk], T.data[:tk].detach(), Gd)
+    tcols = T.column_lists()
+    yt = kbsr.bsr_spmm_cuda(*targs, tcols)
+    r_t = _row_ratio(yt[:, :16], yk[:, :16], 2 * bound)
+    del yt
+    t_ms = min(queued_ms(lambda: kbsr.bsr_spmm_cuda(*targs, tcols), 5)
+               for _ in range(2))
+    lib = _csr_tensor(S.T, dev, np.float32)
+    lib_ms = cuda_ms(lambda: lib @ Gd, 5)
+    listed = acols[1].numel()
+    size = adj.data.element_size()
+    nbytes = listed * adj.R * size + sum(
+        t.numel() * t.element_size()
+        for t in (*acols, adj.indptr, adj.indices[:k], Gd, yk))
+    flops = 2 * listed * adj.R * K_RHS
+    rec = dict(launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               lists_plain_ms=lists_plain_ms, library_ms=lib_ms,
+               blocks=k, listed_columns=listed,
+               transpose_blocks_ms=t_ms,
+               transpose_blocks=f"{tk} blocks of ({T.R}, {T.C}), "
+                                f"{tcols[1].numel()} listed columns",
+               **bound_record(nbytes, flops))
+    log(f"grad[BSR @ X ybus200k f32]: backward K5 launch on the adjoint in "
+        f"(8, 128) blocks ({k} blocks, {listed} listed columns): "
+        f"max_abs_err_vs_plain={err:.3e} worst_row_err_over_bound_vs_plain="
+        f"{r_plain:.4f} (16 columns; must be <= 1) kernel_device_ms="
+        f"{ms:.6f} lists_plain_device_ms={lists_plain_ms:.6f} "
+        f"dense_plain_device_ms={plain_ms:.6f} bound_ms="
+        f"{rec['bound_ms']:.6f} ({rec['bound_by']}, {nbytes} bytes, {flops} "
+        f"flops) share_of_bound={rec['bound_ms'] / ms:.4f} "
+        f"library_torch_sparse_csr_f32_A^T_G_device_ms={lib_ms:.6f}; the "
+        f"block transpose ({rec['transpose_blocks']}): kernel_device_ms="
+        f"{t_ms:.6f} worst_row_err_over_bound_vs_adjoint={r_t:.4f}")
+    if not (r_plain <= 1 and r_t <= 1):
+        raise AssertionError("grad[BSR @ X]: the backward launch disagrees")
+    return rec
+
+
+def _grad_solve_cases(dev):
+    """Gradients of the banded and LDL^T solves at 10k buses (B + 3I in RCM
+    order, float64, torch ops: no kernel of ours): ``BandedLU`` and
+    ``LDLTSolvePlan`` in b, ``BandedRefactor`` in b and the values; b
+    against scipy's spsolve(A^T, 2x), the values at 3 entries against
+    central differences."""
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from csparse3_tpu_torch.linalg import BandedLU, BandedRefactor, ldlt
+
+    A, Sa, bnp = _b3i_rcm()
+    x = spla.spsolve(Sa, bnp)
+    gb_ref = spla.spsolve(Sa.T.tocsc(), 2 * x)
+    data = A.np_arrays()[2]
+    t0 = time.perf_counter()
+    lu = BandedLU(A, device=dev)
+    ld = ldlt(A).solve_plan(device=dev)
+    rf = BandedRefactor.from_matrix(A, device=dev)
+    log(f"grad: 10k BandedLU, ldlt solve plan and BandedRefactor built in "
+        f"{time.perf_counter() - t0:.1f} s (s={lu.s}, nb={lu.nblocks})")
+    for label, solve in (("BandedLU", lu), ("LDLTSolvePlan", ld)):
+        b = torch.tensor(bnp, device=dev, requires_grad=True)
+        (gb,), times = _timed_grad(lambda: (solve(b) ** 2).sum(), (b,))
+        _grad_log(f"{label} 10k f64", times, _rel_err(gb, gb_ref))
+    d = torch.tensor(data, device=dev, requires_grad=True)
+    b = torch.tensor(bnp, device=dev, requires_grad=True)
+
+    def refactor_loss():
+        return (rf(d)(b) ** 2).sum()
+
+    (gd, gb), times = _timed_grad(refactor_loss, (d, b))
+    _grad_log("BandedRefactor 10k f64", times, _rel_err(gb, gb_ref))
+    _fd_check("BandedRefactor 10k f64", refactor_loss, d, gd,
+              (0, len(data) // 2, len(data) - 1), "solve")
 
 
 # ---------------------------------------------------------------------------
@@ -4056,7 +4733,7 @@ def main():
         krylov_launches, krylov = krylov_phase(dev)
         ldlt_phase(dev)
         with torch.inference_mode(False):
-            grad_phase(dev)
+            grad = grad_phase(dev)
         # the rest of the public surface at 1M buses (no kernel of ours)
         t0 = time.perf_counter()
         g1m = synthetic_grid(N_SURFACE, seed=0)
@@ -4136,6 +4813,14 @@ def main():
                  "index_bytes")},
              symmetric_form=band["symdia"],
              krylov=krylov,
+             # the backward products of the grad phase: its launches are
+             # those of the timed backward passes (DIAPlan, SplitDIA and
+             # SplitSymDIA at 10k in float64, SplitDIA at 200k in float32),
+             # each one launch on the transposed plan; the top-level numbers
+             # are SplitDIA's launch over its adjoint pair (A_r^T, -A_i^T)
+             # at the 10k float64 shape, library_ms the complex128 CSR
+             # product A^H g
+             backward=grad["dia_spmv"],
              # the scenario axis: the batched split-complex kernel's one
              # launch for K = 256 load scenarios, float64 symmetric form on
              # the 10k RCM Ybus (the batched fast-decoupled shape), on its
@@ -4183,7 +4868,13 @@ def main():
              **{k: spg["conn200k"][k] for k in (
                  "outputs_per_thread", "least_bytes_bound_ms",
                  "launch_floor_ms", "esc_wall_ms", "esc_queued_ms")},
-             conn3000=spg["conn3000"], rand10k=spg["rand10k"]),
+             conn3000=spg["conn3000"], rand10k=spg["rand10k"],
+             # the backward: the launch that gives dA of SpGEMMPlan on
+             # conn200k (float32), the kernel over the products sorted by
+             # entry of A; its launches are those of the grad phase's timed
+             # backward passes (two per SpGEMMPlan or GramPlan gradient);
+             # no one library call computes dA
+             backward=grad["spgemm_numeric"]),
         # the top-level numbers are spmm(B, X, block=(8, 128)) on the
         # 200k-bus susceptance matrix, through its column lists; the
         # launches counted are that product and the 32x32 block matrix's.
@@ -4199,7 +4890,12 @@ def main():
              **{k: bsr["ybus200k"][k] for k in (
                  "kernel_without_lists_ms", "lists_plain_ms",
                  "dense_bound_ms", "dense_bound_by", "listed_columns")},
-             block_matrix_32x32=bsr["block32"]),
+             block_matrix_32x32=bsr["block32"],
+             # the backward: dX = A^H G of BSR @ X on ybus200k (float32,
+             # X (n, 1024)), one launch on the adjoint in (8, 128) blocks;
+             # transpose_blocks_ms the same product on the block transpose's
+             # (128, 8) blocks; library_ms torch.sparse CSR A^T @ G
+             backward=grad["bsr_spmm"]),
     ]}))
     log(f"total seconds {time.perf_counter() - t_all:.1f}")
     log(smi_line())

@@ -47,7 +47,7 @@ Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (``config.default_device``).
 """
 
-__version__ = "0.1.0"
+from .__version__ import __version__  # noqa: F401
 
 from . import config  # noqa: F401
 from .config import default_device  # noqa: F401

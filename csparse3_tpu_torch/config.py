@@ -6,7 +6,9 @@ device work is torch, and a CUDA kernel runs exactly when its input lies
 on a CUDA device.  What stays is the index dtype of host construction
 (``ops.construct``), the value dtype of the constructors that take
 none, and the default BSR block shape, with the JAX package's
-defaults; the other fields come back with the modules that read them.
+defaults.  Its ``growth`` and ``deterministic`` fields are read by no
+module of the JAX package and are not kept.  ``update`` and ``config_ctx``
+set fields as the JAX package's do.
 
 ``default_device`` is where every entry point of the port runs when the
 caller names no device: the CUDA card.  There is no quiet CPU default: a
@@ -16,12 +18,14 @@ caller without a card (the tests, a host-only user) passes
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
-__all__ = ["Config", "get_config", "default_device", "resolve_device"]
+__all__ = ["Config", "get_config", "update", "config_ctx", "default_device",
+           "resolve_device"]
 
 
 @dataclasses.dataclass
@@ -40,6 +44,28 @@ _config = Config()
 
 def get_config() -> Config:
     return _config
+
+
+def update(**kw) -> Config:
+    """Set fields of the global config; an unknown field raises
+    ValueError."""
+    for k, v in kw.items():
+        if not hasattr(_config, k):
+            raise ValueError(f"unknown config field: {k}")
+        setattr(_config, k, v)
+    return _config
+
+
+@contextlib.contextmanager
+def config_ctx(**kw):
+    """``update(**kw)`` for the body of a ``with``, the old values restored
+    on exit."""
+    old = {k: getattr(_config, k) for k in kw}
+    try:
+        update(**kw)
+        yield _config
+    finally:
+        update(**old)
 
 
 def default_device() -> torch.device:

@@ -278,7 +278,7 @@ class SplitBandPoints(nn.Module):
         else:
             gid = (dd - int(dd.min())) // group_span
             gids = [gid == g for g in np.unique(gid)]
-        self.n_groups = len(gids)
+        self._n_groups = len(gids)
         groups = [_pack_points(m, pr[sel], pc[sel], pvr[sel],
                                pvi[sel] if pvi is not None else None)
                   for sel in gids]
@@ -311,6 +311,12 @@ class SplitBandPoints(nn.Module):
     @property
     def core_ndiag(self):
         return len(self.offs)
+
+    @property
+    def n_groups(self) -> int:
+        """The offset groups of the point entries (1 without
+        ``group_span``)."""
+        return self._n_groups
 
     def _group(self, g):
         return tuple(getattr(self, f"p{g}_{k}")

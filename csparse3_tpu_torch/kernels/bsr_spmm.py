@@ -42,8 +42,9 @@ import torch
 
 from ..utils.build import build_cuda_library
 
-__all__ = ["bsr_spmm", "bsr_spmm_cuda", "bsr_spmm_plain", "column_lists",
-           "load_cuda_library", "LAUNCHES", "PLAIN_GATHER_BYTES"]
+__all__ = ["bsr_spmm", "bsr_spmm_cuda", "bsr_spmm_plain", "bsr_data_grad",
+           "column_lists", "load_cuda_library", "LAUNCHES",
+           "PLAIN_GATHER_BYTES"]
 
 #: kernel launches made by ``bsr_spmm_cuda`` since import (or since a caller
 #: set it to 0): one per launch, nowhere else
@@ -204,6 +205,46 @@ def bsr_spmm_cuda(m, n, indptr, indices, data, X, cols=None):
     if m and k:
         LAUNCHES["bsr_spmm"] += 1
     return y[:, 0] if squeeze else y
+
+
+@torch.inference_mode()
+def bsr_data_grad(m, n, indptr, indices, R, C, G, X):
+    """The gradient of the (nblocks, R, C) block values of Y = A @ X, in
+    plain PyTorch, for dL/dY = G (m, k) and X (n, k) (or (m,) and (n,)):
+    each stored block p at (block row br, block column bc) gets
+
+        G[br*R : br*R + R] @ conj(X[bc*C : bc*C + C])^T
+
+    (rows past m and columns past n count as zeros), every entry of the
+    block, zeros included, as ``jax.grad`` of the JAX package's block
+    product gives it.  A batched product (``torch.bmm``, TF32 off) over the
+    blocks in chunks, the gathered rows within ``PLAIN_GATHER_BYTES``."""
+    if G.ndim == 1:
+        G, X = G[:, None], X[:, None]
+    nbk = indices.shape[0]
+    mb, nb, k = indptr.shape[0] - 1, -(-n // C), G.shape[1]
+    dtype = torch.promote_types(G.dtype, X.dtype)
+    Gb = torch.zeros((mb * R, k), dtype=dtype, device=G.device)
+    Gb[:m] = G
+    Xb = torch.zeros((nb * C, k), dtype=dtype, device=G.device)
+    Xb[:n] = X.conj()
+    Gb, Xb = Gb.view(mb, R, k), Xb.view(nb, C, k)
+    brows = torch.repeat_interleave(
+        torch.arange(mb, device=G.device), indptr.long().diff(),
+        output_size=nbk)
+    bcols = indices.long()
+    out = torch.empty((nbk, R, C), dtype=dtype, device=G.device)
+    step = max(1, PLAIN_GATHER_BYTES // max(1, (R + C) * k
+                                               * Gb.element_size()))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for p0 in range(0, nbk, step):
+            p = slice(p0, min(nbk, p0 + step))
+            torch.bmm(Gb[brows[p]], Xb[bcols[p]].mT, out=out[p])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
 
 
 def bsr_spmm(m, n, indptr, indices, data, X, cols=None):

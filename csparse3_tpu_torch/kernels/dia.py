@@ -56,6 +56,13 @@ runs, multiply, ``index_add_``), so that an index is tested without a card.
 ``band_spmv`` picks by where its input lies: a CPU tensor runs a plain
 version, a CUDA tensor launches a kernel or raises.  Float32 and float64.
 
+Gradients (``ops.matvec``): the product with A^T that x's gradient needs is
+a product with another band, A^T's slabs, which ``transpose_band`` makes
+(``transpose_band_plain`` is the same entry by entry); a plan over them has
+its own index and packed runs, so the backward launches the same kernels.
+The slabs' own gradient, dense as the JAX package's, is ``band_slab_grad``
+in plain PyTorch.
+
 ``CudaDIA`` and ``SplitCudaDIA`` are the float32 casting wrappers of the
 JAX module (``PallasDIA`` / ``SplitPallasDIA``, kept as aliases).  Their
 ``tile=`` and ``dchunk=`` are accepted and have no effect: the TPU kernel's
@@ -69,6 +76,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..utils.build import build_cuda_library
@@ -77,6 +85,7 @@ from .bandpoints import _shifted, scenario_lanes, scenario_minor_pairs
 __all__ = ["band_spmv", "dia_spmv_cuda", "dia_spmv_plain",
            "dia_spmv_runs_plain", "dia_split_cuda", "split_band_spmv",
            "run_index", "merge_run_index", "pack_runs", "run_parts",
+           "transpose_band", "transpose_band_plain", "band_slab_grad",
            "batch_entries", "load_cuda_library",
            "BATCH_LAUNCHES",
            "LAUNCHES", "RUN_ROWS", "RUN_SHARE_MAX", "split_complex_apply",
@@ -171,9 +180,10 @@ def _check(slabs, xbm, omin, symmetric, runs=None, vals=None):
 
 
 def run_index(slabs, symmetric: bool = False):
-    """The occupancy index of (D, m) slabs given as a numpy array, built on
-    the host: ``(run_ptr, run_diag)`` as int32 numpy arrays, and ``(mir_ptr,
-    mir_diag)`` after them for the symmetric form.
+    """The occupancy index of (D, m) slabs: ``(run_ptr, run_diag)``, and
+    ``(mir_ptr, mir_diag)`` after them for the symmetric form; int32 numpy
+    arrays for numpy slabs (built on the host), int32 tensors on the slabs'
+    device for a tensor.
 
     Rows are cut into groups of ``RUN_ROWS``; ``run_diag[run_ptr[g]:
     run_ptr[g + 1]]`` lists, ascending, the diagonals d with a nonzero in
@@ -181,28 +191,30 @@ def run_index(slabs, symmetric: bool = False):
     rows of group g, the diagonals d >= 1 with a nonzero among ``slabs[d, i
     - d]``, the values those rows read from below the diagonal.  Every
     nonzero of ``slabs`` lies in a listed run."""
-    D, m = slabs.shape
+    t = slabs if isinstance(slabs, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(slabs))
+    D, m = t.shape
     groups = -(-m // RUN_ROWS)
 
     def lists(first, shift):
-        gs, ds = [], []
-        for d in range(first, D):
-            rows = np.flatnonzero(slabs[d]) + shift * d
-            g = np.unique(rows[rows < m] // RUN_ROWS)
-            gs.append(g)
-            ds.append(np.full(len(g), d, dtype=np.int32))
-        g = np.concatenate(gs) if gs else np.zeros(0, dtype=np.int64)
-        if len(g) >= 2 ** 31:
-            raise ValueError(f"{len(g)} occupied runs do not fit the int32 "
-                             "index of the banded kernel")
-        ptr = np.zeros(groups + 1, dtype=np.int64)
-        np.cumsum(np.bincount(g, minlength=groups), out=ptr[1:])
-        # stable: within a group the diagonals stay ascending
-        diag = (np.concatenate(ds)[np.argsort(g, kind="stable")] if ds
-                else np.zeros(0, dtype=np.int32))
-        return ptr.astype(np.int32), diag
+        d, i = (t[first:] != 0).nonzero(as_tuple=True)
+        d = d + first
+        i = i + shift * d
+        # (group, diagonal) keys, unique and sorted: by group, then
+        # ascending diagonal
+        key = torch.unique(((i // RUN_ROWS) * D + d)[i < m])
+        if key.numel() >= 2 ** 31:
+            raise ValueError(f"{key.numel()} occupied runs do not fit the "
+                             "int32 index of the banded kernel")
+        ptr = torch.zeros(groups + 1, dtype=torch.int64, device=t.device)
+        torch.cumsum(torch.bincount(key // max(D, 1), minlength=groups), 0,
+                     out=ptr[1:])
+        return ptr.int(), (key % max(D, 1)).int()
 
-    return lists(0, 0) + (lists(1, 1) if symmetric else ())
+    index = lists(0, 0) + (lists(1, 1) if symmetric else ())
+    if isinstance(slabs, torch.Tensor):
+        return index
+    return tuple(a.numpy() for a in index)
 
 
 def merge_run_index(a, b, ndiag: int):
@@ -241,6 +253,74 @@ def dia_spmv_plain(slabs, xbm, omin: int, symmetric: bool = False):
         for d in range(1, min(D, m)):
             y[:, d:] += slabs[d, : m - d] * x[:, : m - d]
     return y
+
+
+def transpose_band(slabs, m: int, n: int, omin: int):
+    """The band of A^T: ((D, n) slabs, first offset) for the (D, m) slabs
+    of an (m, n) band A whose first offset is ``omin``, on the slabs'
+    device.  Diagonal o of A is diagonal -o of A^T, read along its other
+    end: ``A^T[j, j - o] = A[j - o, j] = slabs[o - omin, j - o]``, so A^T
+    has the offsets -(omin + D - 1) ... -omin and one shifted copy per
+    diagonal makes it.  ``transpose_band_plain`` is the same by entries."""
+    D = slabs.shape[0]
+    out = slabs.new_zeros((D, n))
+    for e in range(D):
+        o = omin + e
+        lo, hi = max(0, o), min(n, m + o)
+        if hi > lo:
+            out[D - 1 - e, lo:hi] = slabs[e, lo - o: hi - o]
+    return out, -(omin + D - 1)
+
+
+def transpose_band_plain(slabs, m: int, n: int, omin: int):
+    """``transpose_band`` entry by entry through the dense (m, n) matrix:
+    the plain version it is held to."""
+    D = slabs.shape[0]
+    dense = slabs.new_zeros((m, n))
+    for d in range(D):
+        for i in range(m):
+            if 0 <= i + omin + d < n:
+                dense[i, i + omin + d] = slabs[d, i]
+    omin_t = -(omin + D - 1)
+    out = slabs.new_zeros((D, n))
+    for d in range(D):
+        for j in range(n):
+            if 0 <= j + omin_t + d < m:
+                out[d, j] = dense.T[j, j + omin_t + d]
+    return out, omin_t
+
+
+def band_slab_grad(g, x, omin: int, ndiag: int, symmetric: bool = False):
+    """The gradient of a band product's (D, m) slabs in plain PyTorch, for
+    the gradient g (B, m) of y = band(slabs, omin) x and the input x (B, n):
+    dense, as ``jax.grad`` of the JAX plan's slabs gives it,
+
+        dslabs[d, i] = sum_b g[b, i] conj(x[b, i + omin + d])
+
+    (zero where the column falls outside the matrix), and for the symmetric
+    form each stored d > 0 also takes its mirror, sum_b g[b, i + d]
+    conj(x[b, i]) for i + d < m.  The shifted windows of x (and of g) are
+    one strided (D, m) view of the zero-padded vector, so each row b of the
+    batch is one multiply-add over the whole (D, m) output."""
+    m, n = g.shape[-1], x.shape[-1]
+    dtype = torch.promote_types(g.dtype, x.dtype)
+    out = torch.zeros((ndiag, m), dtype=dtype, device=g.device)
+    if ndiag == 0 or m == 0:
+        return out
+    # xp[b, P + j] = x[b, j]; window (d, i) reads xp[b, P + omin + d + i]
+    P = max(0, -omin)
+    xp = F.pad(x.conj().to(dtype), (P, max(0, omin + ndiag - 1 + m - n)))
+    for b in range(g.shape[0]):
+        win = xp[b, P + omin:].as_strided((ndiag, m), (1, 1))
+        out.addcmul_(win, g[b].to(dtype))
+    if symmetric and ndiag > 1:
+        # window (d, i) reads gp[b, d + i], zero past m
+        gp = F.pad(g.to(dtype), (0, ndiag))
+        xc = x.conj().to(dtype)
+        for b in range(g.shape[0]):
+            win = gp[b, 1:].as_strided((ndiag - 1, m), (1, 1))
+            out[1:].addcmul_(win, xc[b])
+    return out
 
 
 def _run_reads(slabs, n, omin, ptr, diag, mirror):

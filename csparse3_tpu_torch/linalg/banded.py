@@ -33,6 +33,13 @@ torch calls writing into a preallocated (nb, s, B) output (the JAX package's
 graph capture.  Products run with TF32 off unless the caller asks for less
 (``precision``): rounding compounds through the nb-step recurrence.
 
+The solves are differentiable as the JAX package's ``lax.scan`` is: in the
+right-hand side, and, for a plan a ``BandedRefactor`` made from values that
+require a gradient, in those values (``_BlockSolve``: the backward is the
+transposed sweeps through the same factors, ``thomas_sweeps_adjoint`` and
+``BandedSolvePlan.solve_blocks_adjoint``).  A call with no input that
+requires a gradient runs under inference mode.
+
 Deviations from the JAX package, by design:
 
 * complex stacks upload and solve on the device like real ones; the JAX
@@ -54,12 +61,14 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..ops.matvec import _cast_grad, _recorded, _wants_grad
 from ..types import CSC
 
 __all__ = ["BandedLU", "BandedRefactor", "BandedSolvePlan",
            "ComplexBandedSolve", "bandwidth", "is_symmetric_csc",
            "spike_tips_device", "thomas_factor_device",
-           "thomas_factor_device_sym", "thomas_sweeps", "thomas_sweeps_sym"]
+           "thomas_factor_device_sym", "thomas_sweeps",
+           "thomas_sweeps_adjoint", "thomas_sweeps_sym"]
 
 PRECISIONS = ("highest", "high", "default")
 
@@ -367,6 +376,77 @@ def _backward(sinv, uhat, y):
 
 
 @torch.inference_mode()
+def thomas_sweeps_adjoint(ehat, sinv, uhat, bb, precision="highest"):
+    """x = A^{-T} b through the factors ``thomas_sweeps`` reads: A = L U
+    with L unit block lower bidiagonal (Ehat_k below the diagonal) and U =
+    diag(S) (I + Uhat above it), so A^T = U^T L^T and
+
+        z_k = b_k - Uhat_{k-1}^T z_{k-1}            (forward, up U^T)
+        x_k = Sinv_k^T z_k - Ehat_{k+1}^T x_{k+1}   (backward, down L^T)
+
+    bb (nb, s, B) -> (nb, s, B), or (nb, K, s, 1) for batched stacks; the
+    transpose is plain (A^{-H} b is its conjugate on conj(b))."""
+    bb, (ehat, sinv, uhat) = _common(bb, ehat, sinv, uhat)
+    mm, _, addmm_ = _block_ops(bb)
+    with _matmul_precision(precision):
+        z = bb.clone()
+        zs, uh = z.unbind(0), uhat.unbind(0)
+        for k in range(1, len(zs)):
+            addmm_(zs[k], uh[k - 1].mT, zs[k - 1], alpha=-1)
+        x = torch.empty_like(z)
+        xs, si, eh = x.unbind(0), sinv.unbind(0), ehat.unbind(0)
+        nb = len(xs)
+        mm(si[nb - 1].mT, zs[nb - 1], out=xs[nb - 1])
+        for k in range(nb - 2, -1, -1):
+            mm(si[k].mT, zs[k], out=xs[k])
+            addmm_(xs[k], eh[k + 1].mT, xs[k + 1], alpha=-1)
+    return x
+
+
+class _BlockSolve(torch.autograd.Function):
+    """xx = A^{-1} bb in block space through ``plan`` (a ``BandedLU`` or a
+    ``BandedSolvePlan``: its ``_sweeps``), differentiable in bb and, for a
+    plan that a ``BandedRefactor`` made from values that require a
+    gradient (``plan.values``), in those values.  With g = dL/dxx and lam =
+    A^{-H} g (``plan._sweeps_adjoint``, the transposed sweeps through the
+    same factors): dL/dbb = lam, and dL/dvalues = -lam[r] conj(xx[c]) at
+    each entry's row and column in block space (``plan._pattern``)."""
+
+    @staticmethod
+    def forward(ctx, plan, bb, values, precision):
+        with torch.inference_mode():
+            xx = plan._sweeps(bb, precision)
+        xx = xx.clone()
+        ctx.plan, ctx.precision, ctx.bb_dtype = plan, precision, bb.dtype
+        ctx.save_for_backward(xx)
+        return xx
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        xx, = ctx.saved_tensors
+        with torch.inference_mode():
+            lam = plan._sweeps_adjoint(g.conj(), ctx.precision).conj()
+        lam = lam.clone()
+        gb = gv = None
+        if ctx.needs_input_grad[1]:
+            gb = _cast_grad(lam, ctx.bb_dtype)
+        if ctx.needs_input_grad[2]:
+            r, c = plan._pattern
+            if plan.batched:  # (nb, K, s, 1): scenario k on values k
+                K = xx.shape[1]
+                lam = lam[..., 0].transpose(0, 1).reshape(K, -1)
+                xx = xx[..., 0].transpose(0, 1).reshape(K, -1)
+                gv = -(lam[:, r] * xx[:, c].conj())
+            else:
+                lam = lam.reshape(-1, lam.shape[-1])
+                xx = xx.reshape(-1, xx.shape[-1])
+                gv = -(lam[r] * xx[c].conj()).sum(-1)
+            gv = _cast_grad(gv, plan.values.dtype)
+        return None, gb, gv, None
+
+
+@torch.inference_mode()
 def thomas_sweeps_sym(sinv, uhat, bb, precision="highest"):
     """``thomas_sweeps`` for factors from ``thomas_factor_device_sym``: the
     forward sweep reads Ehat_k as Uhat_{k-1}^T (a plain transpose, also for
@@ -530,6 +610,9 @@ class BandedLU:
 
     def _set(self, n, s, bw, host, dev, device):
         self.n, self.s, self.bw = n, s, bw
+        #: the values a ``BandedRefactor`` factored, when they require a
+        #: gradient, and their entries' (row, column) in block space
+        self.values = self._pattern = None
         #: host (ehat, sinv, uhat, perm) numpy, or None for a plan factored
         #: on the device
         self._h = host
@@ -570,6 +653,11 @@ class BandedLU:
                                               device=dev) for m in self._h)
         return self._dev
 
+    @property
+    def perm(self):
+        """The ordering on the device (uploaded with the stacks)."""
+        return self.stacks()[3]
+
     def perm_host(self) -> np.ndarray:
         return (self._h[3] if self._h is not None
                 else self._dev[3].cpu().numpy())
@@ -585,7 +673,6 @@ class BandedLU:
         solves of b (K, n), row k against matrix k."""
         return (self._dev is not None and self._dev[1].ndim == 4)
 
-    @torch.inference_mode()
     def blocks(self, b):
         """Permute and zero-pad an (n,) / (n, B) right-hand side (numpy or a
         tensor) into (nb, s, B) block form on the device; for a ``batched``
@@ -595,37 +682,53 @@ class BandedLU:
         b = torch.as_tensor(b, device=perm.device)
         n, s, nb = self.n, self.s, self.nblocks
         dt = torch.promote_types(self.dtype, b.dtype)
-        if self.batched:
-            bp = torch.zeros((b.shape[0], nb * s), dtype=dt,
+        with _recorded(b):
+            if self.batched:
+                bp = torch.zeros((b.shape[0], nb * s), dtype=dt,
+                                 device=perm.device)
+                bp[:, :n] = b[:, perm]
+                return bp.view(-1, nb, s).transpose(0, 1)[
+                    ..., None].contiguous()
+            if b.ndim == 1:
+                b = b[:, None]
+            bp = torch.zeros((nb * s, b.shape[1]), dtype=dt,
                              device=perm.device)
-            bp[:, :n] = b[:, perm]
-            return bp.view(-1, nb, s).transpose(0, 1)[..., None].contiguous()
-        if b.ndim == 1:
-            b = b[:, None]
-        bp = torch.zeros((nb * s, b.shape[1]), dtype=dt, device=perm.device)
-        bp[:n] = b[perm]
-        return bp.view(nb, s, -1)
+            bp[:n] = b[perm]
+            return bp.view(nb, s, -1)
 
-    @torch.inference_mode()
     def unblocks(self, xx):
         """Inverse of ``blocks``: (nb, s, B) -> (n, B), and (nb, K, s, 1)
         -> (K, n)."""
         perm = self.stacks()[3]
-        if self.batched:
-            zf = xx[..., 0].transpose(0, 1).reshape(
-                xx.shape[1], -1)[:, : self.n]
-            return torch.empty_like(zf).index_copy_(1, perm, zf)
-        zf = xx.reshape(self.nblocks * self.s, -1)[: self.n]
-        return torch.empty_like(zf).index_copy_(0, perm, zf)
+        with _recorded(xx):
+            if self.batched:
+                zf = xx[..., 0].transpose(0, 1).reshape(
+                    xx.shape[1], -1)[:, : self.n]
+                return torch.empty_like(zf).index_copy_(1, perm, zf)
+            zf = xx.reshape(self.nblocks * self.s, -1)[: self.n]
+            return torch.empty_like(zf).index_copy_(0, perm, zf)
 
     def solve_blocks(self, bb, precision="highest"):
-        """Solve in block space: (nb, s, B) -> (nb, s, B)."""
+        """Solve in block space: (nb, s, B) -> (nb, s, B).  Differentiable
+        (``_BlockSolve``) in bb and in ``values`` when either requires a
+        gradient; any other call runs under inference mode."""
+        if _wants_grad(bb, self.values):
+            return _BlockSolve.apply(self, bb, self.values, precision)
+        return self._sweeps(bb, precision)
+
+    def _sweeps(self, bb, precision):
         ehat, sinv, uhat, _ = self.stacks()
         return thomas_sweeps(ehat, sinv, uhat, bb, precision=precision)
 
+    def _sweeps_adjoint(self, gg, precision):
+        ehat, sinv, uhat, _ = self.stacks()
+        return thomas_sweeps_adjoint(ehat, sinv, uhat, gg,
+                                     precision=precision)
+
     def __call__(self, b):
         """x = A^{-1} b on the device, b of shape (n,) or (n, B); (K, n)
-        for a ``batched`` plan."""
+        for a ``batched`` plan.  Differentiable in b and, for a plan from a
+        ``BandedRefactor`` of values that require a gradient, in them."""
         x = self.unblocks(self.solve_blocks(self.blocks(b)))
         return x[:, 0] if np.ndim(b) == 1 and not self.batched else x
 
@@ -749,6 +852,8 @@ class BandedRefactor:
                          np.diff(np.asarray(Ap)))
         r = pinv[np.asarray(Ai, dtype=np.int64)]
         c = pinv[cols]
+        # each entry's row and column in block space, for the gradient
+        self._rc = torch.as_tensor(np.stack([r, c]), device=device)
         kb_r, kb_c = r // s, c // s
         d = kb_r - kb_c
         if (np.abs(d) > 1).any():
@@ -770,13 +875,22 @@ class BandedRefactor:
     def device(self) -> torch.device:
         return self._idx.device
 
-    @torch.inference_mode()
     def __call__(self, data) -> BandedLU:
         """A factored ``BandedLU`` of ``data`` (nnz,); for ``data`` (K,
         nnz), one matrix per scenario, a ``batched`` one whose (nb, K, s,
-        s) stacks hold all K, factored block by block together."""
+        s) stacks hold all K, factored block by block together.  When
+        ``data`` requires a gradient (and grad mode is on), the plan keeps
+        it, and its solves are differentiable in it."""
+        data = torch.as_tensor(data, device=self.device)
+        with torch.inference_mode():
+            lu = self._factor(data)
+        if _wants_grad(data):
+            lu.values, lu._pattern = data, tuple(self._rc)
+        return lu
+
+    def _factor(self, data) -> BandedLU:
         n, s, nb, bw = self._aux
-        data = torch.as_tensor(data, device=self.device).to(self._dtype)
+        data = data.to(self._dtype)
         lead = data.shape[:-1]
         buf = torch.zeros(lead + (3 * nb * s * s,), dtype=self._dtype,
                           device=self.device)
@@ -841,7 +955,10 @@ class BandedSolvePlan:
     def nblocks(self) -> int:
         return int(self.linv.shape[0])
 
-    @torch.inference_mode()
+    #: a plan over host factors: no values to differentiate
+    values = None
+    batched = False
+
     def blocks(self, b):
         """Permute (perm_r) and zero-pad an (n,) / (n, B) right-hand side
         into block form (nb, s, B) on the plan's device."""
@@ -850,15 +967,24 @@ class BandedSolvePlan:
             b = b[:, None]
         n, s, nb = self.n, self.s, self.nblocks
         dt = torch.promote_types(self.linv.dtype, b.dtype)
-        bp = torch.zeros((nb * s, b.shape[1]), dtype=dt, device=self.device)
-        bp[:n] = b[self.perm_r]
-        return bp.view(nb, s, -1)
+        with _recorded(b):
+            bp = torch.zeros((nb * s, b.shape[1]), dtype=dt,
+                             device=self.device)
+            bp[:n] = b[self.perm_r]
+            return bp.view(nb, s, -1)
 
-    @torch.inference_mode()
     def solve_blocks(self, bb):
         """Solve in block space, (nb, s, B) -> (nb, s, B), in full
         precision: per block of L one ``addmm_`` and one ``mm``
-        (x_k = Linv_k (b_k - Lsub_k x_{k-1})), then likewise up U."""
+        (x_k = Linv_k (b_k - Lsub_k x_{k-1})), then likewise up U.
+        Differentiable in bb (``_BlockSolve``, whose backward is
+        ``solve_blocks_adjoint``) when it requires a gradient."""
+        if _wants_grad(bb):
+            return _BlockSolve.apply(self, bb, None, "highest")
+        return self._sweeps(bb)
+
+    @torch.inference_mode()
+    def _sweeps(self, bb, precision="highest"):
         bb, stacks = _common(bb, self.linv, self.lsub, self.uinv, self.usup)
         linv, lsub, uinv, usup = (m.unbind(0) for m in stacks)
         nb = bb.shape[0]
@@ -878,10 +1004,35 @@ class BandedSolvePlan:
         return w
 
     @torch.inference_mode()
+    def solve_blocks_adjoint(self, gg):
+        """(LU)^{-T} gg in block space through the same blocks: up U^T,
+        v_k = Uinv_k^T (g_k - Usup_{k-1}^T v_{k-1}), then down L^T, w_k =
+        Linv_k^T (v_k - Lsub_{k+1}^T w_{k+1}).  The transpose is plain."""
+        gg, stacks = _common(gg, self.linv, self.lsub, self.uinv, self.usup)
+        linv, lsub, uinv, usup = (m.unbind(0) for m in stacks)
+        nb = gg.shape[0]
+        with _matmul_precision("highest"):
+            v = gg.clone()
+            w = torch.empty_like(v)
+            vs, ws = v.unbind(0), w.unbind(0)
+            for k in range(nb):
+                if k:
+                    vs[k].addmm_(usup[k - 1].mT, ws[k - 1], alpha=-1)
+                torch.mm(uinv[k].mT, vs[k], out=ws[k])
+            for k in range(nb - 1, -1, -1):
+                if k < nb - 1:
+                    ws[k].addmm_(lsub[k + 1].mT, vs[k + 1], alpha=-1)
+                torch.mm(linv[k].mT, ws[k], out=vs[k])
+        return v
+
+    def _sweeps_adjoint(self, gg, precision):
+        return self.solve_blocks_adjoint(gg)
+
     def unblocks(self, z):
         """Inverse of ``blocks`` on the solution side (perm_c)."""
-        zf = z.reshape(self.nblocks * self.s, -1)[: self.n]
-        return torch.empty_like(zf).index_copy_(0, self.perm_c, zf)
+        with _recorded(z):
+            zf = z.reshape(self.nblocks * self.s, -1)[: self.n]
+            return torch.empty_like(zf).index_copy_(0, self.perm_c, zf)
 
     def __call__(self, b):
         x = self.unblocks(self.solve_blocks(self.blocks(b)))

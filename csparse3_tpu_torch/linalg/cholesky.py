@@ -29,6 +29,7 @@ from torch import nn
 
 from ..config import resolve_device
 from ..ops import construct
+from ..ops.matvec import _cast_grad, _wants_grad
 from ..types import CSC
 from ..utils.build import BuildError
 from . import ordering as ordering_mod
@@ -38,10 +39,30 @@ from .trisolve import (DenseTailTriSolvePlan, TriSolvePlan,
 __all__ = ["LDLTSolvePlan", "SparseLDLT", "ldlt"]
 
 
+class _SymSolve(torch.autograd.Function):
+    """x = A^{-1} b through an ``LDLTSolvePlan``, differentiable in b: A is
+    symmetric (complex symmetric, not hermitian), so dL/db = A^{-H} g =
+    conj(A^{-1} conj(g)) is the same solve."""
+
+    @staticmethod
+    def forward(ctx, plan, b):
+        with torch.inference_mode():
+            x = plan._solve(b)
+        ctx.plan, ctx.b_dtype = plan, b.dtype
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.inference_mode():
+            lam = ctx.plan._solve(g.conj()).conj()
+        return None, _cast_grad(lam.clone(), ctx.b_dtype)
+
+
 class LDLTSolvePlan(nn.Module):
     """x = A^{-1} b from an LDL^T factorization: permute, L sweep, D^{-1}
     scale, L^T sweep, unpermute.  ``forward(b)`` takes (n,) or (n, k) on
-    the plan's device."""
+    the plan's device; differentiable in b (``_SymSolve``) when it
+    requires a gradient, any other call runs under inference mode."""
 
     def __init__(self, lplan, ltplan, dinv, perm):
         super().__init__()
@@ -52,8 +73,13 @@ class LDLTSolvePlan(nn.Module):
         self.register_buffer("perm", torch.as_tensor(
             perm, dtype=torch.int64, device=dev))
 
-    @torch.inference_mode()
     def forward(self, b):
+        if _wants_grad(b):
+            return _SymSolve.apply(self, b)
+        with torch.inference_mode():
+            return self._solve(b)
+
+    def _solve(self, b):
         y = self.lplan(b[self.perm])
         y = y * (self.dinv if y.ndim == 1 else self.dinv[:, None])
         z = self.ltplan(y)

@@ -274,6 +274,9 @@ class TriSolvePlan(nn.Module):
             x.index_add_(0, self.e_rows[a:c], contrib, alpha=-1)
         return x[:, 0] if squeeze else x
 
+    #: the JAX package's name of the solve
+    solve = forward
+
     def _forward_batched(self, b):
         """The level loop along dim 1 of b (K, n): the same gather,
         multiply and index_add_ per level, scenario k on factor k."""
@@ -417,5 +420,8 @@ class DenseTailTriSolvePlan(nn.Module):
             xh = self.head(bh)
         out = torch.cat([xh.to(dtype), xt])
         return out[:, 0] if squeeze else out
+
+    #: the JAX package's name of the solve
+    solve = forward
 
     solve = forward

@@ -7,14 +7,15 @@ library is built on the machine that loads it, so ``-march=native`` names
 that machine's CPU.  A failed build raises: at 10k buses the pure-numpy LU
 would turn a broken build into a run hours long, so nothing falls back.
 
-Only the entry points the port calls are bound: sparse LU (scalar
-Gilbert-Peierls and supernodal), sparse LDL^T, the AMD / RCM /
-nested-dissection orderings, the maximum transversal and the block
-triangular form, the symbolic build of the device refactorization, and
-the CSC products and merges of the sparse-product path (SpGEMM, gram with
-its cached symbolic phase, axpby, transpose).  Those take int32 index arrays
-as they are (half the index traffic, no conversion copies) and anything
-else as int64.
+Only the entry points the port calls, and the JAX package's public ones,
+are bound: sparse LU (scalar Gilbert-Peierls and supernodal), sparse
+LDL^T, the AMD / RCM / nested-dissection orderings, the maximum
+transversal and the block triangular form, the symbolic build of the
+device refactorization, the CSC products and merges of the sparse-product
+path (SpGEMM, gram with its cached symbolic phase, axpby, transpose), and
+the triplet assembly ``coo_to_csc``.  The CSC operations take int32 index
+arrays as they are (half the index traffic, no conversion copies) and
+anything else as int64.
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ from ..utils.build import REPO_ROOT, BuildError, build_shared_library
 
 __all__ = ["load", "lu_factor", "lu_factor_sn", "ldlt_factor", "amd", "rcm",
            "nd", "max_transversal", "btf",
-           "refactor_build", "csc_spgemm", "csc_axpby", "csc_gram",
-           "csc_gram_cached", "csc_gram_revalue", "csc_transpose"]
+           "refactor_build", "coo_to_csc", "csc_spgemm", "csc_axpby",
+           "csc_gram", "csc_gram_cached", "csc_gram_revalue",
+           "csc_transpose"]
 
 _SOURCES = [os.path.join(REPO_ROOT, "native", f)
             for f in ("host_ext.cpp", "lu_sn.cpp", "host_common.h")]
@@ -128,6 +130,9 @@ class _Lib:
         lib.nd_order.restype = None
         lib.nd_order.argtypes = [ctypes.c_int64, _i64p, _i64p,
                                  ctypes.c_int64, _i64p]
+        lib.coo_to_csc_d.restype = ctypes.c_int64
+        lib.coo_to_csc_d.argtypes = [ctypes.c_int64] * 3 + [
+            _i64p, _i64p, ctypes.c_void_p, _i64p, _i64p, ctypes.c_void_p]
         lib.refactor_build.restype = ctypes.POINTER(_RefactorBuild)
         lib.refactor_build.argtypes = [
             ctypes.c_int64, _i64p, _i64p, _i64p, _i64p,
@@ -548,6 +553,22 @@ def csc_gram_revalue(Ap, Ai, Ax, sym):
         _ptr(sym["Ti"]), _ptr(sym["Tpos"]), _ptr(sym["up_cnt"]),
         ptr(sym["Cp"]), ptr(sym["Ci"]), _vptr(Cx))
     return Cx
+
+
+def coo_to_csc(m, n, rows, cols, vals):
+    """Triplets to CSC on the host (float64; duplicates summed), the JAX
+    package's native assembly: (indptr, indices, data), int64 and float64,
+    trimmed to the unique count."""
+    rows, cols = _as_i64(rows), _as_i64(cols)
+    vals = np.ascontiguousarray(np.asarray(vals), dtype=np.float64)
+    nnz = len(rows)
+    out_p = np.zeros(n + 1, dtype=np.int64)
+    out_i = np.empty(max(nnz, 1), dtype=np.int64)
+    out_x = np.empty(max(nnz, 1), dtype=np.float64)
+    u = load().lib.coo_to_csc_d(m, n, nnz, _ptr(rows), _ptr(cols),
+                                _vptr(vals), _ptr(out_p), _ptr(out_i),
+                                _vptr(out_x))
+    return out_p, out_i[:u], out_x[:u]
 
 
 def csc_transpose(m, n, Ap, Ai, Ax):

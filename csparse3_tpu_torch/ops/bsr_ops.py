@@ -24,6 +24,7 @@ from torch import nn
 
 from ..config import get_config, resolve_device
 from ..types import BSR
+from .matvec import _recorded
 
 __all__ = ["bsr_transpose", "bsr_add", "bsr_binop", "bsr_matmat",
            "BSRMatMatPlan"]
@@ -148,22 +149,26 @@ class BSRMatMatPlan(nn.Module):
                           ("gid", np.cumsum(new) - 1)):
             self.register_buffer(name, _index(arr, device))
 
-    @torch.inference_mode()
     def numeric(self, a_data, b_data) -> BSR:
         """C's blocks from the two block stacks (tensors on the plan's
-        device, or numpy)."""
+        device, or numpy).  Differentiable in both stacks when either
+        requires a gradient (torch ops, as the JAX package leaves the
+        gradient to XLA); any other call runs under inference mode."""
         dev = self.gid.device
         a_data = torch.as_tensor(a_data, device=dev)
         b_data = torch.as_tensor(b_data, device=dev)
         dt = torch.promote_types(a_data.dtype, b_data.dtype)
         tf32 = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            prod = torch.bmm(a_data[self.pa].to(dt), b_data[self.pb].to(dt))
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-        out = torch.zeros((max(self.out_nblocks, 1), self.R, self.Q),
-                          dtype=dt, device=dev).index_add_(0, self.gid, prod)
+        with _recorded(a_data, b_data):
+            try:
+                prod = torch.bmm(a_data[self.pa].to(dt),
+                                 b_data[self.pb].to(dt))
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+            out = torch.zeros((max(self.out_nblocks, 1), self.R, self.Q),
+                              dtype=dt, device=dev).index_add_(0, self.gid,
+                                                               prod)
         return BSR(self.m, self.n, self.R, self.Q, self.indptr, self.indices,
                    out, nnz_blocks=self.out_nblocks, device=dev)
 

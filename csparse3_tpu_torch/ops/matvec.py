@@ -41,6 +41,7 @@ placed on explicitly, else ``config.default_device()``, the CUDA card.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -53,8 +54,9 @@ from ..kernels import dia as dia_kernel
 from ..types import BSR, CSC, DIA
 from . import construct
 
-__all__ = ["spmv", "spmm", "bsr_spmm", "SpMVPlan", "SplitSpMV", "dia_spmv",
-           "DIAPlan", "SymDIAPlan", "SplitDIA", "SplitSymDIA"]
+__all__ = ["spmv", "spmm", "bsr_spmm", "bsr_adjoint", "SpMVPlan",
+           "SplitSpMV", "dia_spmv", "DIAPlan", "SymDIAPlan", "SplitDIA",
+           "SplitSymDIA"]
 
 
 def _check(m, n, x):
@@ -77,6 +79,13 @@ def _wants_grad(*tensors) -> bool:
     requiring a gradient.  Every other call runs under inference mode."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
+
+
+def _recorded(*tensors):
+    """No context when autograd records a call on ``tensors``
+    (``_wants_grad``), else inference mode."""
+    return (contextlib.nullcontext() if _wants_grad(*tensors)
+            else torch.inference_mode())
 
 
 def _save(ctx, *tensors):
@@ -149,7 +158,7 @@ def spmm(a: CSC, X, *, block=None, device=None):
     device for a tensor; for numpy where ``a`` was placed, else the CUDA
     card).  ``block=None`` is the entry-stream product.  ``block=(R, C)``
     packs A to BSR blocks of that shape once, cached on ``a``, and calls
-    ``bsr_spmm``: the CUDA kernel on a card (not differentiable)."""
+    ``bsr_spmm``: the CUDA kernel on a card, differentiable in X."""
     if isinstance(X, torch.Tensor) and device is None:
         device = X.device
     device = resolve_device(device, a)
@@ -161,19 +170,84 @@ def spmm(a: CSC, X, *, block=None, device=None):
     if bsr is None or (bsr.R, bsr.C) != tuple(block):
         bsr = a.to_bsr(block=block)
     bsr = a._bsr_cache = bsr.to(device)  # the placed one: uploaded once
-    with torch.inference_mode():
-        return bsr_spmm(bsr, X)
+    return bsr_spmm(bsr, X)
 
 
 def bsr_spmm(a: BSR, X):
     """Y = A @ X with A in BSR blocks, on X's device (A is placed there):
     every stored (R, C) block meets the rows of X of its occupied columns
     (``BSR.column_lists``, built at the container's first product), and the
-    products add up by block row.  X is (n, k) or (n,)."""
+    products add up by block row.  X is (n, k) or (n,).  Differentiable in
+    X and in the block values ``a.data`` when either requires a gradient
+    (``_BSRProduct``); any other call runs under inference mode."""
     a = a.to(X.device)
+    data = a.data[: a.nnz_blocks]
+    if _wants_grad(data, X):
+        return _BSRProduct.apply(a, data, X)
+    with torch.inference_mode():
+        return _bsr_product(a, data, X)
+
+
+def _bsr_product(a: BSR, data, X):
     k = a.nnz_blocks
-    return bsr_kernel.bsr_spmm(a.m, a.n, a.indptr, a.indices[:k],
-                               a.data[:k], X, a.column_lists())
+    return bsr_kernel.bsr_spmm(a.m, a.n, a.indptr, a.indices[:k], data, X,
+                               a.column_lists())
+
+
+def bsr_adjoint(a: BSR) -> BSR:
+    """A^H in A's own (R, C) blocks, placed where ``a`` is: the stored
+    nonzeros gathered on the host, conjugated, transposed and packed again
+    (``construct.csc_to_bsr``), so that a product with A^H has the block
+    shape, and so the kernel's tiling, of a product with A (the block
+    transpose ``ops.bsr_ops.bsr_transpose`` has (C, R) blocks).  Made at the
+    first call and kept with ``a``, like its column lists: it holds for the
+    values it was made from."""
+    if "_adjoint" not in a.__dict__:
+        ip, bcols, dat = a.np_arrays()
+        p, r, c = np.nonzero(dat)
+        brows = np.repeat(np.arange(a.mb, dtype=np.int64), np.diff(ip))
+        rows = brows[p] * a.R + r
+        cols = bcols[p].astype(np.int64) * a.C + c
+        keep = (rows < a.m) & (cols < a.n)
+        adj = construct.from_triplets(cols[keep], rows[keep],
+                                      np.conj(dat[p, r, c][keep]),
+                                      (a.n, a.m))
+        a.__dict__["_adjoint"] = construct.csc_to_bsr(
+            adj, block=(a.R, a.C)).to(a.device)
+    return a.__dict__["_adjoint"]
+
+
+class _BSRProduct(torch.autograd.Function):
+    """Y = A @ X over the BSR ``a`` with block values ``data``,
+    differentiable in both: with G = dL/dY, dL/dX = A^H G, one launch of
+    the kernel on ``bsr_adjoint(a)`` on a CUDA device, and dL/ddata is
+    ``kernels.bsr_spmm.bsr_data_grad`` (every entry of every stored block,
+    G's block rows times X's block columns, in plain PyTorch)."""
+
+    @staticmethod
+    def forward(ctx, a, data, X):
+        ctx.a = a
+        _save(ctx, X)
+        with torch.inference_mode():
+            Y = _bsr_product(a, data, X)
+        return Y.clone()
+
+    @staticmethod
+    def backward(ctx, G):
+        a = ctx.a
+        X, = _saved(ctx)
+        gd = gx = None
+        if ctx.needs_input_grad[1]:
+            gd = bsr_kernel.bsr_data_grad(
+                a.m, a.n, a.indptr, a.indices[: a.nnz_blocks], a.R, a.C, G,
+                X)
+            gd = _cast_grad(gd.clone(), a.dtype)
+        if ctx.needs_input_grad[2]:
+            adj = bsr_adjoint(a)
+            with torch.inference_mode():
+                gx = _bsr_product(adj, adj.data[: adj.nnz_blocks], G)
+            gx = _cast_grad(gx.clone(), X.dtype)
+        return None, gd, gx
 
 
 class _EllSpMV(torch.autograd.Function):
@@ -308,13 +382,16 @@ class SplitSpMV(nn.Module):
         self.im = None if im is None else SpMVPlan(im, layout=layout,
                                                    device=device)
 
-    @torch.inference_mode()
     def forward(self, xr, xi):
-        if xr.ndim == 2:
-            # a batch (K, n): the plans take (n, K) right-hand sides
-            yr, yi = self._apply(xr.T, xi.T)
-            return yr.T, yi.T
-        return self._apply(xr, xi)
+        """Differentiable in the parts and in the plans' ``vals`` (through
+        ``SpMVPlan``'s own products) when any of them requires a gradient;
+        any other call runs under inference mode."""
+        with _recorded(xr, xi, self.re.vals, self.im and self.im.vals):
+            if xr.ndim == 2:
+                # a batch (K, n): the plans take (n, K) right-hand sides
+                yr, yi = self._apply(xr.T, xi.T)
+                return yr.T, yi.T
+            return self._apply(xr, xi)
 
     def _apply(self, xr, xi):
         if self.im is None:
@@ -375,19 +452,55 @@ class _BandPlan(nn.Module):
     _VAL_BUFFERS = ("run_vals", "mir_vals")
 
     def _place(self, ra, device):
-        """Register the host slabs ``ra`` on ``device``, and their occupancy
-        index as int32 buffers when the listed runs are at most
-        ``RUN_SHARE_MAX`` of the runs the dense kernel walks.  The rule is
+        """Register the slabs ``ra`` (host numpy, or a tensor on ``device``)
+        there, and their occupancy index as int32 buffers when the listed
+        runs are at most ``RUN_SHARE_MAX`` of the runs the dense kernel
+        walks.  The rule is
         fixed here, at build: a cast of the values (``float()``) leaves the
         index alone, and cannot turn a zero into a nonzero."""
         self.register_buffer("slabs", torch.as_tensor(ra, device=device))
         self.has_runs = False
+        if isinstance(ra, torch.Tensor):
+            ra = ra.detach()  # the index of a tensor is built on its device
         self._set_runs(dia_kernel.run_index(ra, self.symmetric))
 
+    @classmethod
+    def _from_slabs(cls, slabs, m: int, n: int, omin: int, chunk: int):
+        """A plan of this class over (D, m) ``slabs`` (a tensor, on the
+        device the plan is to live on) of an (m, n) band whose first offset
+        is ``omin`` (0 for the symmetric form), with its own occupancy index
+        and packed runs."""
+        plan = cls.__new__(cls)
+        nn.Module.__init__(plan)
+        plan.m, plan.n, plan.chunk = m, n, chunk
+        if cls.symmetric:
+            plan.omax = slabs.shape[0] - 1
+        else:
+            plan.omin = omin
+        plan._place(slabs, slabs.device)
+        return plan
+
+    def transposed(self):
+        """The plan of A^T: A itself for the symmetric form, else a
+        ``DIAPlan`` over ``kernels.dia.transpose_band`` of the slabs (n rows,
+        the offsets negated) with its own occupancy index and packed runs,
+        made at the first call and kept.  Like the packed runs it holds for
+        the slabs it was made from (a cast or a move of the plan makes it
+        again)."""
+        if self.symmetric:
+            return self
+        t = self.__dict__.get("_transposed")
+        if _stale(t, self):
+            # kept outside the module's children: not part of its state
+            t = self.__dict__["_transposed"] = _transposed_plan(
+                self, self.slabs.detach())
+        return t
+
     def _set_runs(self, index) -> bool:
-        """Take ``index`` (numpy arrays, as ``kernels.dia.run_index`` gives
-        them) for the plan's occupancy index if it passes the rule; returns
-        whether it did.  An index that fails leaves the plan as it was."""
+        """Take ``index`` (numpy arrays or int32 tensors, as
+        ``kernels.dia.run_index`` gives them) for the plan's occupancy index
+        if it passes the rule; returns whether it did.  An index that fails
+        leaves the plan as it was."""
         listed = sum(len(diag) for diag in index[1::2])
         D, m = self.slabs.shape
         walked = -(-m // dia_kernel.RUN_ROWS) * (
@@ -462,18 +575,80 @@ class _BandPlan(nn.Module):
 
     def _call(self, x, plain):
         _check(self.m, self.n, x)
-        if x.ndim == 1:
-            return self.apply_bn(x[None, :], plain)[0]
-        return self.apply_bn(x.T, plain).T
+        xbn = x[None, :] if x.ndim == 1 else x.T
+        if not plain and _wants_grad(self.slabs, x):
+            y = _BandProduct.apply(self, self.slabs, xbn)
+        else:
+            with torch.inference_mode():
+                y = self.apply_bn(xbn, plain)
+        return y[0] if x.ndim == 1 else y.T
 
-    @torch.inference_mode()
     def plain(self, x):
         """The plain PyTorch version, on any device."""
         return self._call(x, True)
 
-    @torch.inference_mode()
     def forward(self, x):
+        """y = A x for x (n,) or (n, B).  Differentiable in x (through the
+        kernel on ``transposed()``) and in ``slabs`` (set
+        ``plan.slabs.requires_grad_()`` on a plan built outside inference
+        mode: a dense (D, m) gradient, zero where a slab reaches past the
+        matrix) when either requires a gradient; any other call runs under
+        inference mode."""
         return self._call(x, False)
+
+
+def _transposed_plan(plan, slabs):
+    """A plan over the transpose of the band ``slabs`` laid out as
+    ``plan``'s: a ``DIAPlan`` over ``kernels.dia.transpose_band`` of them,
+    or, for the symmetric form, a plan over the slabs as they are; with its
+    own occupancy index and packed runs."""
+    with torch.no_grad():
+        if plan.symmetric:
+            return type(plan)._from_slabs(slabs, plan.m, plan.n, 0,
+                                          plan.chunk)
+        slabs, omin = dia_kernel.transpose_band(slabs, plan.m, plan.n,
+                                                plan.omin)
+        return DIAPlan._from_slabs(slabs, plan.n, plan.m, omin, plan.chunk)
+
+
+def _stale(made, plan) -> bool:
+    """Whether a plan ``made`` from ``plan``'s slabs is missing, or was made
+    for another dtype or device (the plan was cast or moved since)."""
+    return made is None or made.slabs.dtype != plan.slabs.dtype \
+        or made.slabs.device != plan.slabs.device
+
+
+class _BandProduct(torch.autograd.Function):
+    """y (B, m) = A x for x given as (B, n) through the banded ``plan``, the
+    layout of ``apply_bn``: the forward reads the packed run values, the
+    gradient goes to ``slabs``, whose copy they are.  With g = dL/dy, dL/dx
+    = A^H g, one launch of the kernel on ``plan.transposed()`` (A itself
+    for the symmetric form) on a CUDA device, and dL/dslabs is
+    ``kernels.dia.band_slab_grad`` of g and x, in plain PyTorch."""
+
+    @staticmethod
+    def forward(ctx, plan, slabs, xbn):
+        ctx.plan = plan
+        _save(ctx, xbn)
+        with torch.inference_mode():
+            y = plan.apply_bn(xbn)
+        # a copy made outside inference mode: autograd can return it
+        return y.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        x, = _saved(ctx)
+        gs = gx = None
+        if ctx.needs_input_grad[1]:
+            gs = _cast_grad(dia_kernel.band_slab_grad(
+                g, x, plan.omin, plan.ndiag, plan.symmetric),
+                plan.slabs.dtype)
+        if ctx.needs_input_grad[2]:
+            with torch.inference_mode():
+                gx = plan.transposed().apply_bn(g.conj()).conj()
+            gx = _cast_grad(gx.clone(), x.dtype)
+        return None, gs, gx
 
 
 class DIAPlan(_BandPlan):
@@ -619,9 +794,31 @@ class _SplitBand(nn.Module):
     both: on a CUDA device one launch, for one vector or for the batch
     (whose kernel walks the batch entries of the shared index)."""
 
-    @torch.inference_mode()
     def forward(self, xr, xi):
-        return _split_apply(self.re, self.im, self.shared_runs, xr, xi)
+        """Differentiable in the parts and in the two plans' ``slabs`` when
+        any of them requires a gradient (``_SplitBandProduct``); any other
+        call runs under inference mode."""
+        im = self.im and self.im.slabs
+        if _wants_grad(xr, xi, self.re.slabs, im):
+            return _SplitBandProduct.apply(self, self.re.slabs, im, xr, xi)
+        with torch.inference_mode():
+            return _split_apply(self.re, self.im, self.shared_runs, xr, xi)
+
+    def adjoint(self):
+        """(re, im, shared_runs) of the conjugate transpose A^H = A_r^T -
+        1j A_i^T as two real plans over the transposed slabs (the slabs
+        themselves for the symmetric form), im's negated once here, with
+        one shared index as the plan's own, so that a product with A^H is
+        one launch as a product with A is.  Made at the first call and kept,
+        like ``_BandPlan.transposed``."""
+        if self.im is None:
+            return self.re.transposed(), None, False
+        adj = self.__dict__.get("_adjoint")
+        if _stale(adj and adj[0], self.re):
+            re = _transposed_plan(self.re, self.re.slabs.detach())
+            im = _transposed_plan(self.im, -self.im.slabs.detach())
+            adj = self.__dict__["_adjoint"] = (re, im, _share_runs(re, im))
+        return adj
 
     def batch_entries(self):
         """The batched kernel's entries of the shared index
@@ -634,6 +831,55 @@ class _SplitBand(nn.Module):
         walk of its index (or of the whole band), combined."""
         return _split_apply(self.re, self.im, self.shared_runs, xr, xi,
                             plain=True)
+
+
+class _SplitBandProduct(torch.autograd.Function):
+    """(yr, yi) of the split-complex band ``band`` (a ``SplitDIA`` or
+    ``SplitSymDIA``) for parts (n,) or (K, n), differentiable in the parts
+    and in the two plans' slabs.  With (gr, gi) = dL/d(yr, yi):
+
+      (dxr, dxi) = split(A_r^T, -A_i^T)(gr, gi)   one product with A^H
+                                                   (``band.adjoint()``):
+                                                   one kernel launch
+      dslabs_r   = band_slab_grad of (gr, gi) against (xr, xi)
+      dslabs_i   = band_slab_grad of (gr, gi) against (-xi, xr)
+
+    the slab gradients dense, in plain PyTorch, as the JAX package's."""
+
+    @staticmethod
+    def forward(ctx, band, re_slabs, im_slabs, xr, xi):
+        ctx.band = band
+        _save(ctx, xr, xi)
+        with torch.inference_mode():
+            yr, yi = _split_apply(band.re, band.im, band.shared_runs, xr, xi)
+        return yr.clone(), yi.clone()
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        band = ctx.band
+        xr, xi = _saved(ctx)
+        need = ctx.needs_input_grad
+        g_re = g_im = dxr = dxi = None
+        if need[1] or need[2]:
+            m, n = band.re.m, band.re.n
+            G = torch.stack([gr, gi]).reshape(-1, m)
+            slab_grad = functools.partial(
+                dia_kernel.band_slab_grad, omin=band.re.omin,
+                ndiag=band.re.ndiag, symmetric=band.re.symmetric)
+            if need[1]:
+                g_re = _cast_grad(slab_grad(G, torch.stack([xr, xi])
+                                            .reshape(-1, n)),
+                                  band.re.slabs.dtype)
+            if need[2]:
+                g_im = _cast_grad(slab_grad(G, torch.stack([-xi, xr])
+                                            .reshape(-1, n)),
+                                  band.im.slabs.dtype)
+        if need[3] or need[4]:
+            with torch.inference_mode():
+                dxr, dxi = _split_apply(*band.adjoint(), gr, gi)
+            dxr = _cast_grad(dxr.clone(), xr.dtype)
+            dxi = _cast_grad(dxi.clone(), xi.dtype)
+        return None, g_re, g_im, dxr, dxi
 
 
 class SplitDIA(_SplitBand):

@@ -21,6 +21,19 @@ A.T with the symmetry folded in: products are formed for the lower
 triangle of C only (half the stream), the same kernel sums them, and one
 ``index_select`` through ``sel_full`` mirrors the lower values into the
 full pattern.
+
+Both numeric passes are differentiable in the value arrays when one of them
+requires a gradient (any other call runs under inference mode).  The
+gradient of a numeric pass is a numeric pass too: with g = dL/ddata,
+
+  dL/da_vals[p] = sum over the products t with pa[t] = p of
+                  g[gid[t]] conj(b_vals[pb[t]])
+
+the same kernel over the product stream sorted by entry of A (maps made on
+the host at the first backward and kept, ``_NumericPlan.grad_maps``), and
+dL/db_vals likewise by entry of B.  ``GramPlan`` gets both launches on A's
+one array, after ``index_select``'s own backward folded the full output's
+gradient into the lower slots.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ from ..config import get_config, resolve_device
 from ..kernels.spgemm import spgemm_numeric
 from ..types import CSC
 from . import construct
+from .matvec import _cast_grad, _save, _saved, _wants_grad
 
 __all__ = ["spgemm", "spgemm_symbolic", "SpGEMMPlan", "gram",
            "gram_symbolic", "GramPlan"]
@@ -178,6 +192,29 @@ class _NumericPlan(nn.Module):
         return spgemm_numeric(self.seg_ptr, self.gid, self.pa_s, self.pb_s,
                               a_vals, b_vals)
 
+    def grad_maps(self, side: int, n_vals: int):
+        """(seg_ptr, gid, pa, pb) of the numeric pass whose outputs are the
+        ``n_vals`` entries of A (``side`` 0) or of B (1): the products
+        sorted (stably) by that entry, ``gid`` the entry, ``pa`` the output
+        each product adds to and ``pb`` its entry of the other operand.
+        Made on the host at the first call and kept, int32 on the plan's
+        device."""
+        key = (side, n_vals)
+        maps = self.__dict__.setdefault("_grad_maps", {})
+        if key not in maps:
+            own, other = ((self.pa_s, self.pb_s) if side == 0
+                          else (self.pb_s, self.pa_s))
+            own = own.cpu().numpy()
+            order = np.argsort(own, kind="stable")
+            gid = own[order]
+            host = (_seg_ptr(gid, n_vals), gid,
+                    self.gid.cpu().numpy()[order],
+                    other.cpu().numpy()[order])
+            maps[key] = tuple(torch.as_tensor(
+                np.ascontiguousarray(a, dtype=np.int32), device=self.device)
+                for a in host)
+        return maps[key]
+
     def _result(self, data) -> CSC:
         t = self.template
         ip, ix, _ = t.np_arrays()
@@ -195,10 +232,44 @@ class SpGEMMPlan(_NumericPlan):
     def out_nnz(self) -> int:
         return self.template.nnz
 
-    @torch.inference_mode()
     def numeric(self, a_vals, b_vals) -> CSC:
-        return self._result(self._sums(self._values(a_vals),
-                                       self._values(b_vals)))
+        """C's values from A's and B's (differentiable in both)."""
+        a_vals, b_vals = self._values(a_vals), self._values(b_vals)
+        if _wants_grad(a_vals, b_vals):
+            return self._result(_Numeric.apply(self, a_vals, b_vals))
+        with torch.inference_mode():
+            return self._result(self._sums(a_vals, b_vals))
+
+
+class _Numeric(torch.autograd.Function):
+    """data = the numeric pass of ``plan`` on (a_vals, b_vals),
+    differentiable in both: each gradient is one more numeric pass, over
+    ``plan.grad_maps`` (see the module docstring), on g and the other
+    operand's conjugated values."""
+
+    @staticmethod
+    def forward(ctx, plan, a_vals, b_vals):
+        ctx.plan = plan
+        _save(ctx, a_vals, b_vals)
+        with torch.inference_mode():
+            data = plan._sums(a_vals, b_vals)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        vals = _saved(ctx)
+        grads = [None, None]
+        for side in (0, 1):
+            if not ctx.needs_input_grad[1 + side]:
+                continue
+            own, other = vals[side], vals[1 - side]
+            seg_ptr, gid, pa, pb = plan.grad_maps(side, own.shape[0])
+            with torch.inference_mode():
+                d = spgemm_numeric(seg_ptr, gid, pa, pb, g,
+                                   other.conj().resolve_conj())
+            grads[side] = _cast_grad(d.clone(), own.dtype)
+        return None, *grads
 
 
 def spgemm_symbolic(a: CSC, b: CSC, device=None) -> SpGEMMPlan:
@@ -239,11 +310,15 @@ class GramPlan(_NumericPlan):
     def out_nnz(self) -> int:
         return self.template.nnz
 
-    @torch.inference_mode()
     def numeric(self, a_vals) -> CSC:
+        """C's values from A's (differentiable in them)."""
         a_vals = self._values(a_vals)
-        lower = self._sums(a_vals, a_vals)
-        return self._result(lower.index_select(0, self.sel_full))
+        if _wants_grad(a_vals):
+            lower = _Numeric.apply(self, a_vals, a_vals)
+            return self._result(lower.index_select(0, self.sel_full))
+        with torch.inference_mode():
+            lower = self._sums(a_vals, a_vals)
+            return self._result(lower.index_select(0, self.sel_full))
 
 
 def gram_symbolic(a: CSC, device=None) -> GramPlan:

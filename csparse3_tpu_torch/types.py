@@ -25,14 +25,18 @@ copies, a CSC's entry streams, a BSR's column lists) be kept.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Tuple
 
 import numpy as np
 import torch
 
 from .config import resolve_device
 
-__all__ = ["CSC", "CSR", "COO", "BSR", "DIA"]
+__all__ = ["CSC", "CSR", "COO", "BSR", "DIA", "Dense"]
+
+#: plain (m, n) arrays in signatures: a tensor or anything ``torch.as_tensor``
+#: takes
+Dense = Any
 
 
 def _placed_on(mine, device) -> bool:
@@ -503,7 +507,8 @@ class BSR:
         ``nnz_blocks``; no device round trip for what was built on the
         host."""
         k = self.nnz_blocks
-        ip, ix, dt = (h if h is not None else self._field(i).cpu().numpy()
+        ip, ix, dt = (h if h is not None
+                      else self._field(i).detach().cpu().numpy()
                       for i, h in enumerate(self._host))
         return ip, ix[:k], dt[:k]
 
@@ -677,7 +682,7 @@ class DIA:
         the container was built from host data."""
         if self._np is not None:
             return self._np
-        return tuple(self._field(i).cpu().numpy() for i in range(2))
+        return tuple(self._field(i).detach().cpu().numpy() for i in range(2))
 
     @property
     def nnz(self) -> int:
@@ -709,3 +714,7 @@ class DIA:
         from .ops import construct
 
         return construct.dia_to_csc(self)
+
+    def todense(self):
+        """The dense (m, n) tensor, through ``to_csc``."""
+        return self.to_csc().todense()

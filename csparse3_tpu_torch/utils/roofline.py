@@ -13,7 +13,10 @@ card's published peak.
 
 ``plan_bytes`` counts the compulsory bytes of one call of a plan (its
 resident buffers read once, each input and output moved once), and
-``pct_roofline`` turns bytes, seconds and a bandwidth into a share.
+``pct_roofline`` turns bytes, seconds and a bandwidth into a share;
+``tflops`` and ``thomas_factor_flops`` are the JAX module's operation
+counts.  Its TPU measures (matrix- and vector-unit probes, trace parsing,
+the band+points binding model) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from .build import build_cuda_library
 
 __all__ = ["H100_HBM_BYTES_PER_S", "LAUNCHES", "triad", "triad_cuda",
            "triad_plain", "load_cuda_library", "measure_hbm_bw", "plan_bytes",
-           "pct_roofline"]
+           "pct_roofline", "tflops", "thomas_factor_flops"]
 
 #: published device-memory rate of one H100 SXM (NVIDIA data sheet)
 H100_HBM_BYTES_PER_S = 3.35e12
@@ -157,3 +160,14 @@ def pct_roofline(bytes_touched: int, seconds: float, bw: float) -> float:
     if not (seconds and bw):
         return 0.0
     return (bytes_touched / seconds) / bw
+
+
+def tflops(flops: float, seconds: float) -> float:
+    """Operations over seconds, in TFLOP/s (0 for no time)."""
+    return flops / seconds / 1e12 if seconds else 0.0
+
+
+def thomas_factor_flops(nb: int, s: int) -> float:
+    """Operations of the device block-Thomas factorization: per block one
+    (s, s) inverse (~2 s^3) and three (s, s) products (2 s^3 each)."""
+    return nb * (2.0 + 3 * 2.0) * s ** 3

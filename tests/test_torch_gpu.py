@@ -1,5 +1,6 @@
 """The port on a CUDA card: the band+points, DIA, triad, SpGEMM-numeric and
-BSR SpMM kernels against their plain PyTorch versions, the device solvers
+BSR SpMM kernels against their plain PyTorch versions (forward, and the
+backward products on the transposed plans), the device solvers
 against the same solves on the CPU, and the supernodal / multifrontal
 fronts (torch ops, no kernel of ours) against the CPU, the host factors
 and scipy; the connected components, ``norm`` and ``StreamedSPIKE`` on
@@ -1551,6 +1552,131 @@ def test_launch_counts_unchanged_with_grad_mode_on(cuda):
         x = pt.linalg.splu(A).solve_plan(device=cuda)(
             torch.ones(500, dtype=torch.float64, device=cuda))
         assert x.is_inference() and not x.requires_grad
+
+
+def _plan_grad_cases(device, dtype):
+    """Gradients through the plans that run K4, K5 and K6, on ``device``,
+    from the same numpy inputs: DIAPlan / SymDIAPlan / SplitDIA /
+    SplitSymDIA on the RCM Ybus of 2000 buses (x and slabs), SpGEMMPlan and
+    GramPlan on its connectivity matrix (values), and imag(Ybus) in (8, 128)
+    blocks times X (n, 64) (X and the blocks)."""
+    from csparse3_tpu_torch.ops.spgemm import gram_symbolic, spgemm_symbolic
+
+    g, _ = rcm_grid(synthetic_grid(2000, seed=3))
+    Y, _, _ = ybus(g)
+    ip, ix, yv = Y.np_arrays()
+    n = Y.n
+    Y = pt.CSC(n, n, ip, ix, yv.astype(
+        np.complex128 if dtype == torch.float64 else np.complex64))
+    rng = np.random.RandomState(11)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device,
+                            requires_grad=True)
+
+    out = []
+    for cls, part in ((pt.DIAPlan, "real"), (pt.SymDIAPlan, "imag")):
+        plan = cls(pt.CSC(n, n, ip, ix, getattr(yv, part).copy()),
+                   device=device).to(dtype)
+        plan.slabs.requires_grad_()
+        x = t(rng.randn(n))
+        out += torch.autograd.grad((plan(x) ** 2).sum(), (plan.slabs, x))
+    for cls in (pt.SplitDIA, pt.SplitSymDIA):
+        plan = cls(Y, device=device)
+        for p in (plan.re, plan.im):
+            p.slabs.requires_grad_()
+        xr, xi = t(rng.randn(n)), t(rng.randn(n))
+        yr, yi = plan(xr, xi)
+        out += torch.autograd.grad((yr ** 2).sum() + (yr * yi).sum(),
+                                   (plan.re.slabs, plan.im.slabs, xr, xi))
+    Cf, Ct = connectivity(g)
+    C = Cf - Ct
+    cv = rng.randn(C.nnz)
+    C = pt.CSC(C.m, C.n, *C.np_arrays()[:2], cv)
+    a, b = t(cv), t(rng.randn(C.nnz))
+    plan = spgemm_symbolic(C, pt.transpose(C), device=device)
+    out += torch.autograd.grad((plan.numeric(a, b).data ** 2).sum(), (a, b))
+    gplan = gram_symbolic(C, device=device)
+    out += torch.autograd.grad((gplan.numeric(a).data ** 2).sum(), (a,))
+    B = pt.CSC(n, n, ip, ix, yv.imag.copy()).to_bsr(block=(8, 128))
+    d = t(B.np_arrays()[2])
+    B = pt.BSR(B.m, B.n, 8, 128, *B.np_arrays()[:2], d)
+    X = t(rng.randn(n, 64))
+    out += torch.autograd.grad(((B @ X) ** 2).sum(), (d, X))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_plan_gradients_on_cuda_match_cpu(cuda, dtype):
+    """The backward products launch the hand kernels on the transposed
+    plans (K4 once per DIA backward product, K6 twice for each of the
+    SpGEMM and Gram gradients, K5 once) and agree with the plain versions
+    on the CPU; float32 to 5e-5 of the largest entry (sums in other
+    orders), float64 to 1e-10."""
+    before = (kdia.LAUNCHES["dia_spmv"], kspg.LAUNCHES["spgemm_numeric"],
+              kbsr.LAUNCHES["bsr_spmm"])
+    got = _plan_grad_cases(cuda, dtype)
+    after = (kdia.LAUNCHES["dia_spmv"], kspg.LAUNCHES["spgemm_numeric"],
+             kbsr.LAUNCHES["bsr_spmm"])
+    # forward and backward: 2 per band plan; 1 + 2 per numeric pass; 1 + 1
+    assert [a - b for a, b in zip(after, before)] == [8, 6, 2]
+    want = _plan_grad_cases("cpu", dtype)
+    tol = 1e-10 if dtype == torch.float64 else 5e-5
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype
+        _close_to(g, w, tol)
+
+
+@pytest.mark.gpu
+def test_backward_kernels_match_plain_on_transposed_plans(cuda):
+    """Each backward route's kernel against its plain version: K4 on a
+    transposed DIAPlan and on the adjoint pair of a SplitDIA, K5 on the
+    adjoint in A's (8, 128) blocks and on the (128, 8) block transpose,
+    K6 over the maps sorted by entry of A."""
+    from csparse3_tpu_torch.ops.bsr_ops import bsr_transpose
+    from csparse3_tpu_torch.ops.matvec import _split_apply, bsr_adjoint
+    from csparse3_tpu_torch.ops.spgemm import spgemm_symbolic
+
+    g, _ = rcm_grid(synthetic_grid(3000, seed=5))
+    Y, _, _ = ybus(g)
+    ip, ix, yv = Y.np_arrays()
+    n = Y.n
+    rng = np.random.RandomState(2)
+    plan = pt.DIAPlan(pt.CSC(n, n, ip, ix, yv.real.copy()), device=cuda)
+    t = plan.transposed()
+    assert t.has_runs
+    G = torch.tensor(rng.randn(2, n), device=cuda)
+    _close_to(t.apply_bn(G), t.apply_bn(G, plain=True), 1e-13)
+    split = pt.SplitDIA(Y, device=cuda)
+    re, im, shared = split.adjoint()
+    assert shared
+    gr, gi = G[0], G[1]
+    # A^H (gr + 1j gi) from scipy
+    ref = sp.csc_matrix((yv, ix, ip), shape=(n, n)).conj().T @ (
+        gr.cpu().numpy() + 1j * gi.cpu().numpy())
+    got = _split_apply(re, im, shared, gr, gi)
+    for y, w, z in zip(got, _split_apply(re, im, shared, gr, gi, plain=True),
+                       (ref.real, ref.imag)):
+        _close_to(y, w, 1e-13)
+        _close_to(y, torch.as_tensor(z), 1e-12)
+    B = pt.CSC(n, n, ip, ix, yv.imag.copy()).to_bsr(block=(8, 128)).to(cuda)
+    X = torch.tensor(rng.randn(n, 256), dtype=torch.float32, device=cuda)
+    for adj in (bsr_adjoint(B), bsr_transpose(B)):
+        k = adj.nnz_blocks
+        args = (adj.m, adj.n, adj.indptr, adj.indices[:k],
+                adj.data[:k].float(), X, adj.column_lists())
+        _close_to(kbsr.bsr_spmm_cuda(*args), kbsr.bsr_spmm_plain(*args),
+                  REL)
+    Cf, Ct = connectivity(g)
+    C = Cf - Ct
+    splan = spgemm_symbolic(C, pt.transpose(C), device=cuda)
+    seg_ptr, gid, pa, pb = splan.grad_maps(0, C.nnz)
+    gv = torch.tensor(rng.randn(splan.out_nnz), device=cuda)
+    bv = torch.tensor(rng.randn(C.nnz), device=cuda)
+    _close_to(kspg.spgemm_numeric_cuda(seg_ptr, pa, pb, gv, bv),
+              kspg.spgemm_numeric_plain(gid.long(), pa.long(), pb.long(),
+                                        gv, bv, C.nnz), 1e-13)
 
 
 def _branch_graphs(n, seed, out_frac):

@@ -347,3 +347,162 @@ def test_export_checklist(pair):
     names = {n for n in dir(ref) if not n.startswith("_")}
     missing = sorted(n for n in names if not hasattr(port, n))
     assert not missing, missing
+
+
+# ---------------------------------------------------------------------------
+# module by module: every public function and class of the JAX package, and
+# every public method or property of each of its classes, is in the port's
+# module of the same name, but for ROADMAP's "Not to port"
+# ---------------------------------------------------------------------------
+
+#: ROADMAP's "Not to port", as names: a module of the JAX package, or a
+#: name in one ("Class.attr" for a class's), or, under "*", a method of any
+#: class
+NOT_TO_PORT = {
+    "*": {"tree_flatten", "tree_unflatten"},  # the pytree methods
+    "config": {"on_tpu", "Config.backend", "Config.growth",
+               "Config.deterministic"},
+    "ops.construct": {"is_traced", "container_traced", "csc_to_bcoo",
+                      "bcoo_to_csc"},
+    "types": {"CSC.to_bcoo", "CSC.from_bcoo"},
+    "models.powerflow": {"NewtonPowerFlow.run_fn", "FastDecoupled.plans",
+                         "FastDecoupled.functional_step"},
+    "parallel.solve": {"BlockJacobi.specs", "DiagJacobi.specs"},
+    "linalg.trisolve": {"TriSolvePlan.unroll"},
+    "kernels.spgemm_pallas": {"build_numeric_pallas_maps",
+                              "numeric_pallas_or_none"},
+    "utils.roofline": {"measure_mxu_f32", "measure_mxu_bf16",
+                       "measure_vpu_f32", "traced_loop_s",
+                       "device_trace_events", "measure_onehot_mix",
+                       "measure_small_dot", "bandpoints_binding_model"},
+    "kernels.spmv_pallas": "module",
+    "ops.gather": "module",
+    "utils.hostmem": "module",
+    "utils.xfer": "module",
+}
+
+#: the Pallas modules' counterparts: the module of each hand kernel
+PORTED_AS = {"kernels.dia_pallas": "kernels.dia",
+             "kernels.bsr_spmm_pallas": "kernels.bsr_spmm",
+             "kernels.spgemm_pallas": "kernels.spgemm"}
+
+#: the Pallas entry points, by the name of the CUDA launch that replaces
+#: each (K1-K3 are one kernel, launched by the plan)
+RENAMED = {"dia_spmv_pallas": "dia_spmv_cuda",
+           "bsr_spmm_pallas": "bsr_spmm_cuda",
+           "spgemm_numeric_pallas": "spgemm_numeric_cuda",
+           "points_spmv_pallas": "SplitBandPoints.cuda_kernel",
+           "band_points_spmv_pallas": "SplitBandPoints.cuda_kernel",
+           "band_points_supertile_pallas": "SplitBandPoints.cuda_kernel"}
+
+
+def _jax_modules():
+    """The JAX package's Python modules, relative dotted names ('' for the
+    package), read from its source tree."""
+    import pathlib
+
+    root = pathlib.Path(jt.__file__).parent
+    names = {".".join(p.relative_to(root).with_suffix("").parts)
+             .removesuffix("__init__").rstrip(".")
+             for p in root.rglob("*.py")}
+    return sorted(n for n in names if NOT_TO_PORT.get(n) != "module")
+
+
+def _defined(mod):
+    """{name: None for a function, the public attributes of a class} of
+    what ``mod`` defines itself (jitted functions included)."""
+    out = {}
+    for name, obj in vars(mod).items():
+        if name.startswith("_") or not callable(obj) or \
+                getattr(obj, "__module__", None) != mod.__name__:
+            continue
+        out[name] = (sorted(k for k in vars(obj) if not k.startswith("_"))
+                     if isinstance(obj, type) else None)
+    return out
+
+
+def _resolve(mod, dotted):
+    obj = mod
+    for part in dotted.split("."):
+        obj = getattr(obj, part, None)
+    return obj
+
+
+@pytest.mark.parametrize("rel", _jax_modules())
+def test_module_surface_matches_jax(rel):
+    import importlib
+
+    jname = "csparse3_tpu" + (f".{rel}" if rel else "")
+    prel = PORTED_AS.get(rel, rel)
+    jm = importlib.import_module(jname)
+    pm = importlib.import_module("csparse3_tpu_torch"
+                                 + (f".{prel}" if prel else ""))
+    skip = NOT_TO_PORT.get(rel, set()) | NOT_TO_PORT["*"]
+    missing = []
+    for name, attrs in _defined(jm).items():
+        if name in skip:
+            continue
+        port = _resolve(pm, RENAMED.get(name, name))
+        if port is None:
+            missing.append(name)
+            continue
+        missing += [f"{name}.{a}" for a in attrs or ()
+                    if a not in skip and f"{name}.{a}" not in skip
+                    and not hasattr(port, a)]
+    assert not missing, missing
+
+
+def test_not_to_port_names_exist_in_jax():
+    """Every exclusion names surface the JAX package has: the list cannot
+    hide a name that is not there."""
+    import importlib
+
+    for rel, names in NOT_TO_PORT.items():
+        if rel == "*":
+            continue
+        jm = importlib.import_module(f"csparse3_tpu.{rel}")
+        if names == "module":
+            continue
+        for name in names:
+            assert _resolve(jm, name) is not None, (rel, name)
+
+
+def test_config_update_and_ctx_match_jax():
+    from csparse3_tpu import config as jcfg
+    from csparse3_tpu_torch import config as pcfg
+
+    for cfg in (jcfg, pcfg):
+        with cfg.config_ctx(bsr_block=(4, 4)) as c:
+            assert c.bsr_block == (4, 4) == cfg.get_config().bsr_block
+        assert cfg.get_config().bsr_block == (8, 128)
+        with pytest.raises(ValueError, match="unknown config field"):
+            cfg.update(no_such_field=1)
+    s = sp.random(9, 10, density=0.3, random_state=np.random.RandomState(1))
+    with pcfg.config_ctx(bsr_block=(3, 5)):
+        assert (pt.CSC.from_scipy(s, device="cpu").to_bsr().R,) == (3,)
+
+
+def test_small_surface_repairs_match_jax():
+    from csparse3_tpu.native import host_ext as jhx
+    from csparse3_tpu_torch.linalg import trisolve as ptri
+    from csparse3_tpu_torch.native import host_ext as phx
+
+    assert pt.__version__ == jt.__version__
+    assert pt.types.Dense is jt.types.Dense
+    rng = np.random.RandomState(4)
+    rows, cols = rng.randint(0, 7, 30), rng.randint(0, 9, 30)
+    vals = rng.randn(30)
+    for got, ref in zip(phx.coo_to_csc(7, 9, rows, cols, vals),
+                        jhx.coo_to_csc(7, 9, rows, cols, vals)):
+        np.testing.assert_array_equal(got, ref)
+    d = sp.random(6, 8, density=0.4, random_state=rng).todia()
+    got = pt.DIA.from_scipy(d, device="cpu").todense()
+    np.testing.assert_array_equal(_np(got),
+                                  np.asarray(jt.DIA.from_scipy(d).todense()))
+    L = sp.tril(_rand(12, 12, 0.3, 3) + sp.eye(12) * 4).tocsc()
+    plan = ptri.TriSolvePlan(12, L.indptr, L.indices, L.data, lower=True,
+                             device="cpu")
+    b = torch.as_tensor(rng.randn(12))
+    assert torch.equal(plan.solve(b), plan(b))
+    assert ptri.DenseTailTriSolvePlan.solve is \
+        ptri.DenseTailTriSolvePlan.forward
