@@ -3985,7 +3985,51 @@ def _grad_spgemm_cases(dev, grid):
         f"products of each entry of A: no one torch call computes it)")
     if not r_plain <= 1:
         raise AssertionError("grad[SpGEMMPlan]: the dA launch disagrees")
+    _esc_against_k6(dev, C, CT, plan, a, b, w, Bs, ra, ca, seg_ptr)
     return rec
+
+
+def _esc_against_k6(dev, C, CT, plan, a, b, w, Bs, ra, ca, seg_ptr):
+    """The device ESC product's dA (autograd over its gather and segmented
+    sum) against K6's dA from ``SpGEMMPlan.numeric`` on the same operands,
+    both of the linear loss sum(w * C) (so that both sum the same
+    products w_j b_ij): within 2 (L + 1) u |w| |B|^T per entry, L the
+    longest run of products of an entry of A."""
+    import scipy.sparse as sp
+    import torch
+
+    from csparse3_tpu_torch.ops.spgemm_device import ESCSpGEMM
+
+    u = 2.0 ** -24
+    t0 = time.perf_counter()
+    esc = ESCSpGEMM(C, CT, device=dev)
+    t_build = time.perf_counter() - t0
+    with torch.no_grad():
+        ip, rows, _, nnz = esc(a, b)
+    nnz = int(nnz)
+    t_ip, t_ix, _ = plan.template.np_arrays()
+    if not (nnz == plan.out_nnz and np.array_equal(ip.cpu().numpy(), t_ip)
+            and np.array_equal(rows[:nnz].cpu().numpy(), t_ix)):
+        raise AssertionError("grad[ESCSpGEMM]: the output pattern differs "
+                             "from SpGEMMPlan's")
+    (ga_esc,), t_f, t_b = _backward_s(
+        lambda: (w * esc(a, b)[2][:nnz]).sum(), (a,))
+    (ga_k6,), k_f, k_b = _backward_s(
+        lambda: (w * plan.numeric(a, b).data).sum(), (a,))
+    Ws = sp.csc_matrix((np.abs(w.double().cpu().numpy()), t_ix, t_ip),
+                       shape=(C.m, C.m))
+    Lmax = int(seg_ptr.diff().max())
+    bound = torch.as_tensor(2 * (Lmax + 1) * u * 1.01 * _on_pattern(
+        Ws @ abs(Bs).T, ra, ca), device=dev)
+    ratio = _row_ratio(ga_esc, ga_k6, bound)
+    log(f"grad[ESCSpGEMM conn200k f32]: capacity={esc.total} products, "
+        f"{nnz} outputs, plan build {t_build:.2f} s; dA by autograd "
+        f"backward_s={t_b:.4f} (forward_s={t_f:.4f}) against K6's dA from "
+        f"SpGEMMPlan.numeric (backward_s={k_b:.4f}, forward_s={k_f:.4f}): "
+        f"worst_entry_err_over_bound={ratio:.4f} (bound 2 (L+1) u |w||B|^T"
+        f" per entry, L={Lmax}; must be <= 1)")
+    if not ratio <= 1:
+        raise AssertionError("grad[ESCSpGEMM]: dA disagrees with K6's")
 
 
 def _grad_bsr_case(dev, Y0):
@@ -4149,6 +4193,64 @@ def _grad_solve_cases(dev):
     _grad_log("BandedRefactor 10k f64", times, _rel_err(gb, gb_ref))
     _fd_check("BandedRefactor 10k f64", refactor_loss, d, gd,
               (0, len(data) // 2, len(data) - 1), "solve")
+    _grad_recurrence_cases(dev, A, lu)
+
+
+def _grad_recurrence_cases(dev, A, lu):
+    """The device block-Thomas recurrences of config 3's blocks (B + 3I at
+    10k buses in RCM order, ``lu``'s block size, float64), differentiated
+    by autograd over their out-of-place steps: ``thomas_factor_device``
+    and ``thomas_factor_device_sym`` (a weighted sum of the factor stacks,
+    in D) and ``spike_tips_device`` (a weighted sum of the four tips of the
+    first 8 blocks, in uhat), each against central differences at 3
+    entries, with the backward's seconds beside the forward's."""
+    import torch
+
+    from csparse3_tpu_torch.linalg.banded import (_tridiag_blocks,
+                                                  spike_tips_device,
+                                                  thomas_factor_device,
+                                                  thomas_factor_device_sym)
+
+    perm = lu.perm_host()
+    D, E, F = (torch.tensor(m, device=dev) for m in _tridiag_blocks(
+        A.n, *A[perm, perm].np_arrays(), lu.s, np.float64))
+    rng = np.random.RandomState(21)
+    w = torch.as_tensor(rng.randn(3, *D.shape), device=dev)
+    nb, s = D.shape[:2]
+    # diagonal entries of the first, a middle and the last block
+    ks = [k * s * s + 3 * (s + 1) for k in (0, nb // 2, nb - 1)]
+    D.requires_grad_()
+    for label, factor in (
+            ("thomas_factor_device", lambda: thomas_factor_device(D, E, F)),
+            ("thomas_factor_device_sym",
+             lambda: thomas_factor_device_sym(D, F))):
+        def loss():
+            return sum((wi * f).sum() for wi, f in zip(w, factor()))
+
+        (gd,), t_f, t_b = _backward_s(loss, (D,))
+        log(f"grad[{label} config3 f64]: nb={nb} s={s} backward_s={t_b:.3f} "
+            f"(forward_s={t_f:.3f}, taped)")
+        _fd_check(f"{label} config3 f64", loss, D.view(-1), gd.reshape(-1),
+                  ks, "solve")
+    with torch.no_grad():
+        eh, si, uh = thomas_factor_device(D, E, F)
+    m = min(8, nb - 1)
+    uh = uh[:m].clone().requires_grad_()
+    Bp, Cp = E[m], F[m - 1]
+    wt = torch.as_tensor(rng.randn(4, s, s), device=dev)
+
+    def tips_loss():
+        return sum((wi * t).sum() for wi, t in zip(wt, spike_tips_device(
+            si[:m], uh, Bp, Cp, ehat=eh[:m])))
+
+    (gu,), t_f, t_b = _backward_s(tips_loss, (uh,))
+    log(f"grad[spike_tips_device config3 f64]: m={m} s={s} backward_s="
+        f"{t_b:.3f} (forward_s={t_f:.3f}, taped)")
+    # the entries of the largest gradients: at the small ones (1e-4 of the
+    # largest) central differences are rounding noise
+    top = torch.topk(gu.abs().reshape(-1), 3).indices.tolist()
+    _fd_check("spike_tips_device config3 f64", tips_loss, uh.view(-1),
+              gu.reshape(-1), top, "solve")
 
 
 # ---------------------------------------------------------------------------
@@ -4453,6 +4555,61 @@ def _spmv_check(label, part, A, x, mesh):
     return y
 
 
+def _backward_s(loss_fn, inputs):
+    """(gradients, forward s, backward s) of one forward and one backward,
+    each timed by the host clock to a synchronize, outside inference
+    mode."""
+    import torch
+
+    with torch.inference_mode(False):
+        loss, t_f = _timed(loss_fn)
+        grads, t_b = _timed(lambda: torch.autograd.grad(loss, inputs))
+    return grads, t_f, t_b
+
+
+def _dist_spmv_grad(label, part, A, x, mesh):
+    """The backward of ``dist_spmv`` in x and in the partition's values
+    (``with_values``): dx against scipy's A^T g within the product gate,
+    the values' gradient at 3 stored entries against g[row] x[col]."""
+    import torch
+
+    from csparse3_tpu_torch.parallel import dist_spmv
+
+    dev = mesh.devices[0]
+    rng = np.random.RandomState(7)
+    with torch.inference_mode(False):
+        g = torch.as_tensor(rng.rand(part.m_pad), device=dev)
+        xt = torch.tensor(part.pad_vector(x), device=dev, requires_grad=True)
+        ev = torch.tensor(part.e_vals, device=dev, requires_grad=True)
+        pv = part.with_values(ev)
+    (gx, gv), t_f, t_b = _backward_s(
+        lambda: (dist_spmv(pv, xt, mesh) * g).sum(), (xt, ev))
+    gnp = g.cpu().numpy()
+    err = _rel_err(gx[: A.n], A.to_scipy().T @ gnp[: A.n])
+    # three stored entries: position, group, slot -> global row and column
+    live = np.argwhere(part.e_rows < part.mloc)
+    xp = part.pad_vector(x)
+    worst = 0.0
+    for i in np.linspace(0, len(live) - 1, 3).astype(int):
+        idx = tuple(live[i])
+        s_ = idx[0]
+        row = s_ * part.mloc + int(part.e_rows[idx])
+        col = int(part.e_cols[idx])
+        if part.strategy == "ring":
+            col += (s_ + idx[1] - part.k) * part.mloc
+        want = gnp[row] * xp[col]
+        worst = max(worst, abs(float(gv[idx]) - want) / max(abs(want),
+                                                             1e-300))
+    log(f"parallel[{label} grad]: dist_spmv backward_s={t_b:.4f} "
+        f"(forward_s={t_f:.4f}) dx max_err_over_max_vs_scipy_A^T_g="
+        f"{err:.3e} (bound {PAR_SPMV_RTOL:.0e}) values' gradient at 3 "
+        f"stored entries against g[row] x[col]: worst relative gap "
+        f"{worst:.3e} (bound {PAR_SPMV_RTOL:.0e})")
+    if not (err <= PAR_SPMV_RTOL and worst <= PAR_SPMV_RTOL):
+        raise AssertionError(f"parallel[{label} grad]: the backward of "
+                             "dist_spmv disagrees")
+
+
 def parallel_phase(dev):
     """The distributed layer on Mesh.virtual(MESH_S, dev), at the JAX
     package's dry-run sizes (see the module docstring).  Every check
@@ -4487,6 +4644,7 @@ def parallel_phase(dev):
         raise AssertionError(f"parallel: expected a k >= 1 ring, got {part}")
     log(f"parallel: partition_rows host_s={t_part:.2f}")
     _spmv_check("ring", part, A, x, mesh)
+    _dist_spmv_grad("ring", part, A, x, mesh)
     xt = torch.as_tensor(part.pad_vector(x), device=dev)
     xs = mesh.scatter(xt, part.mloc)
     dist_ms = cuda_ms(lambda: dist_spmv(part, xt, mesh), 20)
@@ -4510,6 +4668,7 @@ def parallel_phase(dev):
     if not (part2.strategy == "ring" and part2.k >= 2):
         raise AssertionError(f"parallel: expected a k >= 2 ring, got {part2}")
     _spmv_check("ring_k2", part2, A2, x, mesh)
+    _dist_spmv_grad("ring_k2", part2, A2, x, mesh)
     del A2, part2
 
     # ---- a random permutation: the all-gather strategy
@@ -4519,6 +4678,7 @@ def parallel_phase(dev):
     if part_ag.strategy != "allgather":
         raise AssertionError(f"parallel: expected allgather, got {part_ag}")
     _spmv_check("allgather", part_ag, Ar, x, mesh)
+    _dist_spmv_grad("allgather", part_ag, Ar, x, mesh)
     del Ar, part_ag
 
     # ---- distributed CG: BlockJacobi (the dry run's), DiagJacobi, none
@@ -4583,6 +4743,7 @@ def parallel_phase(dev):
         f"{rel:.3e} (bound {PAR_RESIDUAL:.0e})")
     if not rel < PAR_RESIDUAL:
         raise AssertionError("parallel: complex device SPIKE residual")
+    _complex_spike_grad(dkd, Ac, bc, secs)
     del dkd, Ac, Yc
 
     # ---- Schur-complement domain decomposition at 50k
@@ -4604,7 +4765,52 @@ def parallel_phase(dev):
             f"{PAR_RESIDUAL:.0e})")
         if not rel < PAR_RESIDUAL:
             raise AssertionError("parallel: Schur residual")
+    # the backward: A^T db = g through the transposed Schur solve
+    St = As.to_scipy().T.tocsr()
+    with torch.inference_mode(False):
+        gs = torch.as_tensor(np.random.RandomState(6).rand(Ns), device=dev)
+        bt = torch.tensor(bs, device=dev, requires_grad=True)
+    for what in ("first (builds the adjoint plans)", "warm"):
+        (db,), t_f, t_b = _backward_s(lambda: (plan.dist_solve(
+            bt, mesh, axis="rows") * gs).sum(), (bt,))
+        rel = _host_residual(St, db, gs.cpu().numpy())
+        log(f"parallel[SchurLU grad]: dist_solve backward {what} wall_s="
+            f"{t_b:.3f} (forward_s={t_f:.3f}) ||A^T db - g|| / ||g|| = "
+            f"{rel:.3e} (bound {PAR_RESIDUAL:.0e})")
+        if not rel < PAR_RESIDUAL:
+            raise AssertionError("parallel: Schur backward residual")
     log(f"parallel: phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
+def _complex_spike_grad(dk, A, b, solve_s):
+    """The backward of ``solve_blocks`` of the real embedding that
+    ``DistBandedLU.factor_device`` factored for the complex ``A``: with L =
+    Re(g^H x), the embedded gradient mapped back is db = A^{-H} g; checked
+    as ||A^H db - g|| / ||g|| on the host."""
+    import torch
+
+    from csparse3_tpu_torch.ops.construct import (complex_rhs_to_real,
+                                                  real_x_to_complex)
+
+    rng = np.random.RandomState(8)
+    g = rng.rand(A.n) + 1j * rng.rand(A.n)
+    b2, squeeze = complex_rhs_to_real(b, dk._cplx_perm)
+    with torch.inference_mode(False):
+        # copies made outside inference mode: the product saves them
+        g2 = [t.clone() for t in dk.blocks(
+            complex_rhs_to_real(g, dk._cplx_perm)[0])]
+        bbs = [t.clone().requires_grad_() for t in dk.blocks(b2)]
+    grads, t_f, t_b = _backward_s(lambda: sum(
+        (x * w).sum() for x, w in zip(dk.solve_blocks(bbs), g2)), bbs)
+    db = real_x_to_complex(dk.unblocks([t.detach() for t in grads]),
+                           dk._cplx_perm, squeeze)
+    rel = _host_residual(A.to_scipy().conj().T.tocsr(), db, g)
+    log(f"parallel[DistBandedLU.factor_device complex grad]: solve_blocks "
+        f"backward_s={t_b:.3f} (forward_s={t_f:.3f}; the whole solve "
+        f"{solve_s:.3f} s) ||A^H db - g|| / ||g|| = {rel:.3e} (bound "
+        f"{PAR_RESIDUAL:.0e})")
+    if not rel < PAR_RESIDUAL:
+        raise AssertionError("parallel: complex device SPIKE backward")
 
 
 def _sharded_check(name, study, mesh, ks, rtol=SHARDED_RTOL):
@@ -4691,7 +4897,29 @@ def spike_distributed(dev, A, S, x_sk):
     log(f"spike[distributed]: peak_device_GB={peak / 1e9:.2f} held_after_"
         f"factor_GB={held / 1e9:.2f} (above the {base / 1e9:.2f} GB held "
         f"before; kept factor stacks {stacks / 1e9:.2f} GB)")
-    del dk
+
+    # the backward of solve_blocks: the adjoint SPIKE solve, A^T db = g
+    g = np.random.RandomState(5).rand(A.n).astype(np.float32)
+    with torch.inference_mode(False):
+        gb = [t.clone() for t in dk.blocks(g)]
+        bbs = [t.clone().requires_grad_() for t in dk.blocks(b)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    grads, t_f, t_b = _backward_s(lambda: sum(
+        (x * w).sum() for x, w in zip(dk.solve_blocks(bbs), gb)), bbs)
+    peak_b = torch.cuda.max_memory_allocated(dev) - base
+    db = dk.unblocks([t.detach() for t in grads])[:, 0]
+    res = float(np.linalg.norm(S.T @ db.astype(np.float64) - g)
+                / np.linalg.norm(g))
+    log(f"spike[distributed]: solve_blocks backward wall_s={t_b:.4f} "
+        f"(its forward {t_f:.4f} s, the warm solve {secs:.4f} s) "
+        f"||A^T db - g|| / ||g|| = {res:.3e} (bound {SPIKE_RESIDUAL:.0e}) "
+        f"peak_device_GB={peak_b / 1e9:.2f} (above the same {base / 1e9:.2f}"
+        f" GB; the factor's peak {peak / 1e9:.2f} GB)")
+    if not res < SPIKE_RESIDUAL:
+        raise AssertionError("spike[distributed]: the backward's residual "
+                             "is out of bounds")
+    del dk, grads, bbs, gb
 
 
 def main():

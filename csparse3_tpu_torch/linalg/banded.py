@@ -37,8 +37,12 @@ The solves are differentiable as the JAX package's ``lax.scan`` is: in the
 right-hand side, and, for a plan a ``BandedRefactor`` made from values that
 require a gradient, in those values (``_BlockSolve``: the backward is the
 transposed sweeps through the same factors, ``thomas_sweeps_adjoint`` and
-``BandedSolvePlan.solve_blocks_adjoint``).  A call with no input that
-requires a gradient runs under inference mode.
+``BandedSolvePlan.solve_blocks_adjoint``).  The device recurrences are
+differentiable in every float input, as the JAX package's scans are:
+``thomas_sweeps`` / ``thomas_sweeps_sym`` through ``_Sweeps`` (the adjoint
+sweeps through the same factors), ``thomas_factor_device(_sym)`` and
+``spike_tips_device`` by autograd over out-of-place twins of their steps.
+A call with no input that requires a gradient runs under inference mode.
 
 Deviations from the JAX package, by design:
 
@@ -61,7 +65,8 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..ops.matvec import _cast_grad, _recorded, _wants_grad
+from ..ops.matvec import (_cast_grad, _recorded, _save, _saved,
+                          _wants_grad)
 from ..types import CSC
 
 __all__ = ["BandedLU", "BandedRefactor", "BandedSolvePlan",
@@ -342,7 +347,6 @@ def _common(bb, *stacks):
     return bb.to(dt), [m.to(dt) for m in stacks]
 
 
-@torch.inference_mode()
 def thomas_sweeps(ehat, sinv, uhat, bb, precision="highest"):
     """Block-Thomas solve on the stacks' device: bb (nb, s, B) -> x blocks
     (nb, s, B), in the common dtype of the stacks and ``bb``.
@@ -350,15 +354,35 @@ def thomas_sweeps(ehat, sinv, uhat, bb, precision="highest"):
     Forward y_k = b_k - Ehat_k y_{k-1} (one ``addmm_`` per block), backward
     x_k = S_k^{-1} y_k - Uhat_k x_{k+1} (one ``mm`` and one ``addmm_``).
     ``precision``: 'highest' (full float32, the default), 'high' or
-    'default' (both TF32; see the module docstring)."""
-    bb, (ehat, sinv, uhat) = _common(bb, ehat, sinv, uhat)
+    'default' (both TF32; see the module docstring).  Differentiable in
+    every input (``_Sweeps``) when one requires a gradient."""
+    return _solve_sweeps(ehat, sinv, uhat, bb, precision)
+
+
+def _solve_sweeps(ehat, sinv, uhat, bb, precision):
+    """``thomas_sweeps`` (``ehat`` None: ``thomas_sweeps_sym``): through
+    ``_Sweeps`` when an input requires a gradient, else under inference
+    mode."""
+    if _wants_grad(ehat, sinv, uhat, bb):
+        return _Sweeps.apply(ehat, sinv, uhat, bb, precision)
+    with torch.inference_mode():
+        return _sweeps(ehat, sinv, uhat, bb, precision)[1]
+
+
+def _sweeps(ehat, sinv, uhat, bb, precision):
+    """(y, x): the forward sweep's blocks and the solution; ``ehat`` None
+    reads Ehat_k as Uhat_{k-1}^T (the symmetric form)."""
+    stacks = (sinv, uhat) if ehat is None else (sinv, uhat, ehat)
+    bb, (sinv, uhat, *ehat) = _common(bb, *stacks)
     _, _, addmm_ = _block_ops(bb)
     with _matmul_precision(precision):
         y = bb.clone()
-        ys, eh = y.unbind(0), ehat.unbind(0)
+        ys, uh = y.unbind(0), uhat.unbind(0)
+        eh = ehat[0].unbind(0) if ehat else None
         for k in range(1, len(ys)):
-            addmm_(ys[k], eh[k], ys[k - 1], alpha=-1)
-        return _backward(sinv, uhat, y)
+            ek = uh[k - 1].mT if eh is None else eh[k]
+            addmm_(ys[k], ek, ys[k - 1], alpha=-1)
+        return y, _backward(sinv, uhat, y)
 
 
 def _backward(sinv, uhat, y):
@@ -385,8 +409,16 @@ def thomas_sweeps_adjoint(ehat, sinv, uhat, bb, precision="highest"):
         x_k = Sinv_k^T z_k - Ehat_{k+1}^T x_{k+1}   (backward, down L^T)
 
     bb (nb, s, B) -> (nb, s, B), or (nb, K, s, 1) for batched stacks; the
-    transpose is plain (A^{-H} b is its conjugate on conj(b))."""
-    bb, (ehat, sinv, uhat) = _common(bb, ehat, sinv, uhat)
+    transpose is plain (A^{-H} b is its conjugate on conj(b)).  ``ehat``
+    None is the symmetric form (Ehat_{k+1}^T = Uhat_k)."""
+    return _adjoint_sweeps(ehat, sinv, uhat, bb, precision)[1]
+
+
+def _adjoint_sweeps(ehat, sinv, uhat, bb, precision):
+    """(z, x) of ``thomas_sweeps_adjoint``: the sweep up U^T and the
+    solution."""
+    stacks = (sinv, uhat) if ehat is None else (sinv, uhat, ehat)
+    bb, (sinv, uhat, *ehat) = _common(bb, *stacks)
     mm, _, addmm_ = _block_ops(bb)
     with _matmul_precision(precision):
         z = bb.clone()
@@ -394,13 +426,58 @@ def thomas_sweeps_adjoint(ehat, sinv, uhat, bb, precision="highest"):
         for k in range(1, len(zs)):
             addmm_(zs[k], uh[k - 1].mT, zs[k - 1], alpha=-1)
         x = torch.empty_like(z)
-        xs, si, eh = x.unbind(0), sinv.unbind(0), ehat.unbind(0)
+        xs, si = x.unbind(0), sinv.unbind(0)
+        eh = ehat[0].unbind(0) if ehat else None
         nb = len(xs)
         mm(si[nb - 1].mT, zs[nb - 1], out=xs[nb - 1])
         for k in range(nb - 2, -1, -1):
             mm(si[k].mT, zs[k], out=xs[k])
-            addmm_(xs[k], eh[k + 1].mT, xs[k + 1], alpha=-1)
-    return x
+            addmm_(xs[k], uh[k] if eh is None else eh[k + 1].mT, xs[k + 1],
+                   alpha=-1)
+    return z, x
+
+
+class _Sweeps(torch.autograd.Function):
+    """x = ``thomas_sweeps(ehat, sinv, uhat, bb)`` (``ehat`` None: the
+    symmetric form), differentiable in every float input, as the JAX
+    package's ``lax.scan`` sweeps.  With g = dL/dx, the adjoint sweeps of
+    conj(g) through the same factors give z (up U^T) and lam = A^{-H} g;
+    with y the forward sweep's blocks (kept):
+
+        dL/dbb = lam,  dL/dSinv_k = z_k y_k^H,  dL/dUhat_k = -z_k x_{k+1}^H,
+        dL/dEhat_k = -lam_k y_{k-1}^H
+
+    (z and lam conjugated back), and in the symmetric form Ehat_k's
+    gradient goes to Uhat_{k-1} transposed.  Each is one batched product
+    over the whole stack."""
+
+    @staticmethod
+    def forward(ctx, ehat, sinv, uhat, bb, precision):
+        y, x = _sweeps(ehat, sinv, uhat, bb, precision)
+        ctx.precision = precision
+        ctx.dtypes = [None if t is None else t.dtype
+                      for t in (ehat, sinv, uhat, bb)]
+        _save(ctx, sinv, uhat, y, x, *(() if ehat is None else (ehat,)))
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        sinv, uhat, y, x, *ehat = _saved(ctx)
+        ehat = ehat[0] if ehat else None
+        with torch.no_grad(), _matmul_precision(ctx.precision):
+            z, lam = _adjoint_sweeps(ehat, sinv, uhat, g.conj(),
+                                     ctx.precision)
+            z, lam = z.conj(), lam.conj()
+            gsi = z @ y.mH
+            zero = gsi.new_zeros((1,) + gsi.shape[1:])
+            guh = torch.cat([-(z[:-1] @ x[1:].mH), zero])
+            geh = torch.cat([zero, -(lam[1:] @ y[:-1].mH)])
+            if ehat is None:
+                guh[:-1] += geh[1:].mT
+        grads = (None if ehat is None else geh, gsi, guh, lam)
+        return (*(None if gr is None or not need else _cast_grad(gr, dt)
+                  for gr, dt, need in zip(grads, ctx.dtypes,
+                                          ctx.needs_input_grad)), None)
 
 
 class _BlockSolve(torch.autograd.Function):
@@ -446,22 +523,13 @@ class _BlockSolve(torch.autograd.Function):
         return None, gb, gv, None
 
 
-@torch.inference_mode()
 def thomas_sweeps_sym(sinv, uhat, bb, precision="highest"):
     """``thomas_sweeps`` for factors from ``thomas_factor_device_sym``: the
     forward sweep reads Ehat_k as Uhat_{k-1}^T (a plain transpose, also for
-    complex symmetric input)."""
-    bb, (sinv, uhat) = _common(bb, sinv, uhat)
-    _, _, addmm_ = _block_ops(bb)
-    with _matmul_precision(precision):
-        y = bb.clone()
-        ys, uh = y.unbind(0), uhat.unbind(0)
-        for k in range(1, len(ys)):
-            addmm_(ys[k], uh[k - 1].mT, ys[k - 1], alpha=-1)
-        return _backward(sinv, uhat, y)
+    complex symmetric input).  Differentiable as ``thomas_sweeps``."""
+    return _solve_sweeps(None, sinv, uhat, bb, precision)
 
 
-@torch.inference_mode()
 def spike_tips_device(sinv, uhat, Bp, Cp, ehat=None, precision="highest"):
     """The first and last (s, s) blocks of the SPIKE spikes of one chunk,
     without forming the spikes.  With T the chunk's block-tridiagonal
@@ -476,7 +544,17 @@ def spike_tips_device(sinv, uhat, Bp, Cp, ehat=None, precision="highest"):
     one (m, s, s) stack for the forward chain y, and the backward
     recurrences carry one (s, s) block each (two (s, s) buffers in turn)
     and keep no per-step outputs: those would be two more (m, s, s) stacks,
-    20 GB at 1M buses and s = 2560.  Returns (Wt, Wb, Vt, Vb)."""
+    20 GB at 1M buses and s = 2560.  Returns (Wt, Wb, Vt, Vb).
+
+    Differentiable in every input when one requires a gradient: autograd
+    then records the same recurrences (``_spike_tips_taped``)."""
+    if _wants_grad(sinv, uhat, Bp, Cp, ehat):
+        return _spike_tips_taped(sinv, uhat, Bp, Cp, ehat, precision)
+    with torch.inference_mode():
+        return _spike_tips(sinv, uhat, Bp, Cp, ehat, precision)
+
+
+def _spike_tips(sinv, uhat, Bp, Cp, ehat, precision):
     m = sinv.shape[0]
     with _matmul_precision(precision):
         y = torch.empty_like(sinv)
@@ -500,13 +578,39 @@ def spike_tips_device(sinv, uhat, Bp, Cp, ehat=None, precision="highest"):
     return Wt, Wb, Vt, Vb
 
 
+def _normal(*tensors):
+    """``tensors`` usable in a computation autograd records: an inference
+    tensor (a stack made under inference mode) is copied, None kept."""
+    return [t.clone() if t is not None and t.is_inference() else t
+            for t in tensors]
+
+
+def _spike_tips_taped(sinv, uhat, Bp, Cp, ehat, precision):
+    """``spike_tips_device`` in out-of-place steps that autograd follows
+    (it keeps each step's block for the backward, as the JAX package's
+    scan does)."""
+    sinv, uhat, Bp, Cp, ehat = _normal(sinv, uhat, Bp, Cp, ehat)
+    m = sinv.shape[0]
+    with _matmul_precision(precision):
+        y = [Bp]
+        for k in range(1, m):
+            ek = uhat[k - 1].mT if ehat is None else ehat[k]
+            y.append(-(ek @ y[k - 1]))
+        Wb = Wt = sinv[m - 1] @ y[m - 1]
+        for k in range(m - 2, -1, -1):
+            Wt = sinv[k] @ y[k] - uhat[k] @ Wt
+        Vb = Vt = sinv[m - 1] @ Cp
+        for k in range(m - 2, -1, -1):
+            Vt = -(uhat[k] @ Vt)
+    return Wt, Wb, Vt, Vb
+
+
 def _inverse_into(S, out, info):
     # inv_ex does not check the result, so it does not wait for the device;
     # a singular block gives non-finite values, as the JAX package's inverse
     torch.linalg.inv_ex(S, check_errors=False, out=(out, info))
 
 
-@torch.inference_mode()
 def thomas_factor_device(D, E, F):
     """Block-Thomas factorization on the stacks' device: (nb, s, s)
     block-tridiagonal stacks -> (ehat, sinv, uhat) plan stacks, in full
@@ -514,7 +618,18 @@ def thomas_factor_device(D, E, F):
     F_{k-1}, its inverse (``torch.linalg.inv_ex``), Uhat_k = S_k^{-1} F_k.
     E[0] must be zero; Ehat_0 is zero.  (nb, K, s, s) stacks (any strides)
     factor K matrices of one block layout at once, each step one batched
-    call; the plan stacks come out contiguous."""
+    call; the plan stacks come out contiguous.
+
+    Differentiable in D, E and F when one requires a gradient: autograd
+    then records the same steps (``_thomas_factor_taped``), as the JAX
+    package's ``lax.scan``."""
+    if _wants_grad(D, E, F):
+        return _thomas_factor_taped(D, E, F)
+    with torch.inference_mode():
+        return _thomas_factor_device(D, E, F)
+
+
+def _thomas_factor_device(D, E, F):
     nb = D.shape[0]
     mm, addmm, _ = _block_ops(D)
     opts = dict(dtype=D.dtype, device=D.device)
@@ -534,12 +649,19 @@ def thomas_factor_device(D, E, F):
     return ehat, sinv, uhat
 
 
-@torch.inference_mode()
 def thomas_factor_device_sym(D, F):
     """Symmetric-input ``thomas_factor_device``: E_k = F_{k-1}^T and every
     S_k is symmetric, so Ehat_k = Uhat_{k-1}^T and the E stack and one
     product per block drop out.  Returns (sinv, uhat); pair with
-    ``thomas_sweeps_sym``."""
+    ``thomas_sweeps_sym``.  Differentiable in D and F as
+    ``thomas_factor_device``."""
+    if _wants_grad(D, F):
+        return _thomas_factor_taped(D, None, F)
+    with torch.inference_mode():
+        return _thomas_factor_device_sym(D, F)
+
+
+def _thomas_factor_device_sym(D, F):
     nb = D.shape[0]
     sinv = torch.empty_like(D)
     uhat = torch.empty_like(D)
@@ -551,6 +673,29 @@ def thomas_factor_device_sym(D, F):
             _inverse_into(S, sinv[k], info)
             torch.mm(sinv[k], F[k], out=uhat[k])
     return sinv, uhat
+
+
+def _thomas_factor_taped(D, E, F):
+    """The factorization in out-of-place steps that autograd follows (the
+    in-place forms write into preallocated stacks, which it cannot): the
+    blocks are stacked at the end.  ``E`` None is the symmetric form and
+    returns (sinv, uhat)."""
+    D, E, F = _normal(D, E, F)
+    eh, si, uh = [torch.zeros_like(D[0])], [], []
+    with _matmul_precision("highest"):
+        for k in range(D.shape[0]):
+            if not k:
+                S = D[0]
+            elif E is None:
+                S = D[k] - uh[k - 1].mT @ F[k - 1]
+            else:
+                eh.append(E[k] @ si[k - 1])
+                S = D[k] - eh[k] @ F[k - 1]
+            si.append(torch.linalg.inv_ex(S, check_errors=False)[0])
+            uh.append(si[k] @ F[k])
+    if E is None:
+        return torch.stack(si), torch.stack(uh)
+    return torch.stack(eh), torch.stack(si), torch.stack(uh)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..config import resolve_device
+from ..ops.matvec import _recorded
 
 __all__ = ["cg", "bicgstab", "gmres", "jacobi_prec", "ilu0_prec", "refine"]
 
@@ -209,7 +210,6 @@ def ilu0_prec(a, ordering="natural", device=None):
     return splu(a, ordering=ordering).solve_plan(device=device)
 
 
-@torch.inference_mode()
 def refine(solve, matvec, b, iters: int = 2):
     """Mixed-precision iterative refinement: x = solve(b), then ``iters``
     sweeps of x += solve(b - A x).
@@ -220,9 +220,12 @@ def refine(solve, matvec, b, iters: int = 2):
     O(eps_factor * kappa(A)) down to the working precision's floor.  The
     residual must be in the higher precision: refining an all-f32 chain
     only adds f32 rounding.  ``solve`` / ``matvec`` are any callables; b is
-    (n,) or (n, k).  The corrections are cast to b's dtype."""
+    (n,) or (n, k).  The corrections are cast to b's dtype.  Differentiable
+    in b, as the JAX package's scan, when b requires a gradient and the
+    callables are (the plans are); else under inference mode."""
     b = torch.as_tensor(b)
-    x = solve(b).to(b.dtype)
-    for _ in range(int(iters)):
-        x = x + solve(b - matvec(x)).to(b.dtype)
-    return x
+    with _recorded(b):
+        x = solve(b).to(b.dtype)
+        for _ in range(int(iters)):
+            x = x + solve(b - matvec(x)).to(b.dtype)
+        return x

@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from .banded import (_matmul_precision, _np_dtype, is_symmetric_csc,
+from ..ops.matvec import _wants_grad
+from .banded import (_matmul_precision, _normal, _np_dtype, is_symmetric_csc,
                      spike_tips_device, thomas_factor_device,
                      thomas_factor_device_sym, thomas_sweeps,
                      thomas_sweeps_sym)
@@ -44,13 +45,34 @@ from .banded import (_matmul_precision, _np_dtype, is_symmetric_csc,
 __all__ = ["StreamedSPIKE", "spike_reduced_factor"]
 
 
-@torch.inference_mode()
 def spike_reduced_factor(Wt, Wb, Vt, Vb, s):
     """Block-Thomas factor of the SPIKE reduced system from the (P, s, s)
     tip stacks: its blocks D_p = [[I, Vb_p], [Wt_{p+1}, I]] couple by one
     quadrant, so each step costs one (s, s) inverse and a few (s, s)
     products in place of a (2s, 2s) inverse.  Returns the (P - 1, 2s, 2s)
-    stacks (ehat, sinv, uhat) for ``thomas_sweeps``."""
+    stacks (ehat, sinv, uhat) for ``thomas_sweeps``.
+
+    Differentiable in the four tip stacks when one requires a gradient:
+    autograd then records the same steps, their quadrants joined by
+    ``torch.cat`` in place of writes into the stacks."""
+    if _wants_grad(Wt, Wb, Vt, Vb):
+        return _reduced_factor_taped(*_normal(Wt, Wb, Vt, Vb), s)
+    with torch.inference_mode():
+        return _reduced_factor(Wt, Wb, Vt, Vb, s)
+
+
+def _reduced_step(k, Wt, Wb, Vt, Vb, S12p, eye):
+    """One step's quadrants: (S11, S12, ZC, Z) of the Schur complement's
+    inverse."""
+    Bq, Cq = Vb[k], Wt[k + 1]
+    if k:
+        Bq = Bq - Wb[k] @ S12p @ Vt[k]
+    Z = torch.linalg.inv_ex(eye - Cq @ Bq, check_errors=False)[0]
+    ZC = Z @ Cq
+    return torch.addmm(eye, Bq, ZC), -(Bq @ Z), ZC, Z
+
+
+def _reduced_factor(Wt, Wb, Vt, Vb, s):
     nR = Wt.shape[0] - 1
     opts = dict(dtype=Wt.dtype, device=Wt.device)
     eye = torch.eye(s, **opts)
@@ -60,13 +82,7 @@ def spike_reduced_factor(Wt, Wb, Vt, Vb, s):
     S11p = S12p = None
     with _matmul_precision("highest"):
         for k in range(nR):
-            Bq, Cq = Vb[k], Wt[k + 1]
-            if k:
-                Bq = Bq - Wb[k] @ S12p @ Vt[k]
-            Z = torch.linalg.inv_ex(eye - Cq @ Bq, check_errors=False)[0]
-            ZC = Z @ Cq
-            S11 = torch.addmm(eye, Bq, ZC)
-            S12 = -(Bq @ Z)
+            S11, S12, ZC, Z = _reduced_step(k, Wt, Wb, Vt, Vb, S12p, eye)
             r_si[k, :s, :s] = S11
             r_si[k, :s, s:] = S12
             r_si[k, s:, :s] = -ZC
@@ -79,6 +95,28 @@ def spike_reduced_factor(Wt, Wb, Vt, Vb, s):
                 torch.mm(Z, Vt[k + 1], out=r_uh[k, s:, s:])
             S11p, S12p = S11, S12
     return r_eh, r_si, r_uh
+
+
+def _reduced_factor_taped(Wt, Wb, Vt, Vb, s):
+    nR = Wt.shape[0] - 1
+    eye = torch.eye(s, dtype=Wt.dtype, device=Wt.device)
+    zero = torch.zeros_like(eye)
+
+    def block(q11, q12, q21, q22):
+        return torch.cat([torch.cat([q11, q12], 1), torch.cat([q21, q22], 1)])
+
+    r_eh, r_si, r_uh = [], [], []
+    S11p = S12p = None
+    with _matmul_precision("highest"):
+        for k in range(nR):
+            S11, S12, ZC, Z = _reduced_step(k, Wt, Wb, Vt, Vb, S12p, eye)
+            r_si.append(block(S11, S12, -ZC, Z))
+            r_eh.append(block(Wb[k] @ S11p, Wb[k] @ S12p, zero, zero) if k
+                        else block(zero, zero, zero, zero))
+            r_uh.append(block(zero, S12 @ Vt[k + 1], zero, Z @ Vt[k + 1])
+                        if k < nR - 1 else block(zero, zero, zero, zero))
+            S11p, S12p = S11, S12
+    return torch.stack(r_eh), torch.stack(r_si), torch.stack(r_uh)
 
 
 class StreamedSPIKE:

@@ -38,6 +38,7 @@ import torch
 from torch import nn
 
 from ..config import resolve_device
+from ..ops.matvec import _cast_grad, _wants_grad
 
 __all__ = ["lsolve", "usolve", "ltsolve", "utsolve", "level_schedule",
            "TriSolvePlan",
@@ -181,6 +182,35 @@ def _build_slabs(n, rows, lev) -> _Slabs:
 # device plan
 # ---------------------------------------------------------------------------
 
+class _TriSolve(torch.autograd.Function):
+    """x = F^{-1} b through a triangular plan, differentiable in b as the
+    JAX package's plans are: dL/db = F^{-H} g, the plan's transposed solve
+    (``_solve_adjoint``) of conj(g), conjugated back."""
+
+    @staticmethod
+    def forward(ctx, plan, b):
+        with torch.inference_mode():
+            x = plan._solve(b)
+        ctx.plan, ctx.b_dtype = plan, b.dtype
+        # a copy made outside inference mode: autograd can return it
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.inference_mode():
+            lam = ctx.plan._solve_adjoint(g.conj()).conj()
+        return None, _cast_grad(lam.clone(), ctx.b_dtype)
+
+
+def _tri_solve(plan, b):
+    """``plan``'s solve: through ``_TriSolve`` when b requires a gradient,
+    else under inference mode."""
+    if _wants_grad(b):
+        return _TriSolve.apply(plan, b)
+    with torch.inference_mode():
+        return plan._solve(b)
+
+
 class TriSolvePlan(nn.Module):
     """Level-scheduled triangular solve for one factor.
 
@@ -252,10 +282,13 @@ class TriSolvePlan(nn.Module):
             new.register_buffer("e_scaled", e_vals * dinv[..., self.e_rows])
         return new
 
-    @torch.inference_mode()
     def forward(self, b):
         """x = F^{-1} b, one gather + multiply + index_add_ per level.
-        b is (n,) or (n, k); for a ``batched`` plan (K, n)."""
+        b is (n,) or (n, k); for a ``batched`` plan (K, n).
+        Differentiable in b (``_TriSolve``) when it requires a gradient."""
+        return _tri_solve(self, b)
+
+    def _solve(self, b):
         if self.batched:
             return self._forward_batched(b)
         squeeze = b.ndim == 1
@@ -297,6 +330,30 @@ class TriSolvePlan(nn.Module):
         return x
 
     solve = forward
+
+    def _solve_adjoint(self, g):
+        """y = F^{-T} g (a plain transpose) through the same buffers: the
+        levels in reverse, each gathering at the entries' rows and
+        scattering to their columns, u_j -= (F_ij / F_ii) u_i, then y =
+        D^{-1} u (a row's u is final once every higher level is done)."""
+        batched = self.batched
+        squeeze = g.ndim == 1 and not batched
+        if squeeze:
+            g = g[:, None]
+        dtype = torch.promote_types(g.dtype, self.e_scaled.dtype)
+        u = g.to(dtype, copy=True)
+        ax = 1 if batched else 0
+        p = self.e_ptr
+        for lv in range(len(p) - 2, 0, -1):
+            a, c = p[lv], p[lv + 1]
+            if batched:
+                contrib = u[:, self.e_rows[a:c]] * self.e_scaled[:, a:c]
+            else:
+                contrib = u[self.e_rows[a:c]] * self.e_scaled[a:c, None]
+            u.index_add_(ax, self.e_cols[a:c], contrib, alpha=-1)
+        if self.dinv is not None:
+            u = u * (self.dinv if batched else self.dinv[:, None])
+        return u[:, 0] if squeeze else u
 
 
 # ---------------------------------------------------------------------------
@@ -391,16 +448,58 @@ class DenseTailTriSolvePlan(nn.Module):
         order = range(len(self.blocks))
         for b in (order if self.lower else reversed(order)):
             lo, hi = self.blocks[b]
-            xb = getattr(self, f"invd{b}") @ r[lo:hi]
+            xb = getattr(self, f"invd{b}").to(r.dtype) @ r[lo:hi]
             r[lo:hi] = xb
             if self.lower:
-                r[hi:] -= self.dense[hi:, lo:hi] @ xb
+                r[hi:] -= self.dense[hi:, lo:hi].to(r.dtype) @ xb
             else:
-                r[:lo] -= self.dense[:lo, lo:hi] @ xb
+                r[:lo] -= self.dense[:lo, lo:hi].to(r.dtype) @ xb
         return r
 
-    @torch.inference_mode()
+    def _dense_solve_t(self, r):
+        """``_dense_solve`` of the transposed tail, in place: the blocks
+        in the other order, each inverse and coupling block transposed."""
+        order = range(len(self.blocks))
+        for b in (reversed(order) if self.lower else order):
+            lo, hi = self.blocks[b]
+            xb = getattr(self, f"invd{b}").to(r.dtype).mT @ r[lo:hi]
+            r[lo:hi] = xb
+            if self.lower:
+                r[:lo] -= self.dense[lo:hi, :lo].to(r.dtype).mT @ xb
+            else:
+                r[hi:] -= self.dense[lo:hi, hi:].to(r.dtype).mT @ xb
+        return r
+
     def forward(self, b):
+        """x = F^{-1} b; differentiable in b (``_TriSolve``) when it
+        requires a gradient."""
+        return _tri_solve(self, b)
+
+    def _solve_adjoint(self, g):
+        """y = F^{-T} g (a plain transpose): with F = [[H, 0], [C, T]]
+        (lower; upper mirrored), y_t = T^{-T} g_t and y_h = H^{-T} (g_h -
+        C^T y_t), the head through its own adjoint."""
+        squeeze = g.ndim == 1
+        if squeeze:
+            g = g[:, None]
+        n_head = self.n - self.tail
+        dtype = torch.promote_types(g.dtype, self.dense.dtype)
+        if self.lower:
+            yt = self._dense_solve_t(g[n_head:].to(dtype, copy=True))
+            gh = g[:n_head].to(dtype, copy=True)
+            gh.index_add_(0, self.c_cols,
+                          self.c_vals[:, None] * yt[self.c_rows], alpha=-1)
+            yh = self.head._solve_adjoint(gh)
+        else:
+            yh = self.head._solve_adjoint(g[:n_head]).to(dtype)
+            r = g[n_head:].to(dtype, copy=True)
+            r.index_add_(0, self.c_cols,
+                         self.c_vals[:, None] * yh[self.c_rows], alpha=-1)
+            yt = self._dense_solve_t(r)
+        out = torch.cat([yh.to(dtype), yt])
+        return out[:, 0] if squeeze else out
+
+    def _solve(self, b):
         squeeze = b.ndim == 1
         if squeeze:
             b = b[:, None]

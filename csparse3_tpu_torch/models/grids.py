@@ -30,6 +30,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..ops import construct
 
@@ -189,15 +190,34 @@ def synthetic_grid(n: int, seed: int = 0, chord_frac: float = 0.25) -> Grid:
     )
 
 
+def _as_common(*fields):
+    """The fields as given when all are host arrays, else all as tensors
+    on the first tensor's device (a grid whose fields require a gradient
+    gives differentiable derived values, as ``jax.grad`` over the JAX
+    package's grid)."""
+    dev = next((f.device for f in fields if isinstance(f, torch.Tensor)),
+               None)
+    if dev is None:
+        return fields
+    return tuple(torch.as_tensor(f, device=dev) for f in fields)
+
+
 def branch_admittances(grid: Grid):
     """Per-branch pi-model admittances (yff, yft, ytf, ytt) — the four
-    Ybus stamp values of each branch (MATPOWER-standard formulas)."""
-    ys = 1.0 / (grid.r + 1j * grid.x)
-    bc2 = 1j * grid.b / 2.0
-    tap = np.asarray(grid.tap).astype(np.complex128)
+    Ybus stamp values of each branch (MATPOWER-standard formulas); tensors
+    where a field of the grid is one."""
+    r, x, b, tap = _as_common(grid.r, grid.x, grid.b, grid.tap)
+    ys = 1.0 / (r + 1j * x)
+    bc2 = 1j * b / 2.0
+    if isinstance(tap, torch.Tensor):
+        tap = tap.to(torch.complex128)
+        ctap = tap.conj()
+    else:
+        tap = np.asarray(tap).astype(np.complex128)
+        ctap = np.conj(tap)
     ytt = ys + bc2
-    yff = ytt / (tap * np.conj(tap))
-    yft = -ys / np.conj(tap)
+    yff = ytt / (tap * ctap)
+    yft = -ys / ctap
     ytf = -ys / tap
     return yff, yft, ytf, ytt
 

@@ -50,16 +50,19 @@ import torch
 from ..config import resolve_device
 from ..linalg import BandedLU, MultifrontalLU, splu
 from ..ops import construct, matvec
+from ..ops.matvec import _recorded
 from ..types import CSC
-from .grids import SLACK, Grid, ybus
+from .grids import SLACK, Grid, _as_common, ybus
 
 __all__ = ["sbus", "dc_power_flow", "FastDecoupled", "newton_raphson",
            "NewtonPowerFlow"]
 
 
 def sbus(grid: Grid):
-    """Complex power injections (generation - load) per bus."""
-    return (grid.pg - grid.pd) - 1j * grid.qd
+    """Complex power injections (generation - load) per bus; a tensor
+    (differentiable) where a field of the grid is one."""
+    pg, pd, qd = _as_common(grid.pg, grid.pd, grid.qd)
+    return (pg - pd) - 1j * qd
 
 
 def _make_yplan(Y, spmv, device):
@@ -205,12 +208,16 @@ class FastDecoupled:
         si = vi * yr - vr * yi
         return (sr - sbr) / vm, (si - sbi) / vm
 
-    @torch.inference_mode()
     def step(self, carry):
         """One P-theta / Q-V half-iteration pair; returns the new carry
         (vm, va, sbr, sbi) and leaves the one given untouched.  A batch
         (K, n) solves its K right-hand sides against each fixed factor in
-        one multi-RHS solve."""
+        one multi-RHS solve.  Differentiable in the carry, as the JAX
+        package's step, when a part of it requires a gradient."""
+        with _recorded(*carry):
+            return self._step(carry)
+
+    def _step(self, carry):
         vm, va, sbr, sbi = carry
         mr, _ = self.mismatch(vm, va, sbr, sbi)
         va = va.index_add(-1, self._pvpq_t,
@@ -222,14 +229,16 @@ class FastDecoupled:
                           alpha=-1)
         return (vm, va, sbr, sbi)
 
-    @torch.inference_mode()
     def residual(self, vm, va, sbr=None, sbi=None):
         """Max-norm of the mismatch over the equations solved (P at PV and
-        PQ buses, Q at PQ buses): a 0-d tensor, (K,) for a batch."""
-        mr, mi = self.mismatch(vm, va, sbr, sbi)
-        r = torch.cat([mr[..., self._pvpq_t], mi[..., self._pq_t]], dim=-1)
-        return r.abs().amax(-1) if r.shape[-1] else torch.zeros(
-            r.shape[:-1], dtype=vm.dtype, device=vm.device)
+        PQ buses, Q at PQ buses): a 0-d tensor, (K,) for a batch.
+        Differentiable as ``step``."""
+        with _recorded(vm, va, sbr, sbi):
+            mr, mi = self.mismatch(vm, va, sbr, sbi)
+            r = torch.cat([mr[..., self._pvpq_t], mi[..., self._pq_t]],
+                          dim=-1)
+            return r.abs().amax(-1) if r.shape[-1] else torch.zeros(
+                r.shape[:-1], dtype=vm.dtype, device=vm.device)
 
     @torch.inference_mode()
     def run(self, vm0, va0, sbr=None, sbi=None):

@@ -15,6 +15,7 @@ import torch
 
 from ..config import get_config
 from ..types import BSR, COO, CSC, CSR, DIA
+from .matvec import _wants_grad
 
 __all__ = [
     "expand_indptr",
@@ -129,50 +130,74 @@ def _empty_csc(m, n, dtype, device) -> CSC:
                np.zeros(0, dtype=dtype), device=device)
 
 
+def _live_values(a):
+    """``a``'s value tensor, trimmed to nnz, when autograd records a call
+    on it (a tensor that requires a gradient, grad mode on), else None.
+    The format conversions below work on host copies of the arrays; they
+    carry such values through the same reordering as a gather, so the
+    gradient flows back as in the JAX package's conversions."""
+    v = a._arrays[2]
+    if isinstance(v, torch.Tensor) and _wants_grad(v):
+        return v[: a.nnz]
+    return None
+
+
 def csc_to_coo(a: CSC) -> COO:
     ip, rows, vals = a.np_arrays()
-    return COO(a.m, a.n, rows, expand_indptr_np(ip), vals, device=a._device)
+    live = _live_values(a)
+    return COO(a.m, a.n, rows, expand_indptr_np(ip),
+               vals if live is None else live, device=a._device)
 
 
 def _resort_np(n_major, major, minor, vals, idx_dtype):
     """Host re-sort of entry streams by (major, minor); returns
-    (indptr over major, minor_sorted, vals_sorted)."""
+    (indptr over major, minor_sorted, vals_sorted, order)."""
     nm = minor.max() + 1 if minor.size else 1
     order = np.argsort(major.astype(np.int64) * nm + minor, kind="stable")
     mj, mn, vv = major[order], minor[order], vals[order]
     indptr = np.zeros(n_major + 1, dtype=idx_dtype)
     indptr[1:] = np.cumsum(np.bincount(mj, minlength=n_major))
-    return indptr, mn.astype(idx_dtype, copy=False), vv
+    return indptr, mn.astype(idx_dtype, copy=False), vv, order
+
+
+def _reordered(vals, live, order):
+    """The re-sorted values: the host array, or the live tensor gathered
+    in the same order."""
+    if live is None:
+        return np.ascontiguousarray(vals)
+    return live[torch.as_tensor(order, device=live.device)]
 
 
 def csc_to_csr(a: CSC) -> CSR:
     ip, rows, vals = a.np_arrays()
     cols = expand_indptr_np(ip)
-    indptr, c_s, v_s = _resort_np(
+    indptr, c_s, v_s, order = _resort_np(
         a.m, rows.astype(np.int64), cols.astype(np.int64), vals,
         np.dtype(get_config().index_dtype))
     return CSR(a.m, a.n, indptr, np.ascontiguousarray(c_s),
-               np.ascontiguousarray(v_s), canonical=a.canonical,
-               device=a._device)
+               _reordered(v_s, _live_values(a), order),
+               canonical=a.canonical, device=a._device)
 
 
 def csr_to_csc(a: CSR) -> CSC:
     ip, cols, vals = a.np_arrays()
     rows = expand_indptr_np(ip)
-    indptr, r_s, v_s = _resort_np(
+    indptr, r_s, v_s, order = _resort_np(
         a.n, cols.astype(np.int64), rows.astype(np.int64), vals,
         np.dtype(get_config().index_dtype))
     return CSC(a.m, a.n, indptr, np.ascontiguousarray(r_s),
-               np.ascontiguousarray(v_s), canonical=a.canonical,
-               device=a._device)
+               _reordered(v_s, _live_values(a), order),
+               canonical=a.canonical, device=a._device)
 
 
 def transpose(a: CSC) -> CSC:
     """A^T.  Float and complex values go through the native count-and-
     scatter transpose, the others through one stable sort of the entries by
-    old row; both give the same CSC."""
+    old row; both give the same CSC.  Values that require a gradient take
+    the sort, whose order gathers them."""
     ip, old_rows, vals = a.np_arrays()
-    if np.issubdtype(vals.dtype, np.inexact):
+    live = _live_values(a)
+    if live is None and np.issubdtype(vals.dtype, np.inexact):
         from ..native import host_ext
 
         idx = np.dtype(get_config().index_dtype)
@@ -182,11 +207,11 @@ def transpose(a: CSC) -> CSC:
                    Tx.astype(vals.dtype, copy=False), canonical=a.canonical,
                    device=a._device)
     old_cols = expand_indptr_np(ip)
-    indptr, r_s, v_s = _resort_np(
+    indptr, r_s, v_s, order = _resort_np(
         a.m, old_rows.astype(np.int64), old_cols.astype(np.int64), vals,
         np.dtype(get_config().index_dtype))
     return CSC(a.n, a.m, indptr, np.ascontiguousarray(r_s),
-               np.ascontiguousarray(v_s), canonical=a.canonical,
+               _reordered(v_s, live, order), canonical=a.canonical,
                device=a._device)
 
 

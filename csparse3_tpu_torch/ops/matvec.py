@@ -75,10 +75,11 @@ def _stream_product(rows, cols, vals, m, x):
 
 
 def _wants_grad(*tensors) -> bool:
-    """Whether autograd records this call: grad mode on and some input
-    requiring a gradient.  Every other call runs under inference mode."""
+    """Whether autograd records this call: grad mode on and some input a
+    tensor requiring a gradient (None and host arrays require none).
+    Every other call runs under inference mode."""
     return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
 def _recorded(*tensors):

@@ -17,7 +17,11 @@ patterns whose product count stays within it, without being rebuilt.
 
 ``ESCSpGEMM(a, b)(a_data, b_data)`` returns capacity-padded output arrays
 and the output nnz as a device scalar; ``spgemm_device(a, b)`` trims them
-to a canonical CSC.
+to a canonical CSC.  The output values are differentiable in both value
+arrays, as ``jax.grad`` differentiates the JAX package's: autograd
+follows the product gather and the segmented sum (the capacity padding
+gets no gradient).  A call where neither requires a gradient runs under
+inference mode.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from torch import nn
 
 from ..config import get_config, resolve_device
 from ..types import CSC
+from .matvec import _recorded
 from . import construct
 
 __all__ = ["ESCSpGEMM", "spgemm_device", "gram_device"]
@@ -60,13 +65,16 @@ class ESCSpGEMM(nn.Module):
             self.register_buffer(name, torch.as_tensor(
                 np.ascontiguousarray(arr), device=device))
 
-    @torch.inference_mode()
     def forward(self, a_data, b_data):
         """(a_data, b_data) -> (indptr, rows, data, nnz).
 
         ``rows`` and ``data`` are padded to ``total``; entries past ``nnz``
         are row id ``m`` and value 0.  ``indptr`` is exact (the padding
         lives in a virtual column n that it drops)."""
+        with _recorded(a_data, b_data):
+            return self._product(a_data, b_data)
+
+    def _product(self, a_data, b_data):
         m, n, total = self.m, self.n, self.total
         dev, idt = self.ap.device, self.ap.dtype
         a_data = torch.as_tensor(a_data, device=dev)

@@ -64,11 +64,36 @@ from ..linalg.banded import (
     thomas_factor_device,
     thomas_factor_device_sym,
     thomas_sweeps,
+    thomas_sweeps_adjoint,
     thomas_sweeps_sym,
 )
+from ..ops.matvec import _cast_grad, _wants_grad
 from .mesh import Mesh, all_gather, replicate
 
 __all__ = ["DistBandedLU"]
+
+
+class _SpikeSolve(torch.autograd.Function):
+    """The per-position block solutions of ``DistBandedLU.solve_blocks``,
+    differentiable in the right-hand sides: with g_p = dL/dx_p,
+    dL/dbb_p = (A^{-H} g)_p by ``_solve_adjoint`` on conj(g), conjugated
+    back, through the kept factors and spikes."""
+
+    @staticmethod
+    def forward(ctx, lu, *bbs):
+        with torch.inference_mode():
+            xs = lu._solve(list(bbs))
+        ctx.lu, ctx.dtypes = lu, [b.dtype for b in bbs]
+        # copies made outside inference mode: autograd can return them
+        return tuple(x.clone() for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        with torch.inference_mode():
+            lam = ctx.lu._solve_adjoint([g.conj() for g in gs])
+        return (None, *(_cast_grad(x.conj().clone(), dt)
+                        for x, dt in zip(lam, ctx.dtypes)))
+
 
 REDUCED_STORES = ("auto", "replicated", "sharded")
 
@@ -327,7 +352,8 @@ class DistBandedLU:
         for p, ((_, _, _, w, v), g) in enumerate(zip(pos, gs)):
             x_prev_b, x_next_t = self._neighbours(z[g.device], p, g[0])
             with _matmul_precision("highest"):
-                corr = w @ x_prev_b + v @ x_next_t            # (m s, B)
+                dt = g.dtype
+                corr = w.to(dt) @ x_prev_b + v.to(dt) @ x_next_t  # (m s, B)
             out.append((g.reshape(m * s, -1) - corr).reshape(m, s, -1))
         return out
 
@@ -368,18 +394,68 @@ class DistBandedLU:
             x_prev_b, x_next_t = self._neighbours(z[g.device], p, g[0])
             rhs2 = torch.zeros_like(g)
             with _matmul_precision("highest"):
-                torch.mm(Bc, x_prev_b, out=rhs2[0])
-                rhs2[m - 1].addmm_(Cc, x_next_t)
+                torch.mm(Bc.to(g.dtype), x_prev_b, out=rhs2[0])
+                rhs2[m - 1].addmm_(Cc.to(g.dtype), x_next_t)
             out.append(g - sweep(fac, rhs2))
         return out
 
-    @torch.inference_mode()
     def solve_blocks(self, bbs):
         """Solve in block space: one (m, s, B) tensor per position ->
-        the same."""
+        the same.  Differentiable in ``bbs`` (``_SpikeSolve``, the adjoint
+        SPIKE solve) when one requires a gradient; any other call runs
+        under inference mode."""
+        if _wants_grad(*bbs):
+            return list(_SpikeSolve.apply(self, *bbs))
+        with torch.inference_mode():
+            return self._solve(bbs)
+
+    def _solve(self, bbs):
         if self._h is not None:
             return self._solve_spikes(bbs)
         return self._solve_recompute(bbs)
+
+    def _local_adjoint(self, p, rhs):
+        """T_p^{-T} rhs through position p's factors (a plain transpose)."""
+        pos = self._device_stacks() if self._h is not None else self._pos
+        return thomas_sweeps_adjoint(*pos[p][:3], rhs)
+
+    def _solve_adjoint(self, gs):
+        """x = A^{-T} g in block space, the transpose of each solve step in
+        reverse order: the spike correction's transpose gathers into the
+        reduced system's right-hand side (the explicit spikes' W_p^T, V_p^T
+        products, or, for a device factor, a local adjoint sweep of g_p
+        read at its first and last blocks through B_p^T, C_p^T), the
+        reduced system solved transposed, its solution added at the chunk
+        boundaries, then the local adjoint sweeps."""
+        m, s, Pn = self.m, self.s, self.P
+        if Pn > 1:
+            parts = []
+            for p, g in enumerate(gs):
+                with _matmul_precision("highest"):
+                    if self._h is not None:
+                        _, _, _, w, v = self._device_stacks()[p]
+                        gf = g.reshape(m * s, -1)
+                        top = -(w.to(g.dtype).mT @ gf)
+                        bot = -(v.to(g.dtype).mT @ gf)
+                    else:
+                        q = self._local_adjoint(p, g)
+                        Bc, Cc = (c.to(q.dtype) for c in self._pos[p][3:])
+                        top, bot = -(Bc.mT @ q[0]), -(Cc.mT @ q[m - 1])
+                parts.append(torch.stack([top, bot]))
+            # z_p = [x_p^b ; x_{p+1}^t]: position p + 1's top (its left
+            # coupling) and position p's bottom (its right coupling)
+            zbar = {a.device: torch.cat([a[1:, 0], a[:-1, 1]], dim=1)
+                    for a in all_gather(parts)}
+            rbar = {dev: thomas_sweeps_adjoint(*self._reduced(dev), zb)
+                    for dev, zb in zbar.items()}
+            gs = [g.clone() for g in gs]
+            for p, g in enumerate(gs):
+                r = rbar[g.device]
+                if p < Pn - 1:
+                    g[m - 1] += r[p, :s]
+                if p > 0:
+                    g[0] += r[p - 1, s:]
+        return [self._local_adjoint(p, g) for p, g in enumerate(gs)]
 
     @torch.inference_mode()
     def blocks(self, b):

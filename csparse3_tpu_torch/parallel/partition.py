@@ -17,6 +17,13 @@ The host arrays keep the JAX package's layout and dtypes: (S, 2k + 1, E)
 for the ring, (S, E) for the all-gather strategy, int32 ids.  ``local``
 places position s's (G, E) / (E,) slices on its device at the first
 distributed call and keeps them.
+
+The values may instead be a tensor of the same layout (``with_values``):
+the counterpart of the JAX package's ``e_vals`` pytree leaf, which
+``jax.grad`` differentiates.  ``local`` then places them at every call,
+so that a SpMV's gradient flows back through the placement into the
+(S, G, E) / (S, E) tensor (padding slots get their own gradient, as in
+the JAX package).
 """
 
 from __future__ import annotations
@@ -48,7 +55,8 @@ class RowPartition:
         self.strategy = strategy
         self.e_rows = np.asarray(e_rows)
         self.e_cols = np.asarray(e_cols)
-        self.e_vals = np.asarray(e_vals)
+        self.e_vals = (e_vals if isinstance(e_vals, torch.Tensor)
+                       else np.asarray(e_vals))
         self._placed = {}
 
     def __repr__(self):
@@ -61,26 +69,51 @@ class RowPartition:
 
     @property
     def dtype(self) -> torch.dtype:
+        if isinstance(self.e_vals, torch.Tensor):
+            return self.e_vals.dtype
         return torch.from_numpy(self.e_vals[:0].copy()).dtype
+
+    def with_values(self, e_vals) -> "RowPartition":
+        """This partition over other values: ``e_vals`` in the layout of
+        ``self.e_vals`` ((S, 2k + 1, E) or (S, E)), a tensor (for example
+        one that requires a gradient) or an array.  The index arrays and
+        their device copies are shared."""
+        if tuple(e_vals.shape) != self.e_vals.shape:
+            raise ValueError(f"values of shape {tuple(e_vals.shape)} for a "
+                             f"partition of shape {self.e_vals.shape}")
+        new = RowPartition(self.m, self.n, self.S, self.mloc, self.k,
+                           self.strategy, self.e_rows, self.e_cols, e_vals)
+        if isinstance(e_vals, torch.Tensor):
+            new._placed = {key: [(er, ec, None) for er, ec, _ in leaves]
+                           for key, leaves in self._placed.items()}
+        return new
 
     def local(self, mesh):
         """Per position (rows, cols, vals) tensors on the position's device
         (int64 ids): uploaded at the first call for these devices and
-        kept."""
+        kept; values held as a tensor are placed at every call."""
         if mesh.size != self.S:
             raise ValueError(f"mesh has {mesh.size} positions but the "
                              f"partition was built for S={self.S}")
         key = mesh.devices
+        live = isinstance(self.e_vals, torch.Tensor)
         if key not in self._placed:
-            self._placed[key] = [
-                (torch.as_tensor(self.e_rows[s], dtype=torch.int64,
-                                 device=d),
-                 torch.as_tensor(self.e_cols[s], dtype=torch.int64,
-                                 device=d),
-                 torch.as_tensor(np.ascontiguousarray(self.e_vals[s]),
-                                 device=d))
-                for s, d in enumerate(mesh.devices)]
-        return self._placed[key]
+            # normal tensors, also under inference mode: a call that
+            # autograd records saves them
+            with torch.inference_mode(False):
+                self._placed[key] = [
+                    (torch.as_tensor(self.e_rows[s], dtype=torch.int64,
+                                     device=d),
+                     torch.as_tensor(self.e_cols[s], dtype=torch.int64,
+                                     device=d),
+                     None if live else torch.as_tensor(
+                         np.ascontiguousarray(self.e_vals[s]), device=d))
+                    for s, d in enumerate(mesh.devices)]
+        if not live:
+            return self._placed[key]
+        return [(er, ec, self.e_vals[s].to(d))
+                for s, ((er, ec, _), d) in enumerate(
+                    zip(self._placed[key], mesh.devices))]
 
     # -- vector layout helpers ----------------------------------------------
     def pad_vector(self, x):

@@ -40,6 +40,7 @@ from ..config import resolve_device
 from ..linalg.banded import _matmul_precision
 from ..linalg.lu import splu
 from ..ops.construct import dense_to_csc
+from ..ops.matvec import _cast_grad, _wants_grad
 from ..types import CSC
 from .mesh import psum, replicate
 
@@ -232,11 +233,19 @@ class SchurSolvePlan:
     def _back(self, s, dev, y, xg):
         plan, W, wc, fr, fc, fv, gat = self._shard(s, dev)
         with _matmul_precision("highest"):
-            return (y - W @ xg[wc])[: len(gat)], gat
+            return (y - W.to(xg.dtype) @ xg[wc])[: len(gat)], gat
 
     # -- single device -------------------------------------------------------
-    @torch.inference_mode()
     def solve(self, b):
+        """x = A^{-1} b on the plan's device, b (n,) or (n, B).
+        Differentiable in b (``_SchurSolve``) when it requires a gradient;
+        any other call runs under inference mode."""
+        if _wants_grad(b):
+            return _SchurSolve.apply(self, b, None)
+        with torch.inference_mode():
+            return self._solve(b)
+
+    def _solve(self, b):
         dev = self.device
         b = torch.as_tensor(b, device=dev)
         squeeze = b.ndim == 1
@@ -263,18 +272,24 @@ class SchurSolvePlan:
         return self.solve(b)
 
     # -- over a mesh ---------------------------------------------------------
-    @torch.inference_mode()
     def dist_solve(self, b, mesh, axis: str = "shards"):
         """Interior solve and F scatter per position, the interface
         right-hand side ``psum``-reduced, the Γ solve once per distinct
         device, back-substitution per position.  Returns x on the mesh's
-        first device."""
+        first device.  Differentiable in b as ``solve``: the backward is
+        the transposed solve over the same mesh."""
         mesh.check_axis(axis)
         if mesh.shape[axis] != self.S:
             raise ValueError(
                 f"mesh axis {axis!r} has {mesh.shape[axis]} devices but the "
                 f"plan was built for S={self.S} shards"
             )
+        if _wants_grad(b):
+            return _SchurSolve.apply(self, b, mesh)
+        with torch.inference_mode():
+            return self._dist_solve(b, mesh)
+
+    def _dist_solve(self, b, mesh):
         dev0 = mesh.devices[0]
         b = torch.as_tensor(b, device=dev0)
         squeeze = b.ndim == 1
@@ -298,3 +313,63 @@ class SchurSolvePlan:
             xi, gat = self._back(s, dev, ys[s], xgs[dev])
             x[gat.to(dev0)] = xi.to(dev0)
         return x[:, 0] if squeeze else x
+
+    # -- the transposed solve (the backward) ---------------------------------
+    def _solve_adjoint(self, g, devices):
+        """x = A^{-T} g (plain transpose), shard s on ``devices[s]``, the
+        result on ``devices[0]``.  A = [[A_I, 0], [F, Sc]] [[I, W], [0, I]]
+        in the interiors-then-Γ order, so A^{-T} g is: h_Γ = g_Γ - Σ_s
+        W_s^T g_s (``psum``), x_Γ = Sc^{-T} h_Γ, x_s = A_s^{-T} (g_s -
+        F_s^T x_Γ), through the adjoint plans of the same interior and Γ
+        factors."""
+        dev0 = devices[0]
+        squeeze = g.ndim == 1
+        gfull = replicate(g[:, None] if squeeze else g, devices)
+        B = gfull[dev0].shape[1]
+        gis, parts = [], []
+        for s, dev in enumerate(devices):
+            _, W, wc, _, _, _, gat = self._shard(s, dev)
+            gi = gfull[dev].new_zeros((self.mi, B))
+            gi[: len(gat)] = gfull[dev][gat]
+            gis.append(gi)
+            with _matmul_precision("highest"):
+                parts.append(gi.new_zeros((self.ng, B))
+                             .index_add_(0, wc, -(W.to(gi.dtype).mT @ gi)))
+        hsum = {p.device: p for p in psum(parts)}
+        xgs = {}
+        for dev in dict.fromkeys(devices):
+            gplan, gamma = self._gamma(dev)
+            xgs[dev] = gplan.adjoint()(hsum[dev] + gfull[dev][gamma])
+        x = torch.zeros_like(gfull[dev0])
+        x[self._gamma(dev0)[1]] = xgs[dev0]
+        for s, dev in enumerate(devices):
+            plan, _, _, fr, fc, fv, gat = self._shard(s, dev)
+            rhs = gis[s].index_add(0, fc, -(fv[:, None] * xgs[dev][fr]))
+            x[gat.to(dev0)] = plan.adjoint()(rhs)[: len(gat)].to(dev0)
+        return x[:, 0] if squeeze else x
+
+
+class _SchurSolve(torch.autograd.Function):
+    """x = A^{-1} b through a ``SchurSolvePlan`` (``mesh`` None: its
+    single-device ``solve``, else ``dist_solve`` over the mesh),
+    differentiable in b: dL/db = A^{-H} g, the transposed Schur solve of
+    conj(g) through the same interior plans, W_s and Γ factors,
+    conjugated back, over the same devices."""
+
+    @staticmethod
+    def forward(ctx, plan, b, mesh):
+        with torch.inference_mode():
+            x = plan._solve(b) if mesh is None else plan._dist_solve(b, mesh)
+        ctx.plan, ctx.b_dtype, ctx.b_device = plan, b.dtype, b.device
+        ctx.devices = ([plan.device] * plan.S if mesh is None
+                       else list(mesh.devices))
+        # a copy made outside inference mode: autograd can return it
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.inference_mode():
+            lam = ctx.plan._solve_adjoint(g.conj().to(ctx.devices[0]),
+                                          ctx.devices).conj()
+        return (None, _cast_grad(lam.clone(), ctx.b_dtype).to(ctx.b_device),
+                None)

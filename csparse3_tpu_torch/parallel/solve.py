@@ -118,8 +118,11 @@ class DiagJacobi:
     def apply_local(self, bs):
         key = tuple(b.device for b in bs)
         if key not in self._placed:
-            self._placed[key] = [torch.as_tensor(self.dinv[s], device=d)
-                                 for s, d in enumerate(key)]
+            # normal tensors, also under inference mode: a call that
+            # autograd records saves them
+            with torch.inference_mode(False):
+                self._placed[key] = [torch.as_tensor(self.dinv[s], device=d)
+                                     for s, d in enumerate(key)]
         return [b * dv for b, dv in zip(bs, self._placed[key])]
 
 

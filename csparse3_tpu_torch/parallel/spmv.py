@@ -19,12 +19,21 @@ slot, dropped).  Real or complex values, one or B right-hand sides.
 the piece the distributed solvers compose.  ``dist_spmv`` splits a padded
 vector over the mesh and returns the padded product on the mesh's first
 device.
+
+The products are differentiable, as ``jax.grad`` differentiates the JAX
+package's: in x, and in the partition's values when they are a tensor
+that requires a gradient (``RowPartition.with_values``).  Autograd
+follows the gathers, the scatter-adds and the copies between positions,
+so the backward is the transposed scatter with each ring shift run the
+other way.  A call with no input that requires a gradient runs under
+inference mode.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.matvec import _recorded
 from .mesh import all_gather, ppermute
 from .partition import RowPartition
 
@@ -40,10 +49,14 @@ def _contract(er, ec, ev, xs, mloc):
     return y.index_add_(0, er, contrib)[:mloc]
 
 
-@torch.inference_mode()
 def spmv_local(part: RowPartition, xs, mesh):
     """Per-position SpMV: ``xs`` one (mloc,) or (mloc, B) tensor per mesh
     position, on its device; returns the list of y slices."""
+    with _recorded(part.e_vals, *xs):
+        return _spmv_local(part, xs, mesh)
+
+
+def _spmv_local(part, xs, mesh):
     leaves = part.local(mesh)
     mloc, k = part.mloc, part.k
     if part.strategy == "allgather":
@@ -74,9 +87,10 @@ def dist_spmv(part: RowPartition, x, mesh, axis: str = "rows"):
     Returns the padded (m_pad[, B]) product on the mesh's first device."""
     mesh.check_axis(axis)
     dev0 = mesh.devices[0]
-    x = torch.as_tensor(part.pad_vector(x), device=dev0)
-    ys = spmv_local(part, mesh.scatter(x, part.mloc), mesh)
-    return torch.cat([y.to(dev0) for y in ys])
+    with _recorded(part.e_vals, x):
+        x = torch.as_tensor(part.pad_vector(x), device=dev0)
+        ys = spmv_local(part, mesh.scatter(x, part.mloc), mesh)
+        return torch.cat([y.to(dev0) for y in ys])
 
 
 def dist_spmm(part: RowPartition, X, mesh, axis: str = "rows"):

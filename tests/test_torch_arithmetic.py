@@ -21,6 +21,9 @@ from csparse3_tpu.ops import arithmetic as jar
 from csparse3_tpu_torch.ops import arithmetic as par
 from csparse3_tpu_torch.utils.interop import csc_from_arrays
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 
 def _pair(m, n, density, seed, dtype=np.float64):
     """(port CSC, JAX CSC, scipy) of one random matrix."""

@@ -38,6 +38,9 @@ from csparse3_tpu_torch.linalg import banded as pb
 from csparse3_tpu_torch.models import grids as pgrids
 from csparse3_tpu_torch.models import powerflow as ppf
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 STACK_RTOL = 1e-12
 SOLVE_RTOL = 1e-10
 STATE_ATOL = 1e-8

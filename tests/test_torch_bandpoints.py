@@ -18,6 +18,9 @@ from csparse3_tpu.models import grids as jgrids
 from csparse3_tpu_torch.kernels import bandpoints as pbp
 from csparse3_tpu_torch.utils.interop import csc_from_arrays
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 REL = 5e-6
 
 

@@ -33,6 +33,9 @@ from csparse3_tpu_torch.models import grids as pgrids
 from csparse3_tpu_torch.models import powerflow as ppf
 from csparse3_tpu_torch.utils.interop import grid_from_arrays
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 KS = (1, 3, 33)
 F64_REL = 1e-12
 F32_REL = 5e-6

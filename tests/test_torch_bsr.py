@@ -30,6 +30,9 @@ from csparse3_tpu_torch.ops import bsr_ops as pbo
 from csparse3_tpu_torch.ops import matvec as pmv
 from csparse3_tpu_torch.utils.interop import bsr_from_arrays, csc_from_arrays
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 
 def _rand(m, n, density, seed, dtype=np.float64):
     a = sp.random(m, n, density=density, format="csc",

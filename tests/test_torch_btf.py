@@ -14,9 +14,13 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
+import torch
 
 import csparse3_tpu as jt
 import csparse3_tpu_torch as pt
+
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
 
 jbtf = importlib.import_module("csparse3_tpu.linalg.btf")
 pbtf = importlib.import_module("csparse3_tpu_torch.linalg.btf")

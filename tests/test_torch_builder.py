@@ -18,6 +18,9 @@ import torch
 import csparse3_tpu as jt
 import csparse3_tpu_torch as pt
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 RTOL = 1e-14
 
 

@@ -18,6 +18,9 @@ from csparse3_tpu.models import grids as jgrids
 from csparse3_tpu_torch.models import grids as pgrids
 from csparse3_tpu_torch.utils.interop import csc_from_arrays, grid_from_arrays
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

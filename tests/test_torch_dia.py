@@ -34,6 +34,9 @@ from csparse3_tpu_torch.kernels import dia as pdia
 from csparse3_tpu_torch.ops import matvec as pmv
 from csparse3_tpu_torch.utils.interop import csc_from_arrays, dia_from_arrays
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 F32_REL = 2e-5
 
 

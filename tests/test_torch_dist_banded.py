@@ -34,6 +34,9 @@ from csparse3_tpu import parallel as jpar
 from csparse3_tpu.models import grids as jgrids
 from csparse3_tpu_torch import parallel as ppar
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 HOST_RTOL = 1e-12
 F64_RTOL = 1e-10
 F32_RTOL = 1e-4

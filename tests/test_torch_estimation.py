@@ -10,12 +10,16 @@ dense normal-equations oracle from first principles.
 import jax  # noqa: F401  (JAX on the CPU with x64, set up by conftest)
 import numpy as np
 import pytest
+import torch
 
 from csparse3_tpu.models import estimation as je
 from csparse3_tpu.models import grids as jgrids
 from csparse3_tpu_torch import config
 from csparse3_tpu_torch.models import estimation as pe
 from csparse3_tpu_torch.models import grids as pgrids
+
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
 
 
 def _true_state(g):

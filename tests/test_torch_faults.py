@@ -28,6 +28,9 @@ import csparse3_tpu_torch as pt
 from csparse3_tpu import linalg as jlin
 from csparse3_tpu_torch import linalg as plin
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

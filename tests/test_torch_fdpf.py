@@ -24,6 +24,9 @@ from csparse3_tpu_torch.models import grids as pgrids
 from csparse3_tpu_torch.models import powerflow as ppf
 from csparse3_tpu_torch.utils import roofline
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 STATE_ATOL = 1e-8
 
 

@@ -41,6 +41,9 @@ from csparse3_tpu.models import grids as jgrids
 from csparse3_tpu_torch import linalg as plin
 from csparse3_tpu_torch.models import grids as pgrids
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 RTOL = 1e-8
 
 

@@ -50,6 +50,9 @@ from csparse3_tpu_torch.kernels import dia as pdia
 from csparse3_tpu_torch.ops import bsr_ops as pbsr
 from csparse3_tpu_torch.ops.matvec import bsr_adjoint
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 RTOL = 1e-8
 N = 60
 # buses of the banded plans' Ybus: at 60 its band is too full for an

@@ -15,12 +15,16 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 from scipy.sparse.csgraph import connected_components
+import torch
 
 import csparse3_tpu as jt
 import csparse3_tpu_torch as pt
 from csparse3_tpu.ops import graph as jgraph
 from csparse3_tpu_torch.models import grids as pgrids
 from csparse3_tpu_torch.ops import graph as pgraph
+
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
 
 
 def _both(s):

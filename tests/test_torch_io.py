@@ -24,6 +24,9 @@ from csparse3_tpu_torch.models import grids as pgrids
 from csparse3_tpu_torch.utils import io as pio
 from csparse3_tpu_torch.utils import profiling as pprof
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 SOLVE_RTOL = 1e-12
 
 

@@ -28,6 +28,9 @@ from csparse3_tpu.linalg import BandedLU as JBandedLU
 from csparse3_tpu_torch import config
 from csparse3_tpu_torch.linalg import BandedLU as PBandedLU
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 jit_ = importlib.import_module("csparse3_tpu.linalg.iterative")
 pit = importlib.import_module("csparse3_tpu_torch.linalg.iterative")
 

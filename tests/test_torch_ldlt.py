@@ -24,6 +24,9 @@ from csparse3_tpu_torch import linalg as plin
 from csparse3_tpu_torch.linalg import cholesky as pchol
 from csparse3_tpu_torch.models import grids as pgrids
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 N = 100
 
 

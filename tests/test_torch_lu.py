@@ -20,6 +20,9 @@ from csparse3_tpu_torch.models import grids as pgrids
 from csparse3_tpu_torch.models import powerflow as ppf
 from csparse3_tpu_torch.utils.interop import csc_from_arrays
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 
 def _jacobians(name, va_scale=0.0, seed=0):
     """(port J, JAX J) of the Newton Jacobian at a perturbed flat start."""

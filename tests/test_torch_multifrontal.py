@@ -32,6 +32,9 @@ from csparse3_tpu_torch.linalg import multifrontal as pmf
 from csparse3_tpu_torch.models import grids as pgrids
 from csparse3_tpu_torch.models import powerflow as ppf
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 N = 300
 FACTOR_RTOL = 1e-10   # of the largest factor entry, float64
 FRONT_RTOL = 1e-12    # front-form factors of one factorization

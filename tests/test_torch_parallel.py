@@ -40,6 +40,9 @@ from csparse3_tpu_torch import parallel as ppar
 from csparse3_tpu_torch.parallel import mesh as pmesh
 from csparse3_tpu_torch.utils import interop
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 S = 8
 SPMV_RTOL = 1e-12
 SOLVE_RTOL = 1e-10

@@ -17,6 +17,9 @@ from csparse3_tpu.models import powerflow as jpf
 from csparse3_tpu_torch.models import grids as pgrids
 from csparse3_tpu_torch.models import powerflow as ppf
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 
 def test_newton_ell_matches_jax_ieee14():
     vm_p, va_p, it_p, res_p = ppf.NewtonPowerFlow(

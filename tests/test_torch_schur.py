@@ -26,6 +26,9 @@ from csparse3_tpu.linalg.ordering import rcm
 from csparse3_tpu.models.grids import synthetic_grid
 from csparse3_tpu_torch import parallel as ppar
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 N = 600
 SOLVE_RTOL = 1e-10
 

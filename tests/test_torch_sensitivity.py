@@ -28,6 +28,9 @@ from csparse3_tpu_torch.models import sensitivity as pse
 from csparse3_tpu_torch.models import shortcircuit as psc
 from csparse3_tpu_torch.utils.interop import grid_from_arrays
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 RTOL = 1e-10
 
 

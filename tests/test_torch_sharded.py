@@ -21,6 +21,9 @@ from csparse3_tpu_torch.models import grids as pg
 from csparse3_tpu_torch.models import sensitivity as psn
 from csparse3_tpu_torch.parallel import Mesh
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 S = 8
 RTOL = 1e-10
 

@@ -6,11 +6,15 @@ structure and values are compared exactly."""
 import jax  # noqa: F401  (JAX on the CPU with x64, set up by conftest)
 import numpy as np
 import pytest
+import torch
 
 import csparse3_tpu as jt
 import csparse3_tpu_torch as pt
 from csparse3_tpu.ops import slicing as jsl
 from csparse3_tpu_torch.ops import slicing as psl
+
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
 
 
 def _pair(m=23, n=17, nnz=120, seed=0, sum_duplicates=True):

@@ -33,6 +33,9 @@ from csparse3_tpu_torch.ops import spgemm as psp
 from csparse3_tpu_torch.ops import spgemm_device as pspd
 from csparse3_tpu_torch.utils.interop import csc_from_arrays, grid_from_arrays
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 
 def _port(Aj, device=None):
     return csc_from_arrays(Aj.m, Aj.n, *Aj.np_arrays(), device=device)

@@ -31,6 +31,9 @@ from csparse3_tpu_torch.linalg import banded as pb
 from csparse3_tpu_torch.linalg import spike_stream as pss
 from csparse3_tpu_torch.models import grids as pgrids
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 STACK_RTOL = 1e-10
 SOLVE_RTOL = 1e-10
 F32_RTOL = 1e-4

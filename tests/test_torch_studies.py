@@ -30,6 +30,9 @@ from csparse3_tpu_torch.models import powerflow as ppf
 from csparse3_tpu_torch.ops.matvec import SplitDIA, SplitSymDIA
 from csparse3_tpu_torch.utils.interop import grid_from_arrays
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 FLOW_RTOL = 1e-10    # flows and angles, of their largest magnitude
 STATE_ATOL = 1e-8    # Newton and fast-decoupled states
 K = 4

@@ -21,6 +21,9 @@ import csparse3_tpu_torch as pt
 from csparse3_tpu_torch.linalg import supernodal as psn
 from csparse3_tpu_torch.models.grids import synthetic_grid
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 N = 300
 FACTOR_RTOL = 1e-10   # of the largest factor entry, float64
 

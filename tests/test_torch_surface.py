@@ -30,6 +30,9 @@ from csparse3_tpu.ops import reductions as jred
 from csparse3_tpu_torch.ops import construct as pcon
 from csparse3_tpu_torch.ops import reductions as pred
 
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
 RTOL = 1e-14
 SUM_RTOL = 1e-13
 
