@@ -2022,7 +2022,8 @@ def refactor_case(name, make_plan, ng, dev, dtypes=("float32", "float64")):
     the ms per ``factor_values`` call by the host clock and by queued CUDA
     events, Lx / Ux against the host factors (largest error over the largest
     factor entry) and the relative residual of a solve through
-    ``refactor``.  Returns {dtype: record}."""
+    ``refactor``; with float64, the gradient through the factorization
+    (``_factor_grad``).  Returns {dtype: record} (and "grad")."""
     import torch
 
     from csparse3_tpu_torch.linalg import splu
@@ -2064,7 +2065,143 @@ def refactor_case(name, make_plan, ng, dev, dtypes=("float32", "float64")):
             f"{k}={getattr(plan, k)}" for k in ("nlevels", "ngroups",
                                                 "nsnodes", "front_floats")
             if hasattr(plan, k)))
+    if "float64" in dtypes:
+        out["grad"] = _factor_grad(name, plan, A, dev)
     return out
+
+
+# the gradients through the factorizations (float64) against the exact
+# gradient of another route: refactor(d)(b)'s -lam[rows] x[cols], scipy's
+FACTOR_GRAD_RTOL = 1e-8
+
+
+def _backward_memory(fwd, inputs):
+    """(bytes the forward keeps, bytes the backward adds over the forward's
+    peak): the peak statistics reset before one forward, its peak read,
+    then the backward's."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss = fwd()
+    torch.cuda.synchronize()
+    f_peak = torch.cuda.max_memory_allocated()
+    kept = torch.cuda.memory_allocated() - base
+    torch.autograd.grad(loss, inputs)
+    torch.cuda.synchronize()
+    return kept, torch.cuda.max_memory_allocated() - f_peak
+
+
+def _spread_entries(g, count=3):
+    """The entry of largest |g| in each of ``count`` equal parts of g: the
+    central differences' relative gap needs a gradient well above the
+    loss's rounding."""
+    parts = np.array_split(np.arange(g.numel()), count)
+    a = g.detach().abs().cpu().numpy()
+    return [int(p[np.argmax(a[p])]) for p in parts]
+
+
+def _factor_grad(name, plan, A, dev):
+    """The gradient through ``plan``'s factorization, float64, outside
+    inference mode: Σ retarget_solve_plan(p, *p.factor_values(d))(b)² in d
+    and b (the reverse sweep over the saved factors, then ``_FactorSolve``)
+    against the same loss through ``p.refactor(d)(b)`` (``_Solve``), each
+    within FACTOR_GRAD_RTOL of its largest entry; a weighted loss on (Lx,
+    Ux) by central differences at 3 entries; the chain's forward and
+    backward seconds and device kernels, and the device memory its
+    backward adds over the forward's peak."""
+    import torch
+
+    from csparse3_tpu_torch.linalg import retarget_solve_plan
+
+    data = A.np_arrays()[2]
+    rng = np.random.RandomState(11)
+    with torch.inference_mode(False):
+        d = torch.tensor(data, dtype=torch.float64, device=dev,
+                         requires_grad=True)
+        b = torch.tensor(rng.rand(A.n), device=dev, requires_grad=True)
+
+        def chain():
+            Lx, Ux = plan.factor_values(d)
+            return (retarget_solve_plan(plan, Lx, Ux)(b) ** 2).sum()
+
+        ref = torch.autograd.grad((plan.refactor(d)(b) ** 2).sum(), (d, b))
+        (gd, gb), times = _timed_grad(chain, (d, b))
+        errs = [_rel_err(g, r.cpu().numpy()) for g, r in zip((gd, gb), ref)]
+        kept, added = _backward_memory(chain, (d, b))
+        _grad_log(f"factor:{name}", times, None,
+                  f" d_err_over_max_vs_refactor={errs[0]:.3e} "
+                  f"b_err_over_max_vs_refactor={errs[1]:.3e} (limit "
+                  f"{FACTOR_GRAD_RTOL:.0e}) forward_kept_MB="
+                  f"{kept / 2**20:.1f} backward_added_MB={added / 2**20:.1f}")
+        if not max(errs) <= FACTOR_GRAD_RTOL:
+            raise AssertionError(f"grad[factor:{name}]: the chain's gradient "
+                                 "disagrees with refactor's")
+        wL = torch.tensor(rng.randn(plan.lnz), device=dev)
+        wU = torch.tensor(rng.randn(plan.unz), device=dev)
+
+        def weighted():
+            Lx, Ux = plan.factor_values(d)
+            return (wL * Lx).sum() + (wU * Ux).sum()
+
+        gw, = torch.autograd.grad(weighted(), d)
+        _fd_check(f"factor:{name}", weighted, d, gw, _spread_entries(gw),
+                  "solve")
+    return {"forward_s": times[0], "backward_s": times[1],
+            "forward_kernels": times[2], "backward_kernels": times[3],
+            "errs": errs, "forward_kept_bytes": kept,
+            "backward_added_bytes": added}
+
+
+def _multifrontal_lu_grad(dev):
+    """``MultifrontalLU.from_matrix(refactor_system(N_SOLVE))``: Σ
+    solve_piv(factor_piv(d), b)² in d and b, float64, outside inference
+    mode; b's gradient against scipy's spsolve(A^T, 2x) and d's against
+    -lam[rows] x[cols] with that lam, each within FACTOR_GRAD_RTOL of its
+    largest entry; the forward's and backward's seconds and kernels, the
+    backward's added memory, and how many fronts' pivot orders are not the
+    identity."""
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from csparse3_tpu_torch.linalg import MultifrontalLU
+
+    A = refactor_system(N_SOLVE)
+    t0 = time.perf_counter()
+    lu = MultifrontalLU.from_matrix(A, device=dev)
+    t_build = time.perf_counter() - t0
+    S = A.to_scipy().tocsc()
+    ip, ix, data = A.np_arrays()
+    bnp = np.random.RandomState(12).rand(A.n)
+    xs = spla.spsolve(S, bnp)
+    lam = spla.spsolve(S.T.tocsc(), 2 * xs)
+    gd_ref = -lam[np.asarray(ix)] * xs[np.repeat(np.arange(A.n),
+                                                 np.diff(ip))]
+    with torch.inference_mode(False):
+        d = torch.tensor(data, dtype=torch.float64, device=dev,
+                         requires_grad=True)
+        b = torch.tensor(bnp, device=dev, requires_grad=True)
+
+        def loss():
+            factors, _ = lu.factor_piv(d)
+            return (lu.solve_piv(factors, b) ** 2).sum()
+
+        (gd, gb), times = _timed_grad(loss, (d, b))
+        errs = (_rel_err(gd, gd_ref), _rel_err(gb, lam))
+        kept, added = _backward_memory(loss, (d, b))
+    factors, _ = lu.factor_piv(d.detach())
+    moved = sum(int((f[3] != torch.arange(f[3].shape[-1], device=dev))
+                    .any(-1).sum()) for f in factors)
+    _grad_log("MultifrontalLU", times, None,
+              f" d_err_over_max_vs_scipy={errs[0]:.3e} "
+              f"b_err_over_max_vs_scipy={errs[1]:.3e} (limit "
+              f"{FACTOR_GRAD_RTOL:.0e}) forward_kept_MB={kept / 2**20:.1f} "
+              f"backward_added_MB={added / 2**20:.1f} build_s={t_build:.3f} "
+              f"fronts={lu.nsnodes} fronts_with_row_swaps={moved}")
+    if not max(errs) <= FACTOR_GRAD_RTOL:
+        raise AssertionError("grad[MultifrontalLU]: the gradient disagrees "
+                             "with scipy's adjoint")
 
 
 def multifrontal_phase(dev, level_state):
@@ -2163,6 +2300,7 @@ def multifrontal_phase(dev, level_state):
     # ~10 s); it factors in the host factors' float64 whatever it is given
     refactor_case("level10k", lambda h, A: RefactorPlan(h, A, device=dev),
                   N_SOLVE, dev, dtypes=("float64",))
+    _multifrontal_lu_grad(dev)
 
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")

@@ -67,6 +67,75 @@ class _Solve(torch.autograd.Function):
         return None, gb, gv
 
 
+def _on_pattern(u, v, rows, cols, batched):
+    """-conj(u_i v_j) at the entries (rows, cols): a factor entry's
+    gradient, summed over the columns of (n, k) vectors; (K, e) for (K, n)
+    vectors of a batched plan."""
+    if batched:
+        p = u[:, rows] * v[:, cols]
+    else:
+        p = u[rows] * v[cols]
+        p = p if p.ndim == 1 else p.sum(-1)
+    return -p.conj()
+
+
+class _FactorSolve(torch.autograd.Function):
+    """x = A^{-1} b through a plan that ``retarget_solve_plan`` made from
+    factors (Lx, Ux) that require a gradient, differentiable in b and in
+    the factors.  The forward keeps y = L^{-1} P b and x' = U^{-1} y (the
+    permuted space).  With g' = dL/dx permuted, mu = U^{-H} g' and nu =
+    L^{-H} mu (the adjoint plan's two sweeps, called one by one):
+
+      dL/dUx = -mu_i conj(x'_j) on U's pattern, the diagonal too;
+      dL/dLx = -nu_i conj(y_j) on L's strict pattern, 0 on its unit
+               diagonal;
+      dL/db  = P^T nu."""
+
+    @staticmethod
+    def forward(ctx, plan, b, Lx, Ux):
+        with torch.inference_mode():
+            y, xp = plan._sweeps(b)
+            x = plan._unpermute(xp)
+        # copies made outside inference mode: autograd can save and return
+        y, xp, x = y.clone(), xp.clone(), x.clone()
+        ctx.plan = plan
+        ctx.dtypes = (b.dtype, Lx.dtype, Ux.dtype)
+        ctx.save_for_backward(y, xp)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        plan, src = ctx.plan, ctx.plan._templates
+        y, xp = ctx.saved_tensors
+        batched = plan.batched
+        adj = plan.adjoint()  # lplan: U^T (lower), uplan: L^T (upper)
+        with torch.inference_mode():
+            gp = g[:, plan.perm_c] if batched else g[plan.perm_c]
+            mc = adj.lplan(gp.conj())          # conj(mu)
+            nc = adj.uplan(mc)                 # conj(nu)
+            G = torch.zeros(xp.shape[:1] * batched + (src.lnz + src.unz,),
+                            dtype=torch.promote_types(mc.dtype, xp.dtype),
+                            device=xp.device)
+            lt, ut = src._ltpl, src._utpl
+            diag = torch.arange(src.n, device=xp.device)
+            G[..., src._l_epos] = _on_pattern(nc, y, lt.e_rows, lt.e_cols,
+                                              batched)
+            G[..., src._u_epos] = _on_pattern(mc, xp, ut.e_rows, ut.e_cols,
+                                              batched)
+            G[..., src._u_diagpos] = _on_pattern(mc, xp, diag, diag, batched)
+            gb = None
+            if ctx.needs_input_grad[1]:
+                gb = torch.empty_like(nc)
+                if batched:
+                    gb[:, plan.perm_r] = nc.conj()
+                else:
+                    gb[plan.perm_r] = nc.conj()
+        b_dt, l_dt, u_dt = ctx.dtypes
+        gb = None if gb is None else _cast_grad(gb.clone(), b_dt)
+        return (None, gb, _cast_grad(G[..., : src.lnz].clone(), l_dt),
+                _cast_grad(G[..., src.lnz:].clone(), u_dt))
+
+
 class SolvePlan(nn.Module):
     """x = A^{-1} b from a factorization: permute, L-solve, U-solve,
     unpermute.  ``forward(b)`` takes b of shape (n,) or (n, k); a plan
@@ -76,8 +145,10 @@ class SolvePlan(nn.Module):
 
     Differentiable (``_Solve``) in b and, for a plan a refactorization
     made from values that require a gradient (``values``), in those
-    values; ``adjoint`` builds the plan of A^T at the first backward.  A
-    call where no input requires a gradient runs under inference mode."""
+    values; for a plan retargeted from factors that require a gradient
+    (``factors``), in b and those factors (``_FactorSolve``).  ``adjoint``
+    builds the plan of A^T at the first backward.  A call where no input
+    requires a gradient runs under inference mode."""
 
     def __init__(self, lplan, uplan, perm_r, perm_c, adjoint=None):
         super().__init__()
@@ -95,6 +166,11 @@ class SolvePlan(nn.Module):
         #: streams in their order
         self.values = None
         self._pattern_fn = None
+        #: the factors (Lx, Ux) a plan was retargeted from, when either
+        #: requires a gradient, and the refactorization whose templates
+        #: (``attach_solve_templates``) place their entries
+        self.factors = None
+        self._templates = None
 
     @property
     def batched(self) -> bool:
@@ -113,20 +189,27 @@ class SolvePlan(nn.Module):
         return self.__dict__["_adjoint"]
 
     def forward(self, b):
+        if self.factors is not None and _wants_grad(b, *self.factors):
+            return _FactorSolve.apply(self, b, *self.factors)
         if _wants_grad(b, self.values):
             return _Solve.apply(self, b, self.values)
         with torch.inference_mode():
             return self._solve(b)
 
     def _solve(self, b):
-        if self.batched:
-            z = self.uplan(self.lplan(b[:, self.perm_r]))
-            x = torch.empty_like(z)
-            x[:, self.perm_c] = z
-            return x
-        z = self.uplan(self.lplan(b[self.perm_r]))
+        return self._unpermute(self._sweeps(b)[1])
+
+    def _sweeps(self, b):
+        """(y, x') = (L^{-1} P b, U^{-1} y), in the permuted space."""
+        y = self.lplan(b[:, self.perm_r] if self.batched else b[self.perm_r])
+        return y, self.uplan(y)
+
+    def _unpermute(self, z):
         x = torch.empty_like(z)
-        x[self.perm_c] = z
+        if self.batched:
+            x[:, self.perm_c] = z
+        else:
+            x[self.perm_c] = z
         return x
 
 

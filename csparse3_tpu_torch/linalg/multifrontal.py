@@ -43,10 +43,12 @@ import torch
 from torch import nn
 
 from ..config import resolve_device
+from ..ops.matvec import _cast_grad, _wants_grad
 from .lu_host import HostLU
 from .refactor import attach_solve_templates, retarget_solve_plan
-from .supernodal import (_fundamental_partition, _graded_ok, _lu_nopiv_,
-                         _pattern_symmetric, _sub_product_, _values_dtype)
+from .supernodal import (_front_adjoint, _fundamental_partition, _graded_ok,
+                         _lu_nopiv_, _pattern_symmetric, _sub_product_,
+                         _unpermute_rows, _values_dtype)
 
 __all__ = ["MultifrontalRefactor", "MultifrontalLU"]
 
@@ -372,7 +374,6 @@ class MultifrontalRefactor(nn.Module):
         """The flat front buffer holding A's values, the padded pivot
         columns' unit diagonal and the 1 slot: (floats,), or (K, floats)
         for ``new_data`` (K, nnz), one row per scenario."""
-        new_data = torch.as_tensor(new_data, device=self._a_pos.device)
         dtype = _values_dtype(new_data, self.dtype)
         flat = torch.zeros(new_data.shape[:-1] + (self.front_floats + 1,),
                            dtype=dtype, device=new_data.device)
@@ -392,24 +393,73 @@ class MultifrontalRefactor(nn.Module):
                 yield gid, self._front(flat, gid)
 
     # ---- numeric factorization ---------------------------------------------
-    @torch.inference_mode()
+    def _factor_(self, flat, pivot: bool = False):
+        """The front loop, in place on the flat buffer: per group (M, U12,
+        L21, perm).  Without ``pivot`` the factors are views of ``flat``
+        (M, L21 and U12 written over D, B and C; perm None); with it,
+        partial pivoting inside each front's fully-summed block, D[perm] =
+        L11 U11, and the factors are tensors of their own.  Either way the
+        Schur update runs in place on the front's (off, off) block."""
+        factors = [None] * self.ngroups
+        for gid, F in self._fronts(flat):
+            w = self.group_static[gid][1]
+            D, B, C = F[..., :w, :w], F[..., w:, :w], F[..., :w, w:]
+            if pivot:
+                M, piv, _ = torch.linalg.lu_factor_ex(D, check_errors=False)
+                perm = _pivot_perm(M, piv)
+                Cp = C.gather(-2, perm[..., None].expand(
+                    perm.shape + (C.shape[-1],)))
+            else:
+                M, perm, Cp = _lu_nopiv_(D), None, C
+            L21 = torch.linalg.solve_triangular(M, B, upper=True, left=False)
+            U12 = torch.linalg.solve_triangular(M, Cp, upper=False,
+                                                unitriangular=True)
+            if pivot:
+                factors[gid] = (M, U12, L21, perm)
+            else:
+                B.copy_(L21)
+                C.copy_(U12)
+                factors[gid] = (M, C, B, None)
+            _sub_product_(F[..., w:, w:], L21, U12)
+        return factors
+
+    def _factor_adjoint(self, G, factors):
+        """dL/dvalues from G, the gradient of the flat buffer's final
+        state (M, L21 and U12 in each front's D, B and C regions, S in its
+        (off, off) block): the levels in reverse, each group's fronts by
+        ``_front_adjoint``, then the extend-add's adjoint G[ext_src] +=
+        G[ext_dst].  In place on G."""
+        for L in range(self.nlevels - 1, -1, -1):
+            for gid in self.groups_at[L]:
+                w = self.group_static[gid][1]
+                F = self._front(G, gid)
+                M, U12, L21, perm = factors[gid]
+                gD, gB, gC = _front_adjoint(
+                    M, L21, U12, F[..., :w, :w], F[..., w:, :w],
+                    F[..., :w, w:], F[..., w:, w:], perm)
+                F[..., :w, :w] = gD
+                F[..., w:, :w] = gB
+                F[..., :w, w:] = gC
+            a, c = self._ext_ptr[L], self._ext_ptr[L + 1]
+            if c > a:
+                G.index_add_(-1, self._ext_src[a:c],
+                             G.index_select(-1, self._ext_dst[a:c]))
+        return G.index_select(-1, self._a_pos)
+
     def factor_values(self, new_data):
         """(Lx, Ux) for the original pattern with ``new_data`` values;
         (K, lnz) and (K, unz) for ``new_data`` (K, nnz), the fronts of all
         K scenarios factored together, in place in one (K, floats)
-        buffer."""
-        flat = self._assembled(new_data)
-        for gid, F in self._fronts(flat):
-            w = self.group_static[gid][1]
-            D, B, C = F[..., :w, :w], F[..., w:, :w], F[..., :w, w:]
-            _lu_nopiv_(D)
-            L21 = torch.linalg.solve_triangular(D, B, upper=True, left=False)
-            U12 = torch.linalg.solve_triangular(D, C, upper=False,
-                                                unitriangular=True)
-            B.copy_(L21)
-            C.copy_(U12)
-            _sub_product_(F[..., w:, w:], L21, U12)
-        return flat[..., self._exL], flat[..., self._exU]
+        buffer.  Differentiable (``_FrontFactor``) in ``new_data`` when it
+        requires a gradient; every other call runs under inference
+        mode."""
+        new_data = torch.as_tensor(new_data, device=self._a_pos.device)
+        if _wants_grad(new_data):
+            return _FrontFactor.apply(self, False, new_data)
+        with torch.inference_mode():
+            flat = self._assembled(new_data)
+            self._factor_(flat)
+            return flat[..., self._exL], flat[..., self._exU]
 
     def refactor(self, new_data, with_diag: bool = False):
         """SolvePlan with fresh numeric factors (same contract as
@@ -488,7 +538,6 @@ class MultifrontalLU(MultifrontalRefactor):
                         "fronts": time.perf_counter() - t0 - t_splu}
         return plan
 
-    @torch.inference_mode()
     def factor_piv(self, new_data):
         """new_data -> (factors, stats).
 
@@ -496,42 +545,59 @@ class MultifrontalLU(MultifrontalRefactor):
         stats: {"min_pivot", "max_u"} (0-d tensors), the growth gate's.
         ``new_data`` (K, nnz) factors K scenarios together: every factor
         gains a leading K axis and the stats are (K,), one gate per
+        scenario.  Differentiable (``_FrontFactor``) in ``new_data`` when
+        it requires a gradient: the factors carry it, and the stats are
+        taken from the differentiable M (min / max spread their gradient
+        evenly over ties).  Every other call runs under inference mode."""
+        new_data = torch.as_tensor(new_data, device=self._a_pos.device)
+        if _wants_grad(new_data):
+            out = _FrontFactor.apply(self, True, new_data)
+            factors = tuple(tuple(out[4 * g:4 * g + 4])
+                            for g in range(self.ngroups))
+            return factors, self._piv_stats(factors, new_data.ndim - 1)
+        with torch.inference_mode():
+            factors = self._factor_(self._assembled(new_data), pivot=True)
+            return tuple(factors), self._piv_stats(factors,
+                                                   new_data.ndim - 1)
+
+    def _piv_stats(self, factors, lead):
+        """min |U11 pivot| over genuine columns and max |U11|, per
         scenario."""
-        flat = self._assembled(new_data)
-        lead = flat.ndim - 1
-        factors = [None] * self.ngroups
         mins, maxs = [], []
-        for gid, F in self._fronts(flat):
-            w = self.group_static[gid][1]
-            # within-front partial pivoting: D[perm] = L11 U11
-            M, piv, _ = torch.linalg.lu_factor_ex(F[..., :w, :w],
-                                                  check_errors=False)
-            perm = _pivot_perm(M, piv)
-            B, C = F[..., w:, :w], F[..., :w, w:]
-            Cp = C.gather(-2, perm[..., None].expand(
-                perm.shape + (C.shape[-1],)))
-            L21 = torch.linalg.solve_triangular(M, B, upper=True, left=False)
-            U12 = torch.linalg.solve_triangular(M, Cp, upper=False,
-                                                unitriangular=True)
-            _sub_product_(F[..., w:, w:], L21, U12)
-            factors[gid] = (M, U12, L21, perm)
-            # growth stats over GENUINE columns only, per scenario
+        for gid, (M, _, _, _) in enumerate(factors):
             du = M.diagonal(dim1=-2, dim2=-1).abs()
             mins.append(du.masked_fill(~self._group_mask(gid), float("inf"))
                         .amin(dim=tuple(range(lead, du.ndim))))
             maxs.append(M.triu().abs().amax(dim=tuple(range(lead, M.ndim))))
-        stats = {"min_pivot": torch.stack(mins).amin(0),
-                 "max_u": torch.stack(maxs).amax(0)}
-        return tuple(factors), stats
+        return {"min_pivot": torch.stack(mins).amin(0),
+                "max_u": torch.stack(maxs).amax(0)}
 
-    @torch.inference_mode()
     def solve_piv(self, factors, b):
         """x = A^{-1} b from ``factor_piv`` factors; b (n,) or (n, B), and
         (K, n) for factors of K scenarios, row k against scenario k.
         The result is in ORIGINAL row/column space (the symbolic fill-
         reducing perms are applied here; the per-front pivoting perms
-        live in the factors)."""
+        live in the factors).  Differentiable (``_FrontSolve``) in b and in
+        the factors (M, U12, L21) when any of them requires a gradient;
+        every other call runs under inference mode."""
         b = torch.as_tensor(b, device=self.perm_r.device)
+        tensors = [t for f in factors for t in f[:3]]
+        if _wants_grad(b, *tensors):
+            return _FrontSolve.apply(self, tuple(f[3] for f in factors), b,
+                                     *tensors)
+        with torch.inference_mode():
+            return self._solve_piv(factors, b)[0]
+
+    def _rows_of(self, y, r):
+        """Rows of y (..., n + 1, nB) by a group's (nb, k) row ids, as
+        (..., nb, k, nB)."""
+        return y.index_select(-2, r.view(-1)).view(
+            y.shape[:-2] + r.shape + y.shape[-1:])
+
+    def _solve_piv(self, factors, b, keep: bool = False):
+        """(x, z, y): x = A^{-1} b, and with ``keep`` the (..., n + 1, nB)
+        permuted-space vectors after the forward sweep (z) and after the
+        backward one (y)."""
         batched = any(f[0].ndim == 4 for f in factors)
         squeeze = b.ndim == 1 or batched
         if squeeze:
@@ -547,8 +613,7 @@ class MultifrontalLU(MultifrontalRefactor):
         # rows of y by a group's (nb, k) row ids; writes to the pad row
         # collide and are never read back
         def rows(r):
-            return y.index_select(-2, r.view(-1)).view(lead + r.shape
-                                                       + (nB,))
+            return self._rows_of(y, r)
 
         def put(r, v):
             return v.reshape(lead + (r.numel(), nB))
@@ -564,6 +629,7 @@ class MultifrontalLU(MultifrontalRefactor):
                 y.index_copy_(-2, rows_p.view(-1), put(rows_p, z1))
                 y.index_add_(-2, rows_o.view(-1), put(rows_o, L21 @ z1),
                              alpha=-1)
+        z = y.clone() if keep else None
         for L in range(self.nlevels - 1, -1, -1):
             for gid in self.groups_at[L]:
                 rows_p, rows_o = self._rows_parts(gid)
@@ -573,4 +639,135 @@ class MultifrontalLU(MultifrontalRefactor):
                 y.index_copy_(-2, rows_p.view(-1), put(rows_p, x1))
         x = torch.empty(lead + (self.n, nB), dtype=dtype, device=b.device)
         x[..., self.perm_c, :] = y[..., :-1, :]
-        return x[..., 0] if squeeze else x
+        return (x[..., 0] if squeeze else x), z, y
+
+
+class _FrontFactor(torch.autograd.Function):
+    """The front loop of ``plan`` (``MultifrontalRefactor._factor_``),
+    differentiable in the values.  Without ``pivot`` its outputs are (Lx,
+    Ux), gathered from the flat buffer, and it keeps the factors, views of
+    that buffer; with ``pivot`` they are every group's (M, U12, L21, perm),
+    which it keeps.  The backward places the outputs' gradients in a flat
+    buffer G (at ``_exL`` / ``_exU``, or in each front's regions) and
+    walks the levels in reverse (``_factor_adjoint``)."""
+
+    @staticmethod
+    def forward(ctx, plan, pivot, new_data):
+        ctx.set_materialize_grads(False)
+        ctx.plan, ctx.pivot, ctx.d_dtype = plan, pivot, new_data.dtype
+        flat = plan._assembled(new_data)
+        factors = plan._factor_(flat, pivot)
+        ctx.flat = (flat.shape, flat.dtype)
+        if not pivot:
+            ctx.factors = factors  # views of an intermediate: held as such
+            return flat[..., plan._exL], flat[..., plan._exU]
+        out = tuple(t for f in factors for t in f)
+        ctx.mark_non_differentiable(*out[3::4])
+        ctx.save_for_backward(*out)
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plan = ctx.plan
+        shape, dtype = ctx.flat
+        G = torch.zeros(shape, dtype=dtype, device=plan._a_pos.device)
+        if not ctx.pivot:
+            factors = ctx.factors
+            for ex, g in zip((plan._exL, plan._exU), grads):
+                if g is not None:
+                    G.index_add_(-1, ex, g)
+        else:
+            saved = ctx.saved_tensors
+            factors = [saved[4 * g:4 * g + 4] for g in range(plan.ngroups)]
+            for gid in range(plan.ngroups):
+                w = plan.group_static[gid][1]
+                F = plan._front(G, gid)
+                for region, g in zip((F[..., :w, :w], F[..., :w, w:],
+                                      F[..., w:, :w]),
+                                     grads[4 * gid:4 * gid + 3]):
+                    if g is not None:
+                        region.copy_(g)
+        return None, None, _cast_grad(plan._factor_adjoint(G, factors),
+                                      ctx.d_dtype)
+
+
+class _FrontSolve(torch.autograd.Function):
+    """x = A^{-1} b through ``factor_piv`` factors (``_solve_piv``),
+    differentiable in b and in every group's (M, U12, L21).  The forward
+    keeps z (y after the forward sweep) and y (after the backward sweep).
+    The backward is the transposed solve, in the permuted space: one
+    ascending level pass (the backward sweep's adjoint) with t1 = U11^{-H}
+    y_p, y_o -= U12^H t1, y_p = t1, then one descending pass (the forward
+    sweep's) with s1 = L11^{-H} (y_p - L21^H y_o), y_p = s1 scattered back
+    by perm.  The factors' gradients are outer products with the saved
+    vectors, summed over b's columns: gU11 = -triu(t1 x1^H), gU12 = -t1
+    x_off^H, gL11 = -tril_{-1}(s1 z1^H), gL21 = -y_o z1^H."""
+
+    @staticmethod
+    def forward(ctx, plan, perms, b, *tensors):
+        factors = [tensors[3 * g:3 * g + 3] + (perms[g],)
+                   for g in range(len(perms))]
+        x, z, y = plan._solve_piv(factors, b, keep=True)
+        ctx.plan, ctx.perms, ctx.b_dtype = plan, perms, b.dtype
+        # factors made under inference mode (a solve differentiable in b
+        # alone) cannot be saved: they are held by reference
+        ctx.held = [t if t.is_inference() else None for t in tensors]
+        ctx.save_for_backward(z, y, *(None if t.is_inference() else t
+                                      for t in tensors))
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        plan, perms = ctx.plan, ctx.perms
+        z, y, *saved = ctx.saved_tensors
+        tensors = [s if h is None else h for s, h in zip(saved, ctx.held)]
+        factors = [tuple(tensors[3 * k:3 * k + 3]) + (perms[k],)
+                   for k in range(len(perms))]
+        squeeze = g.ndim == y.ndim - 1
+        if squeeze:
+            g = g[..., None]
+        lead, nB = y.shape[:-2], y.shape[-1]
+        gy = torch.zeros_like(y, dtype=torch.promote_types(g.dtype, y.dtype))
+        gy[..., :-1, :] = g[..., plan.perm_c, :]
+        grads = [[None, None, None] for _ in perms]
+        fac = any(ctx.needs_input_grad[3:])
+
+        def put(r, v):
+            return v.reshape(lead + (r.numel(), nB))
+
+        for L in range(plan.nlevels):
+            for gid in plan.groups_at[L]:
+                rows_p, rows_o = plan._rows_parts(gid)
+                M, U12, L21, perm = factors[gid]
+                t1 = torch.linalg.solve_triangular(
+                    M.mH, plan._rows_of(gy, rows_p), upper=False)
+                gy.index_add_(-2, rows_o.view(-1),
+                              put(rows_o, U12.mH @ t1), alpha=-1)
+                gy.index_copy_(-2, rows_p.view(-1), put(rows_p, t1))
+                if fac:
+                    grads[gid][0] = -(t1 @ plan._rows_of(y, rows_p).mH
+                                      ).triu()
+                    grads[gid][1] = -(t1 @ plan._rows_of(y, rows_o).mH)
+        for L in range(plan.nlevels - 1, -1, -1):
+            for gid in plan.groups_at[L]:
+                rows_p, rows_o = plan._rows_parts(gid)
+                M, U12, L21, perm = factors[gid]
+                yo = plan._rows_of(gy, rows_o)
+                s1 = torch.linalg.solve_triangular(
+                    M.mH, plan._rows_of(gy, rows_p) - L21.mH @ yo,
+                    upper=True, unitriangular=True)
+                if fac:
+                    z1 = plan._rows_of(z, rows_p)
+                    grads[gid][0] -= (s1 @ z1.mH).tril(-1)
+                    grads[gid][2] = -(yo @ z1.mH)
+                gy.index_copy_(-2, rows_p.view(-1),
+                               put(rows_p, _unpermute_rows(s1, perm)))
+        gb = None
+        if ctx.needs_input_grad[2]:
+            gb = torch.empty(lead + (plan.n, nB), dtype=gy.dtype,
+                             device=gy.device)
+            gb[..., plan.perm_r, :] = gy[..., :-1, :]
+            gb = _cast_grad(gb[..., 0] if squeeze else gb, ctx.b_dtype)
+        return (None, None, gb) + tuple(
+            None if gr is None else _cast_grad(gr, t.dtype)
+            for gr, t in zip((gr for f in grads for gr in f), tensors))

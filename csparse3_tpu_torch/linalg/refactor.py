@@ -31,6 +31,7 @@ from torch import nn
 
 from ..config import resolve_device
 from ..native import host_ext
+from ..ops.matvec import _cast_grad, _wants_grad
 from .lu import SolvePlan
 from .lu_host import HostLU
 from .trisolve import TriSolvePlan
@@ -41,6 +42,53 @@ __all__ = ["RefactorPlan", "attach_solve_templates", "retarget_solve_plan"]
 def _level_ptr(lev, nlev):
     return np.concatenate(
         [[0], np.cumsum(np.bincount(lev, minlength=nlev))]).tolist()
+
+
+class _LevelFactor(torch.autograd.Function):
+    """X = [Lx | Ux] of ``plan``'s level loop, differentiable in the values.
+
+    The forward is the loop itself; it keeps the final X.  That is all the
+    backward needs: every multiplicand of a level's updates is final when
+    the level reads it (L(i, j) is divided in the level of column j, and
+    U(j, k) is updated only from columns of earlier levels).  With G =
+    dL/dX, the backward walks the levels in reverse:
+
+      updates    X[dst] -= X[L] X[U]:  G[L] -= G[dst] conj(X[U]),
+                                       G[U] -= G[dst] conj(X[L])
+      divisions  X[dd] /= X[piv]:      G[piv] -= G[dd] conj(X[dd] / X[piv]),
+                                       G[dd] /= conj(X[piv])
+
+    (``index_add_``, as cells repeat), then dL/dvalues = G[a_dst].  The
+    unit cells are constants.  No tape: one buffer of X's size, G."""
+
+    @staticmethod
+    def forward(ctx, plan, new_data):
+        X = plan._factor_(plan._assembled(new_data))
+        ctx.plan, ctx.d_dtype = plan, new_data.dtype
+        ctx.save_for_backward(X)
+        return X
+
+    @staticmethod
+    def backward(ctx, gX):
+        plan = ctx.plan
+        X, = ctx.saved_tensors
+        Xc = X.conj()
+        G = gX.clone(memory_format=torch.contiguous_format)
+        dp, up = plan.div_ptr, plan.upd_ptr
+        for lv in range(len(dp) - 2, -1, -1):
+            a, c = up[lv], up[lv + 1]
+            if c > a:
+                ul, uu = plan.upd_L[a:c], plan.upd_U[a:c]
+                gd = G.index_select(-1, plan.upd_dst[a:c])
+                G.index_add_(-1, ul, gd * Xc.index_select(-1, uu), alpha=-1)
+                G.index_add_(-1, uu, gd * Xc.index_select(-1, ul), alpha=-1)
+            a, c = dp[lv], dp[lv + 1]
+            if c > a:
+                dd, piv = plan.div_dst[a:c], plan.div_piv[a:c]
+                gd = G.index_select(-1, dd) / Xc.index_select(-1, piv)
+                G.index_add_(-1, piv, gd * Xc.index_select(-1, dd), alpha=-1)
+                G[..., dd] = gd
+        return None, _cast_grad(G.index_select(-1, plan.a_dst), ctx.d_dtype)
 
 
 class RefactorPlan(nn.Module):
@@ -103,18 +151,20 @@ class RefactorPlan(nn.Module):
     def nlevels(self):
         return len(self.div_ptr) - 1
 
-    @torch.inference_mode()
-    def factor_values(self, new_data):
-        """(Lx, Ux) for a matrix with the original pattern and ``new_data``
-        values (canonical CSC entry order).  ``new_data`` (K, nnz), one
-        matrix per scenario, gives (K, lnz) and (K, unz): every level op
-        runs along the last axis."""
-        new_data = torch.as_tensor(new_data, device=self.a_dst.device)
+    def _assembled(self, new_data):
+        """X = [Lx | Ux] before the level loop: A's values at their cells,
+        L's unit diagonal, zeros elsewhere; (K, lnz + unz) for values
+        (K, nnz)."""
         dtype = torch.promote_types(new_data.dtype, self.dtype)
         X = torch.zeros(new_data.shape[:-1] + (self.lnz + self.unz,),
                         dtype=dtype, device=new_data.device)
         X[..., self.l_unit] = 1
         X.index_add_(-1, self.a_dst, new_data.to(dtype))
+        return X
+
+    def _factor_(self, X):
+        """The level loop, in place on X; every level op runs along the
+        last axis."""
         dp, up = self.div_ptr, self.upd_ptr
         for lv in range(len(dp) - 1):
             a, c = dp[lv], dp[lv + 1]
@@ -128,7 +178,22 @@ class RefactorPlan(nn.Module):
                              X.index_select(-1, self.upd_L[a:c])
                              * X.index_select(-1, self.upd_U[a:c]),
                              alpha=-1)
-        return X[..., : self.lnz], X[..., self.lnz:]
+        return X
+
+    def factor_values(self, new_data):
+        """(Lx, Ux) for a matrix with the original pattern and ``new_data``
+        values (canonical CSC entry order).  ``new_data`` (K, nnz), one
+        matrix per scenario, gives (K, lnz) and (K, unz).
+
+        Differentiable (``_LevelFactor``) in ``new_data`` when it requires
+        a gradient; every other call runs under inference mode."""
+        new_data = torch.as_tensor(new_data, device=self.a_dst.device)
+        if _wants_grad(new_data):
+            X = _LevelFactor.apply(self, new_data)
+            return X[..., : self.lnz], X[..., self.lnz:]
+        with torch.inference_mode():
+            X = self._factor_(self._assembled(new_data))
+            return X[..., : self.lnz], X[..., self.lnz:]
 
     def refactor(self, new_data, with_diag: bool = False):
         """SolvePlan with fresh numeric factors.
@@ -229,10 +294,15 @@ def retarget_solve_plan(obj, Lx, Ux, with_diag: bool = False, values=None):
 
     With grad mode on at the call, the plan can be differentiated: it keeps
     X for its adjoint (``SolvePlan.adjoint``, built from
-    ``transposed_templates`` at the first backward), and ``values``, when
-    it is a tensor that requires a gradient, as the input its solves are
-    differentiable in.  Under inference mode (the solvers' loops) it keeps
-    neither."""
+    ``transposed_templates`` at the first backward), and then
+
+    * ``values``, when it is a tensor that requires a gradient, is the
+      input its solves are differentiable in (``_Solve``: refactor's
+      route, no sweep through the factorization);
+    * else ``Lx`` / ``Ux``, when either requires a gradient, are
+      (``_FactorSolve``), and the U diagonal is a recorded gather.
+
+    Under inference mode (the solvers' loops) it keeps none of these."""
     grad = torch.is_grad_enabled()
     with torch.inference_mode():
         X = torch.cat([Lx, Ux], dim=-1)
@@ -245,4 +315,8 @@ def retarget_solve_plan(obj, Lx, Ux, with_diag: bool = False, values=None):
         plan.values = values
         plan._pattern_fn = lambda: obj._a_csc.to(
             obj.perm_r.device).entry_streams()
+    elif _wants_grad(Lx, Ux):
+        plan.factors, plan._templates = (Lx, Ux), obj
+    if with_diag and _wants_grad(Lx, Ux):
+        u_diag = Ux[..., obj._u_diagpos - obj.lnz]
     return (plan, u_diag) if with_diag else plan

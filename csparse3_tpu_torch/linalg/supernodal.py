@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from ..config import resolve_device
+from ..ops.matvec import _cast_grad, _wants_grad
 from .lu_host import HostLU
 from .refactor import attach_solve_templates, retarget_solve_plan
 
@@ -101,6 +102,45 @@ def _lu_nopiv_(M, panel: int = _LU_PANEL):
     return M
 
 
+def _front_adjoint(M, L21, U12, gM, gL21, gU12, gS=None, perm=None):
+    """The adjoint of one batch of dense fronts, (..., nb, .) stacks.
+
+    Forward: M = L\\U packed (L unit lower) with D[perm] = L U (D = L U
+    without ``perm``), L21 = B U^{-1}, U12 = L^{-1} C[perm] and S = F22 -
+    L21 U12.  Given the gradients gM, gL21, gU12 and gS (None: 0) of those
+    outputs, returns (gD, gB, gC); F22's is gS itself.  Batched triangular
+    solves and products, conjugate transposes (torch's convention for
+    complex values); the pivot order is a constant, as in
+    ``jax.lax.linalg.lu``'s derivative.  With X = L^{-1} dD U^{-1}, dL = L
+    tril_{-1}(X) and dU = triu(X) U, hence
+
+      gD = L^{-H} (tril_{-1}(L^H gL) + triu(gU U^H)) U^{-H}."""
+    if gS is not None:
+        gL21 = gL21 - gS @ U12.mH
+        gU12 = gU12 - L21.mH @ gS
+    Mh = M.mH
+    gB = torch.linalg.solve_triangular(Mh, gL21, upper=False, left=False)
+    gC = torch.linalg.solve_triangular(Mh, gU12, upper=True,
+                                       unitriangular=True)
+    gL = (gM - gC @ U12.mH).tril(-1)
+    gU = (gM - L21.mH @ gB).triu()
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    inner = ((M.tril(-1) + eye).mH @ gL).tril(-1) + (gU @ M.triu().mH).triu()
+    gD = torch.linalg.solve_triangular(Mh, inner, upper=True,
+                                       unitriangular=True)
+    gD = torch.linalg.solve_triangular(Mh, gD, upper=False, left=False)
+    if perm is not None:
+        gD = _unpermute_rows(gD, perm)
+        gC = _unpermute_rows(gC, perm)
+    return gD, gB, gC
+
+
+def _unpermute_rows(g, perm):
+    """The gradient of D from that of D[perm] (rows scattered back)."""
+    return torch.empty_like(g).scatter_(
+        -2, perm[..., None].expand(perm.shape + g.shape[-1:]), g)
+
+
 def _dense_lu_nopiv(D, panel: int = _LU_PANEL):
     """Batched no-pivot LU of (nb, w, w) blocks: returns M with the strict
     lower triangle = L multipliers and the upper triangle = U.  Torch ops
@@ -142,6 +182,50 @@ def _values_dtype(new_data, plan_dtype):
     """The dtype a plan factors in: the values' own floating dtype, else
     the host factors'."""
     return new_data.dtype if new_data.is_floating_point() else plan_dtype
+
+
+class _PanelFactor(torch.autograd.Function):
+    """X of ``plan``'s panel loop, differentiable in the values.  The
+    forward is the loop; it keeps the final X, which holds every level's
+    factored panels (a level writes its own snodes' cells once, and later
+    levels scatter only into higher ones).  The backward walks the levels
+    in reverse with G = dL/dX: the Schur scatter passes G[pT] through as
+    the fronts' gS, the writes hand G[pLw] / G[pUw] to (M, L21, U12) and
+    clear them, ``_front_adjoint`` gives the panels' gradient, which the
+    gathers add back at pL / pU.  The constant slots and the padded
+    columns get no gradient; dL/dvalues = G[a_dst]."""
+
+    @staticmethod
+    def forward(ctx, plan, new_data):
+        X = plan._factor_(plan._assembled(new_data))
+        ctx.plan, ctx.d_dtype = plan, new_data.dtype
+        ctx.save_for_backward(X)
+        return X
+
+    @staticmethod
+    def backward(ctx, gX):
+        plan = ctx.plan
+        X, = ctx.saved_tensors
+        nz = plan.lnz + plan.unz
+        G = gX.clone(memory_format=torch.contiguous_format)
+        G[nz:] = 0                    # the constant slots and the sink
+        for (pL, pLw, pU, pUw, pT, colmask), w in zip(
+                reversed(plan.levels), reversed(plan.level_widths)):
+            P = X[pL]
+            Q = X[pU]
+            gP, gQ = G[pLw], G[pUw]
+            gS = G[pT]
+            G[pLw.reshape(-1)] = 0
+            G[pUw.reshape(-1)] = 0
+            gD, gB, gC = _front_adjoint(
+                plan._diag_block(P, Q, colmask, w), P[:, w:, :],
+                Q[:, :, w:], gP[:, :w, :].tril(-1) + gQ[:, :, :w].triu(),
+                gP[:, w:, :], gQ[:, :, w:], gS)
+            G.index_add_(0, pL.reshape(-1),
+                         torch.cat([gD.tril(-1), gB], dim=1).reshape(-1))
+            G.index_add_(0, pU.reshape(-1),
+                         torch.cat([gD.triu(), gC], dim=2).reshape(-1))
+        return None, _cast_grad(G[plan.a_dst], ctx.d_dtype)
 
 
 class SupernodalRefactor(nn.Module):
@@ -340,32 +424,39 @@ class SupernodalRefactor(nn.Module):
         self.register_buffer("perm_c", dev(np.asarray(host.perm_c)))
         attach_solve_templates(self, host, device, a_csc)
 
-    @torch.inference_mode()
-    def factor_values(self, new_data):
-        """(Lx, Ux) for the original pattern with ``new_data`` values."""
-        new_data = torch.as_tensor(new_data, device=self.a_dst.device)
+    def _assembled(self, new_data):
+        """X before the panel loop: A's values at their cells, L's unit
+        diagonal, the constant slots; X[nz + 2] is the scatter sink."""
         dtype = _values_dtype(new_data, self.dtype)
         nz = self.lnz + self.unz
         X = torch.zeros(nz + 3, dtype=dtype, device=new_data.device)
         X[nz] = 1                                  # D1
         X[self.l_unit] = 1
         X.index_add_(0, self.a_dst, new_data.to(dtype))
+        return X
+
+    def _diag_block(self, P, Q, colmask, w):
+        """The (nb, w, w) fully-summed block of a level's panels: the
+        diagonal block appears in both panels, its upper part from the U
+        rows, its strict lower from the L columns; padded columns get a
+        unit diagonal so the block stays nonsingular."""
+        return (Q[:, :, :w].triu() + P[:, :w, :].tril(-1)
+                + torch.diag_embed((~colmask).to(P.dtype)))
+
+    def _factor_(self, X):
+        """The panel loop, in place on X."""
+        nz = self.lnz + self.unz
         for (pL, pLw, pU, pUw, pT, colmask), w in zip(
                 self.levels, self.level_widths):
             P = X[pL]                     # (nb, r, w)
             Q = X[pU]                     # (nb, w, r)
-            # the diagonal block appears in both panels: upper part from
-            # the U rows, strict lower from the L columns; padded columns
-            # get a unit diagonal so the block stays nonsingular
-            full = (Q[:, :, :w].triu() + P[:, :w, :].tril(-1)
-                    + torch.diag_embed((~colmask).to(dtype)))
-            M = _lu_nopiv_(full)
+            M = _lu_nopiv_(self._diag_block(P, Q, colmask, w))
             B = P[:, w:, :]               # (nb, r-w, w)
             C = Q[:, :, w:]               # (nb, w, r-w)
             L21 = torch.linalg.solve_triangular(M, B, upper=True, left=False)
             U12 = torch.linalg.solve_triangular(M, C, upper=False,
                                                 unitriangular=True)
-            eye = torch.eye(w, dtype=dtype, device=X.device)
+            eye = torch.eye(w, dtype=X.dtype, device=X.device)
             X[pLw.reshape(-1)] = torch.cat(
                 [M.tril(-1) + eye, L21], dim=1).reshape(-1)
             X[pUw.reshape(-1)] = torch.cat([M.triu(), U12],
@@ -375,7 +466,20 @@ class SupernodalRefactor(nn.Module):
             # keep the constant slots clean for the next level
             X[nz] = 1
             X[nz + 1] = 0
-        return X[: self.lnz], X[self.lnz: nz]
+        return X
+
+    def factor_values(self, new_data):
+        """(Lx, Ux) for the original pattern with ``new_data`` values.
+        Differentiable (``_PanelFactor``) in ``new_data`` when it requires
+        a gradient; every other call runs under inference mode."""
+        new_data = torch.as_tensor(new_data, device=self.a_dst.device)
+        nz = self.lnz + self.unz
+        if _wants_grad(new_data):
+            X = _PanelFactor.apply(self, new_data)
+            return X[: self.lnz], X[self.lnz: nz]
+        with torch.inference_mode():
+            X = self._factor_(self._assembled(new_data))
+            return X[: self.lnz], X[self.lnz: nz]
 
     def refactor(self, new_data, with_diag: bool = False):
         """SolvePlan with fresh numeric factors (same contract as

@@ -41,6 +41,7 @@ T_PLANS = "test_torch_grad_plans.py"
 T_DIST = "test_torch_grad_dist.py"
 T_BANDED = "test_torch_grad_banded.py"
 T_SURF = "test_torch_grad_surface.py"
+T_FACTOR = "test_torch_grad_factor.py"
 SURF = (T_SURF, "test_surface_grad_matches_jax")
 
 
@@ -117,6 +118,17 @@ GRAD_HELD = {
             "linalg.spike_stream.spike_reduced_factor"),
     **_held((T_BANDED, "test_esc_spgemm_grad_matches_jax"),
             "ops.spgemm_device.ESCSpGEMM"),
+    # the numeric factorizations: reverse sweeps over the saved factors
+    **_held((T_FACTOR, "test_factor_values_grad_matches_jax"),
+            "linalg.refactor.RefactorPlan.factor_values",
+            "linalg.supernodal.SupernodalRefactor.factor_values",
+            "linalg.multifrontal.MultifrontalRefactor.factor_values"),
+    **_held((T_FACTOR, "test_retarget_solve_plan_grad_matches_jax"),
+            "linalg.refactor.retarget_solve_plan"),
+    **_held((T_FACTOR, "test_factor_piv_solve_piv_grad_matches_jax"),
+            "linalg.multifrontal.MultifrontalLU",
+            "linalg.multifrontal.MultifrontalLU.factor_piv",
+            "linalg.multifrontal.MultifrontalLU.solve_piv"),
     # the smaller entries the checklist found
     **_held(SURF,
             "ops.arithmetic.scale", "ops.arithmetic.scale_rows",
@@ -331,18 +343,7 @@ NO_JAX_GRAD = {
 }
 
 # -- jax.grad differentiates these; the port does not yet --------------------
-INPLACE = ("the port's numeric factorization writes its fronts or columns in "
-           "place under inference mode; jax.grad differentiates the JAX "
-           "package's jnp form")
-GRAD_OPEN = {
-    **_no(INPLACE, "linalg.refactor.RefactorPlan.factor_values",
-          "linalg.refactor.retarget_solve_plan",
-          "linalg.supernodal.SupernodalRefactor.factor_values",
-          "linalg.multifrontal.MultifrontalRefactor.factor_values",
-          "linalg.multifrontal.MultifrontalLU",
-          "linalg.multifrontal.MultifrontalLU.factor_piv",
-          "linalg.multifrontal.MultifrontalLU.solve_piv"),
-}
+GRAD_OPEN = {}
 
 #: the attribute kinds that are not callables (properties, named-tuple
 #: fields, class-level constants)
