@@ -1,0 +1,22 @@
+"""K1 (the batched band+points kernel, ``band_points_entries_kernel``):
+the least bytes of one product of the batch (float32 values: the
+'bandpoints' path) over the published bandwidth, divided by the
+profiler's device time per launch, in %.  Missing where the profiler's
+count of the kernel differs from the program's."""
+
+from gridbench.reference.network import ybus
+from gridbench.roofline import roofline_pct, spmv_least_bytes
+from gridbench.trace import kernel_time
+
+KERNEL = "band_points_entries_kernel"
+
+
+def read(ctx):
+    t = ctx["trace"]
+    if t is None or not t["complete"].get(KERNEL):
+        return None
+    count, secs = kernel_time(t, KERNEL)
+    if not count:
+        return None
+    nbytes = spmv_least_bytes(ybus(ctx["arrays"]), ctx["batch"], 4, False)
+    return roofline_pct(nbytes, secs / count, ctx["kind"])
