@@ -68,6 +68,7 @@ from ..config import resolve_device
 from ..ops.matvec import (_cast_grad, _recorded, _save, _saved,
                           _wants_grad)
 from ..types import CSC
+from ..utils.profiling import span
 
 __all__ = ["BandedLU", "BandedRefactor", "BandedSolvePlan",
            "ComplexBandedSolve", "bandwidth", "is_symmetric_csc",
@@ -363,10 +364,12 @@ def _solve_sweeps(ehat, sinv, uhat, bb, precision):
     """``thomas_sweeps`` (``ehat`` None: ``thomas_sweeps_sym``): through
     ``_Sweeps`` when an input requires a gradient, else under inference
     mode."""
-    if _wants_grad(ehat, sinv, uhat, bb):
-        return _Sweeps.apply(ehat, sinv, uhat, bb, precision)
-    with torch.inference_mode():
-        return _sweeps(ehat, sinv, uhat, bb, precision)[1]
+    with span("banded.sweeps", blocks=sinv.shape[0], s=sinv.shape[-1],
+              sym=ehat is None):
+        if _wants_grad(ehat, sinv, uhat, bb):
+            return _Sweeps.apply(ehat, sinv, uhat, bb, precision)
+        with torch.inference_mode():
+            return _sweeps(ehat, sinv, uhat, bb, precision)[1]
 
 
 def _sweeps(ehat, sinv, uhat, bb, precision):
@@ -738,19 +741,21 @@ class BandedLU:
 
     def __init__(self, a, ordering="rcm", s: int | None = None, dtype=None,
                  device=None):
-        perm, ap = _permuted(a, ordering)
         n = a.shape[0]
-        Ap, Ai, Ax = ap.np_arrays()
-        bw = bandwidth(Ap, Ai)
-        s = _block_size(bw, s)
-        dtype = Ax.dtype if dtype is None else _np_dtype(dtype)
-        wide = np.complex128 if np.iscomplexobj(Ax) else np.float64
-        nb = -(-n // s)
-        cols = np.repeat(np.arange(n, dtype=np.int64),
-                         np.diff(np.asarray(Ap)))
-        sym = is_symmetric_csc(n, Ap, Ai, Ax) if ap.canonical else False
-        ehat, sinv, uhat = _thomas_factor(n, s, nb, Ai, cols, Ax, dtype,
-                                          wide, sym=sym)
+        with span("setup.banded_factor", n=n) as sp:
+            perm, ap = _permuted(a, ordering)
+            Ap, Ai, Ax = ap.np_arrays()
+            bw = bandwidth(Ap, Ai)
+            s = _block_size(bw, s)
+            sp.note(s=s, bw=bw)
+            dtype = Ax.dtype if dtype is None else _np_dtype(dtype)
+            wide = np.complex128 if np.iscomplexobj(Ax) else np.float64
+            nb = -(-n // s)
+            cols = np.repeat(np.arange(n, dtype=np.int64),
+                             np.diff(np.asarray(Ap)))
+            sym = is_symmetric_csc(n, Ap, Ai, Ax) if ap.canonical else False
+            ehat, sinv, uhat = _thomas_factor(n, s, nb, Ai, cols, Ax, dtype,
+                                              wide, sym=sym)
         self._set(n, s, bw, (ehat, sinv, uhat, perm), None, device)
 
     def _set(self, n, s, bw, host, dev, device):

@@ -36,14 +36,13 @@ Plans factor in the floating dtype of the values given (see
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 from torch import nn
 
 from ..config import resolve_device
 from ..ops.matvec import _cast_grad, _wants_grad
+from ..utils.profiling import span
 from .lu_host import HostLU
 from .refactor import attach_solve_templates, retarget_solve_plan
 from .supernodal import (_front_adjoint, _fundamental_partition, _graded_ok,
@@ -454,12 +453,19 @@ class MultifrontalRefactor(nn.Module):
         requires a gradient; every other call runs under inference
         mode."""
         new_data = torch.as_tensor(new_data, device=self._a_pos.device)
-        if _wants_grad(new_data):
-            return _FrontFactor.apply(self, False, new_data)
-        with torch.inference_mode():
-            flat = self._assembled(new_data)
-            self._factor_(flat)
-            return flat[..., self._exL], flat[..., self._exU]
+        with self._factor_span(new_data):
+            if _wants_grad(new_data):
+                return _FrontFactor.apply(self, False, new_data)
+            with torch.inference_mode():
+                flat = self._assembled(new_data)
+                self._factor_(flat)
+                return flat[..., self._exL], flat[..., self._exU]
+
+    def _factor_span(self, new_data):
+        """The ``front.factor`` span of a factorization of ``new_data``."""
+        return span("front.factor", groups=self.ngroups,
+                    levels=self.nlevels, front_floats=self.front_floats,
+                    K=new_data.shape[0] if new_data.ndim > 1 else 1)
 
     def refactor(self, new_data, with_diag: bool = False):
         """SolvePlan with fresh numeric factors (same contract as
@@ -523,19 +529,16 @@ class MultifrontalLU(MultifrontalRefactor):
         deg = np.diff(ip)
         gen[diag_pos] = deg[cols[diag_pos]] + 1.0   # dominant diagonal
         Ag = CSC(a.m, a.n, ip, ix, gen, canonical=a.canonical)
-        t0 = time.perf_counter()
-        lu = splu(Ag, ordering=ordering, tol=0.0)
-        t_splu = time.perf_counter() - t0
-        if lu.is_singular or not (
-                np.isfinite(np.asarray(lu._h.Lx)).all()
-                and np.isfinite(np.asarray(lu._h.Ux)).all()):
-            raise ValueError("generic-value symbolic factorization "
-                             "failed (pattern problem)")
-        plan = cls(lu._h, a, relax=relax, solve_plumbing=False,
-                   device=device)
-        #: host seconds of the build: the generic-value splu, the fronts
-        plan.build_s = {"splu": t_splu,
-                        "fronts": time.perf_counter() - t0 - t_splu}
+        with span("setup.symbolic", n=n) as sp:
+            lu = splu(Ag, ordering=ordering, tol=0.0)
+            if lu.is_singular or not (
+                    np.isfinite(np.asarray(lu._h.Lx)).all()
+                    and np.isfinite(np.asarray(lu._h.Ux)).all()):
+                raise ValueError("generic-value symbolic factorization "
+                                 "failed (pattern problem)")
+            plan = cls(lu._h, a, relax=relax, solve_plumbing=False,
+                       device=device)
+            sp.note(front_floats=plan.front_floats)
         return plan
 
     def factor_piv(self, new_data):
@@ -550,15 +553,17 @@ class MultifrontalLU(MultifrontalRefactor):
         taken from the differentiable M (min / max spread their gradient
         evenly over ties).  Every other call runs under inference mode."""
         new_data = torch.as_tensor(new_data, device=self._a_pos.device)
-        if _wants_grad(new_data):
-            out = _FrontFactor.apply(self, True, new_data)
-            factors = tuple(tuple(out[4 * g:4 * g + 4])
-                            for g in range(self.ngroups))
-            return factors, self._piv_stats(factors, new_data.ndim - 1)
-        with torch.inference_mode():
-            factors = self._factor_(self._assembled(new_data), pivot=True)
-            return tuple(factors), self._piv_stats(factors,
-                                                   new_data.ndim - 1)
+        with self._factor_span(new_data):
+            if _wants_grad(new_data):
+                out = _FrontFactor.apply(self, True, new_data)
+                factors = tuple(tuple(out[4 * g:4 * g + 4])
+                                for g in range(self.ngroups))
+                return factors, self._piv_stats(factors, new_data.ndim - 1)
+            with torch.inference_mode():
+                factors = self._factor_(self._assembled(new_data),
+                                        pivot=True)
+                return tuple(factors), self._piv_stats(factors,
+                                                       new_data.ndim - 1)
 
     def _piv_stats(self, factors, lead):
         """min |U11 pivot| over genuine columns and max |U11|, per
@@ -582,11 +587,12 @@ class MultifrontalLU(MultifrontalRefactor):
         every other call runs under inference mode."""
         b = torch.as_tensor(b, device=self.perm_r.device)
         tensors = [t for f in factors for t in f[:3]]
-        if _wants_grad(b, *tensors):
-            return _FrontSolve.apply(self, tuple(f[3] for f in factors), b,
-                                     *tensors)
-        with torch.inference_mode():
-            return self._solve_piv(factors, b)[0]
+        with span("front.solve", groups=self.ngroups, levels=self.nlevels):
+            if _wants_grad(b, *tensors):
+                return _FrontSolve.apply(
+                    self, tuple(f[3] for f in factors), b, *tensors)
+            with torch.inference_mode():
+                return self._solve_piv(factors, b)[0]
 
     def _rows_of(self, y, r):
         """Rows of y (..., n + 1, nB) by a group's (nb, k) row ids, as

@@ -32,6 +32,7 @@ from torch import nn
 from ..config import resolve_device
 from ..native import host_ext
 from ..ops.matvec import _cast_grad, _wants_grad
+from ..utils.profiling import span
 from .lu import SolvePlan
 from .lu_host import HostLU
 from .trisolve import TriSolvePlan
@@ -303,6 +304,11 @@ def retarget_solve_plan(obj, Lx, Ux, with_diag: bool = False, values=None):
       (``_FactorSolve``), and the U diagonal is a recorded gather.
 
     Under inference mode (the solvers' loops) it keeps none of these."""
+    with span("front.retarget"):
+        return _retarget(obj, Lx, Ux, with_diag, values)
+
+
+def _retarget(obj, Lx, Ux, with_diag, values):
     grad = torch.is_grad_enabled()
     with torch.inference_mode():
         X = torch.cat([Lx, Ux], dim=-1)

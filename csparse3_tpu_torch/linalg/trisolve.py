@@ -39,6 +39,7 @@ from torch import nn
 
 from ..config import resolve_device
 from ..ops.matvec import _cast_grad, _wants_grad
+from ..utils.profiling import span
 
 __all__ = ["lsolve", "usolve", "ltsolve", "utsolve", "level_schedule",
            "TriSolvePlan",
@@ -203,12 +204,13 @@ class _TriSolve(torch.autograd.Function):
 
 
 def _tri_solve(plan, b):
-    """``plan``'s solve: through ``_TriSolve`` when b requires a gradient,
-    else under inference mode."""
-    if _wants_grad(b):
-        return _TriSolve.apply(plan, b)
-    with torch.inference_mode():
-        return plan._solve(b)
+    """``plan``'s solve, in a ``trisolve`` span: through ``_TriSolve`` when
+    b requires a gradient, else under inference mode."""
+    with span("trisolve", levels=plan.nlevels, lower=plan.lower):
+        if _wants_grad(b):
+            return _TriSolve.apply(plan, b)
+        with torch.inference_mode():
+            return plan._solve(b)
 
 
 class TriSolvePlan(nn.Module):

@@ -40,6 +40,7 @@ from ..linalg.multifrontal import MultifrontalRefactor
 from ..ops import construct
 from ..ops.slicing import sample_offsets
 from ..types import _placed_on
+from ..utils.profiling import span
 from .grids import SLACK, Grid, branch_admittances
 
 __all__ = ["ACContingency", "DCContingency"]
@@ -94,6 +95,32 @@ def _outage_values(base, pos, delta, ks):
     values ``delta[k]``) of each outaged branch k in ``ks``."""
     out = base.expand(ks.shape[0], -1).clone()
     return out.scatter_add_(1, pos[ks], -delta[ks])
+
+
+def _refactor_plan(Br, ordering, device):
+    """The device refactorization plan of the reduced B' on ``device``.
+
+    B' is a diagonally dominant reduced Laplacian: a no-pivot ND
+    factorization is stable and lets the batched refactorization run as
+    dense fronts (``MultifrontalRefactor``) instead of the scalar
+    level-scheduled plan; ``RefactorPlan`` takes anything it refuses."""
+    if ordering in ("auto", "nd", "amd", "rcm"):
+        try:
+            lu0 = splu(Br, ordering="nd" if ordering == "auto" else ordering,
+                       tol=0.0)
+            # the no-pivot factorization must be numerically sound before
+            # its pivots are frozen: a grid that breaks B' diagonal
+            # dominance (series compensation, 1/x < 0) can hit a zero or
+            # tiny pivot that is reported (or silently infs) rather than
+            # raised
+            if lu0.is_singular or not (
+                    np.isfinite(np.asarray(lu0._h.Lx)).all()
+                    and np.isfinite(np.asarray(lu0._h.Ux)).all()):
+                raise ValueError("no-pivot base factorization unstable")
+            return MultifrontalRefactor(lu0._h, Br, device=device)
+        except (ValueError, AssertionError):
+            pass
+    return splu(Br, ordering=ordering).refactor_plan(Br, device=device)
 
 
 def _chunks(n, batch):
@@ -213,33 +240,9 @@ class DCContingency:
         red = np.full(n, -1, dtype=np.int64)
         red[keep] = np.arange(len(keep))
         Br = B[keep, keep]
-
-        # B' is a diagonally dominant reduced Laplacian: a no-pivot ND
-        # factorization is stable and lets the batched refactorization run
-        # as dense fronts (MultifrontalRefactor) instead of the scalar
-        # level-scheduled plan; RefactorPlan takes anything it refuses.
-        self._rp = None
-        if ordering in ("auto", "nd", "amd", "rcm"):
-            try:
-                lu0 = splu(
-                    Br, ordering="nd" if ordering == "auto" else ordering,
-                    tol=0.0)
-                # the no-pivot factorization must be numerically sound
-                # before its pivots are frozen: a grid that breaks B'
-                # diagonal dominance (series compensation, 1/x < 0) can
-                # hit a zero or tiny pivot that is reported (or silently
-                # infs) rather than raised
-                if lu0.is_singular or not (
-                        np.isfinite(np.asarray(lu0._h.Lx)).all()
-                        and np.isfinite(np.asarray(lu0._h.Ux)).all()):
-                    raise ValueError("no-pivot base factorization unstable")
-                self._rp = MultifrontalRefactor(lu0._h, Br,
-                                                device=self.device)
-            except (ValueError, AssertionError):
-                self._rp = None
-        if self._rp is None:
-            lu = splu(Br, ordering=ordering)
-            self._rp = lu.refactor_plan(Br, device=self.device)
+        with span("setup.symbolic", n=Br.n) as sp:
+            self._rp = _refactor_plan(Br, ordering, self.device)
+            sp.note(front_floats=getattr(self._rp, "front_floats", 0))
 
         # per-branch outage stamp: up to 4 (position, delta) pairs in the
         # reduced matrix; entries touching the slack simply vanish
@@ -308,20 +311,23 @@ class DCContingency:
         # of magnitude above
         tol = 1000.0 * torch.finfo(torch.float64).eps
         for s, e in _chunks(K, batch):
-            ks = ks_all[s:e]
-            data = _outage_values(self._base, self._pos, self._delta, ks)
-            plan, u_diag = self._rp.refactor(data, with_diag=True)
-            th_r = plan(self._P.expand(e - s, -1))
-            au = u_diag.abs()
-            rcond = au.amin(1) / au.amax(1).clamp_min(1e-30)
-            th_pad = torch.cat([th_r, th_r.new_zeros(e - s, 1)], dim=1)
-            fl = self._binv_x * (th_pad[:, self._gf] - th_pad[:, self._gt])
-            # the outaged branch carries nothing
-            fl[torch.arange(e - s, device=self.device), ks] = 0.0
-            flows[s:e] = fl
-            theta[s:e, self._keep] = th_r
-            ok[s:e] = (torch.isfinite(fl).all(1) & torch.isfinite(th_r).all(1)
-                       & torch.isfinite(rcond) & (rcond > tol))
+            with span("study.batch", K=e - s, item="outage"):
+                ks = ks_all[s:e]
+                data = _outage_values(self._base, self._pos, self._delta, ks)
+                plan, u_diag = self._rp.refactor(data, with_diag=True)
+                th_r = plan(self._P.expand(e - s, -1))
+                au = u_diag.abs()
+                rcond = au.amin(1) / au.amax(1).clamp_min(1e-30)
+                th_pad = torch.cat([th_r, th_r.new_zeros(e - s, 1)], dim=1)
+                fl = self._binv_x * (th_pad[:, self._gf]
+                                     - th_pad[:, self._gt])
+                # the outaged branch carries nothing
+                fl[torch.arange(e - s, device=self.device), ks] = 0.0
+                flows[s:e] = fl
+                theta[s:e, self._keep] = th_r
+                ok[s:e] = (torch.isfinite(fl).all(1)
+                           & torch.isfinite(th_r).all(1)
+                           & torch.isfinite(rcond) & (rcond > tol))
         return flows, theta, ok
 
     def run_sharded(self, mesh, outages=None, axis: str | None = None):

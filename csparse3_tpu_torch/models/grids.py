@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..ops import construct
+from ..utils.profiling import span
 
 __all__ = ["Grid", "branch_admittances", "ieee14", "synthetic_grid",
            "ybus", "connectivity", "reorder_grid", "rcm_grid"]
@@ -282,6 +283,7 @@ def rcm_grid(grid: Grid):
     """(reordered grid, perm) with buses in RCM order of the Ybus pattern."""
     from ..linalg.ordering import rcm
 
-    Y, _, _ = ybus(grid)
-    perm = rcm(Y)
-    return reorder_grid(grid, perm), perm
+    with span("setup.rcm", n=grid.n_bus):
+        Y, _, _ = ybus(grid)
+        perm = rcm(Y)
+        return reorder_grid(grid, perm), perm

@@ -44,6 +44,8 @@ the CUDA card, and a caller without one passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
@@ -52,6 +54,7 @@ from ..linalg import BandedLU, MultifrontalLU, splu
 from ..ops import construct, matvec
 from ..ops.matvec import _recorded
 from ..types import CSC
+from ..utils.profiling import span
 from .grids import SLACK, Grid, _as_common, ybus
 
 __all__ = ["sbus", "dc_power_flow", "FastDecoupled", "newton_raphson",
@@ -81,6 +84,11 @@ def _make_yplan(Y, spmv, device):
 
     'ell', 'dia' and 'symdia' keep Ybus's dtype (float64 parts).
     """
+    with span("setup.plans", spmv=spmv, n=Y.n):
+        return _yplan(Y, spmv, device)
+
+
+def _yplan(Y, spmv, device):
     if spmv == "ell":
         return matvec.SplitSpMV(Y, device=device)
     if spmv == "dia":
@@ -200,13 +208,16 @@ class FastDecoupled:
         every argument (n,) or a batch (K, n)."""
         sbr = self._sbr if sbr is None else sbr
         sbi = self._sbi if sbi is None else sbi
-        vr = vm * torch.cos(va)
-        vi = vm * torch.sin(va)
-        yr, yi = self._yplan(vr, vi)
-        # s = v * conj(Y v)
-        sr = vr * yr + vi * yi
-        si = vi * yr - vr * yi
-        return (sr - sbr) / vm, (si - sbi) / vm
+        with span("pf.mismatch"):
+            vr = vm * torch.cos(va)
+            vi = vm * torch.sin(va)
+            with span("spmv", plan=type(self._yplan).__name__,
+                      K=_batch(vr)):
+                yr, yi = self._yplan(vr, vi)
+            # s = v * conj(Y v)
+            sr = vr * yr + vi * yi
+            si = vi * yr - vr * yi
+            return (sr - sbr) / vm, (si - sbi) / vm
 
     def step(self, carry):
         """One P-theta / Q-V half-iteration pair; returns the new carry
@@ -270,16 +281,19 @@ class FastDecoupled:
         va = va0.to(self.device, torch.float64, copy=True)
         it = torch.zeros(vm.shape[:-1], dtype=torch.int64,
                          device=self.device)
-        while True:
+        for i in itertools.count():
             active = ((self.residual(vm, va, sbr, sbi) > self.tol)
                       & (it < self.max_iter))
-            if not bool(active.any()):
+            with span("host.sync"):
+                done = not bool(active.any())
+            if done:
                 return vm, va, it
-            vm2, va2, _, _ = self.step((vm, va, sbr, sbi))
-            keep = active[..., None]
-            vm = torch.where(keep, vm2, vm)
-            va = torch.where(keep, va2, va)
-            it = it + active
+            with span("pf.iteration", i=i):
+                vm2, va2, _, _ = self.step((vm, va, sbr, sbi))
+                keep = active[..., None]
+                vm = torch.where(keep, vm2, vm)
+                va = torch.where(keep, va2, va)
+                it = it + active
 
     def solve_batch(self, sb_batch):
         """Solve K load scenarios, ``sb_batch`` (K, n) complex bus
@@ -288,11 +302,19 @@ class FastDecoupled:
         n), (K, n) and (K,)."""
         sb = np.asarray(sb_batch)
         K = sb.shape[0]
-        sbr, sbi = (torch.as_tensor(np.ascontiguousarray(p),
-                                    dtype=torch.float64, device=self.device)
-                    for p in (sb.real, sb.imag))
-        vm0 = self._vm0.expand(K, -1)
-        return self.run_batch(vm0, torch.zeros_like(vm0), sbr, sbi)
+        with span("study.batch", K=K, item="snapshot"):
+            with span("io.upload", bytes=2 * 8 * sb.size):
+                sbr, sbi = (torch.as_tensor(np.ascontiguousarray(p),
+                                            dtype=torch.float64,
+                                            device=self.device)
+                            for p in (sb.real, sb.imag))
+            vm0 = self._vm0.expand(K, -1)
+            return self.run_batch(vm0, torch.zeros_like(vm0), sbr, sbi)
+
+
+def _batch(v) -> int:
+    """The scenarios of a vector (n,) or a batch (K, n)."""
+    return v.shape[0] if v.ndim > 1 else 1
 
 
 def _solve_rows(plan, r):
@@ -417,41 +439,44 @@ class NewtonPowerFlow:
         pvpq = np.concatenate([grid.pv, grid.pq])
         pq = grid.pq
         self._pvpq, self._pq = i64(pvpq), i64(pq)
-        npvpq, npq = len(pvpq), len(pq)
-        self._npvpq = npvpq
+        self._npvpq = len(pvpq)
 
         # ---- fixed Jacobian structure from Ybus entry streams ------------
-        ipY, ixY, dtY = self.Y.np_arrays()
-        rows = ixY.astype(np.int64)
-        cols = np.repeat(np.arange(n, dtype=np.int64), np.diff(ipY))
-        self._y_rows, self._y_cols = i64(rows), i64(cols)
-        self._ygr, self._ygi = f64(dtY.real), f64(dtY.imag)
-        self._diag_mask = torch.as_tensor(rows == cols, device=self.device)
+        with span("setup.plans", part="jacobian", n=n):
+            npvpq, npq = len(pvpq), len(pq)
+            ipY, ixY, dtY = self.Y.np_arrays()
+            rows = ixY.astype(np.int64)
+            cols = np.repeat(np.arange(n, dtype=np.int64), np.diff(ipY))
+            self._y_rows, self._y_cols = i64(rows), i64(cols)
+            self._ygr, self._ygi = f64(dtY.real), f64(dtY.imag)
+            self._diag_mask = torch.as_tensor(rows == cols,
+                                              device=self.device)
 
-        pos_pvpq = np.full(n, -1)
-        pos_pvpq[pvpq] = np.arange(npvpq)
-        pos_pq = np.full(n, -1)
-        pos_pq[pq] = np.arange(npq)
+            pos_pvpq = np.full(n, -1)
+            pos_pvpq[pvpq] = np.arange(npvpq)
+            pos_pq = np.full(n, -1)
+            pos_pq[pq] = np.arange(npq)
 
-        keeps, jr_l, jc_l = [], [], []
-        for rsel, csel, roff, coff in [
-            (pos_pvpq, pos_pvpq, 0, 0),       # J11 real(dS/dVa)
-            (pos_pvpq, pos_pq, 0, npvpq),     # J12 real(dS/dVm)
-            (pos_pq, pos_pvpq, npvpq, 0),     # J21 imag(dS/dVa)
-            (pos_pq, pos_pq, npvpq, npvpq),   # J22 imag(dS/dVm)
-        ]:
-            keep = np.flatnonzero((rsel[rows] >= 0) & (csel[cols] >= 0))
-            keeps.append(keep)
-            jr_l.append(rsel[rows[keep]] + roff)
-            jc_l.append(csel[cols[keep]] + coff)
-        jr = np.concatenate(jr_l)
-        jc = np.concatenate(jc_l)
-        dim = npvpq + npq
-        # canonical-order permutation: J.data[i] = stream[perm[i]]
-        perm = np.argsort(jc.astype(np.int64) * dim + jr, kind="stable")
-        self._keep = [i64(k) for k in keeps]
-        self._perm = i64(perm)
-
+            keeps, jr_l, jc_l = [], [], []
+            for rsel, csel, roff, coff in [
+                (pos_pvpq, pos_pvpq, 0, 0),       # J11 real(dS/dVa)
+                (pos_pvpq, pos_pq, 0, npvpq),     # J12 real(dS/dVm)
+                (pos_pq, pos_pvpq, npvpq, 0),     # J21 imag(dS/dVa)
+                (pos_pq, pos_pq, npvpq, npvpq),   # J22 imag(dS/dVm)
+            ]:
+                keep = np.flatnonzero((rsel[rows] >= 0)
+                                      & (csel[cols] >= 0))
+                keeps.append(keep)
+                jr_l.append(rsel[rows[keep]] + roff)
+                jc_l.append(csel[cols[keep]] + coff)
+            jr = np.concatenate(jr_l)
+            jc = np.concatenate(jc_l)
+            dim = npvpq + npq
+            # canonical-order permutation: J.data[i] = stream[perm[i]]
+            perm = np.argsort(jc.astype(np.int64) * dim + jr,
+                              kind="stable")
+            self._keep = [i64(k) for k in keeps]
+            self._perm = i64(perm)
         # host: factor the pattern once (values at flat start)
         v0 = grid.vm0.astype(np.complex128)
         ibus0 = self.Y.to_scipy().tocsr() @ v0
@@ -477,32 +502,35 @@ class NewtonPowerFlow:
         Vectors (n,) or a batch (K, n), giving (nnz,) or (K, nnz).
         ``ygr`` / ``ygi`` override Ybus's entry values (same pattern; (nnz,)
         or one row per scenario)."""
-        rows, cols = self._y_rows, self._y_cols
-        gr = self._ygr if ygr is None else ygr
-        gi = self._ygi if ygi is None else ygi
-        vrr, vri = vr[..., rows], vi[..., rows]
-        vcr, vci = vr[..., cols], vi[..., cols]
-        t_r = gr * vcr - gi * vci
-        t_i = -(gr * vci + gi * vcr)
-        # p + iq = v_row * t
-        p = vrr * t_r - vri * t_i
-        q = vrr * t_i + vri * t_r
-        dva_r, dva_i = q, -p
-        dvm_r, dvm_i = p / vm[..., cols], q / vm[..., cols]
-        irr, iir = ir[..., rows], ii[..., rows]
-        vmr = vm[..., rows]
-        dm = self._diag_mask
-        dva_r = torch.where(dm, dva_r + vrr * iir - vri * irr, dva_r)
-        dva_i = torch.where(dm, dva_i + vrr * irr + vri * iir, dva_i)
-        dvm_r = torch.where(dm, dvm_r + (vrr * irr + vri * iir) / vmr, dvm_r)
-        dvm_i = torch.where(dm, dvm_i + (vri * irr - vrr * iir) / vmr, dvm_i)
-        stream = torch.cat([
-            dva_r[..., self._keep[0]],
-            dvm_r[..., self._keep[1]],
-            dva_i[..., self._keep[2]],
-            dvm_i[..., self._keep[3]],
-        ], dim=-1)
-        return stream[..., self._perm]
+        with span("pf.jacobian"):
+            rows, cols = self._y_rows, self._y_cols
+            gr = self._ygr if ygr is None else ygr
+            gi = self._ygi if ygi is None else ygi
+            vrr, vri = vr[..., rows], vi[..., rows]
+            vcr, vci = vr[..., cols], vi[..., cols]
+            t_r = gr * vcr - gi * vci
+            t_i = -(gr * vci + gi * vcr)
+            # p + iq = v_row * t
+            p = vrr * t_r - vri * t_i
+            q = vrr * t_i + vri * t_r
+            dva_r, dva_i = q, -p
+            dvm_r, dvm_i = p / vm[..., cols], q / vm[..., cols]
+            irr, iir = ir[..., rows], ii[..., rows]
+            vmr = vm[..., rows]
+            dm = self._diag_mask
+            dva_r = torch.where(dm, dva_r + vrr * iir - vri * irr, dva_r)
+            dva_i = torch.where(dm, dva_i + vrr * irr + vri * iir, dva_i)
+            dvm_r = torch.where(dm, dvm_r + (vrr * irr + vri * iir) / vmr,
+                                dvm_r)
+            dvm_i = torch.where(dm, dvm_i + (vri * irr - vrr * iir) / vmr,
+                                dvm_i)
+            stream = torch.cat([
+                dva_r[..., self._keep[0]],
+                dvm_r[..., self._keep[1]],
+                dva_i[..., self._keep[2]],
+                dvm_i[..., self._keep[3]],
+            ], dim=-1)
+            return stream[..., self._perm]
 
     def _mismatch_f(self, vm, va, sbr, sbi, ygr=None, ygi=None):
         """(f, (vr, vi), (ir, ii)): the mismatch of the equations solved and
@@ -511,21 +539,25 @@ class NewtonPowerFlow:
         contingencies) the SpMV plan, which holds the base values, cannot
         serve: I = Y v is summed from the raw entry streams by
         ``index_add_``, one per part."""
-        vr = vm * torch.cos(va)
-        vi = vm * torch.sin(va)
-        if ygr is None:
-            ir, ii = self._yplan(vr, vi)
-        else:
-            rows, cols = self._y_rows, self._y_cols
-            vcr, vci = vr[..., cols], vi[..., cols]
-            ir = torch.zeros_like(vr).index_add_(-1, rows,
-                                                 ygr * vcr - ygi * vci)
-            ii = torch.zeros_like(vr).index_add_(-1, rows,
-                                                 ygr * vci + ygi * vcr)
-        mis_r = vr * ir + vi * ii - sbr
-        mis_i = vi * ir - vr * ii - sbi
-        f = torch.cat([mis_r[..., self._pvpq], mis_i[..., self._pq]], dim=-1)
-        return f, (vr, vi), (ir, ii)
+        with span("pf.mismatch"):
+            vr = vm * torch.cos(va)
+            vi = vm * torch.sin(va)
+            if ygr is None:
+                with span("spmv", plan=type(self._yplan).__name__,
+                          K=_batch(vr)):
+                    ir, ii = self._yplan(vr, vi)
+            else:
+                rows, cols = self._y_rows, self._y_cols
+                vcr, vci = vr[..., cols], vi[..., cols]
+                ir = torch.zeros_like(vr).index_add_(-1, rows,
+                                                     ygr * vcr - ygi * vci)
+                ii = torch.zeros_like(vr).index_add_(-1, rows,
+                                                     ygr * vci + ygi * vcr)
+            mis_r = vr * ir + vi * ii - sbr
+            mis_i = vi * ir - vr * ii - sbi
+            f = torch.cat([mis_r[..., self._pvpq], mis_i[..., self._pq]],
+                          dim=-1)
+            return f, (vr, vi), (ir, ii)
 
     def _iterate(self, vm, va, sbr, sbi, ygr, ygi):
         """The Newton loop over (n,) vectors or a (K, n) batch; returns
@@ -541,32 +573,35 @@ class NewtonPowerFlow:
         front = isinstance(self._rp, MultifrontalLU)
         it = torch.zeros(lead, dtype=torch.int64, device=self.device)
         bad = torch.zeros(lead, dtype=torch.bool, device=self.device)
-        while True:
+        for i in itertools.count():
             f, (vr, vi), (ir, ii) = self._mismatch_f(vm, va, sbr, sbi,
                                                      ygr, ygi)
             nrm = (f.abs().amax(-1) if f.shape[-1]
                    else f.new_zeros(lead))
             active = (nrm > self.tol) & (it < self.max_iter) & ~bad
-            if not bool(active.any()):
+            with span("host.sync"):
+                done = not bool(active.any())
+            if done:
                 return vm, va, it, nrm, bad
-            jd = self._jac_data(vr, vi, vm, ir, ii, ygr, ygi)
-            if front:
-                fac, stats = self._rp.factor_piv(jd)
-                gate = _growth_gate(jd, stats, self.growth_limit,
-                                    self.piv_rtol)
-                dx = self._rp.solve_piv(fac, -f)
-                # a gated iteration counts but must not move the state
-                move = active & ~gate
-                bad = bad | (active & gate)
-            else:
-                dx = self._rp.refactor(jd)(-f)
-                move = active
-            move = move[..., None]
-            va = torch.where(move, va.index_add(-1, self._pvpq,
-                                                dx[..., : self._npvpq]), va)
-            vm = torch.where(move, vm.index_add(-1, self._pq,
-                                                dx[..., self._npvpq:]), vm)
-            it = it + active
+            with span("pf.iteration", i=i):
+                jd = self._jac_data(vr, vi, vm, ir, ii, ygr, ygi)
+                if front:
+                    fac, stats = self._rp.factor_piv(jd)
+                    gate = _growth_gate(jd, stats, self.growth_limit,
+                                        self.piv_rtol)
+                    dx = self._rp.solve_piv(fac, -f)
+                    # a gated iteration counts but must not move the state
+                    move = active & ~gate
+                    bad = bad | (active & gate)
+                else:
+                    dx = self._rp.refactor(jd)(-f)
+                    move = active
+                move = move[..., None]
+                va = torch.where(move, va.index_add(
+                    -1, self._pvpq, dx[..., : self._npvpq]), va)
+                vm = torch.where(move, vm.index_add(
+                    -1, self._pq, dx[..., self._npvpq:]), vm)
+                it = it + active
 
     @torch.inference_mode()
     def run(self, vm0, va0, sbr=None, sbi=None, ygr=None, ygi=None):
@@ -585,8 +620,9 @@ class NewtonPowerFlow:
             vm0.to(self.device, torch.float64, copy=True),
             va0.to(self.device, torch.float64, copy=True), sbr, sbi,
             ygr, ygi)
-        it, nrm, bad = torch.stack([it.to(nrm.dtype), nrm,
-                                    bad.to(nrm.dtype)]).tolist()
+        with span("host.sync"):
+            it, nrm, bad = torch.stack([it.to(nrm.dtype), nrm,
+                                        bad.to(nrm.dtype)]).tolist()
         return vm, va, int(it), nrm, bool(bad)
 
     @torch.inference_mode()
@@ -663,18 +699,22 @@ class NewtonPowerFlow:
         sb = np.asarray(sb_batch)
         K, n = sb.shape[0], self.grid.n_bus
         f64 = dict(dtype=torch.float64, device=self.device)
-        vm0 = torch.as_tensor(self.grid.vm0.astype(np.float64),
-                              **f64).expand(K, n)
-        sbr, sbi = (torch.as_tensor(np.ascontiguousarray(p), **f64)
-                    for p in (sb.real, sb.imag))
-        vm, va, it, res, bad = self.run_batch(vm0, torch.zeros_like(vm0),
-                                              sbr, sbi)
-        for k in np.flatnonzero(bad.cpu().numpy()):
-            vk, ak, ik, rk = self._host_newton(vm[k].cpu().numpy(),
-                                               va[k].cpu().numpy(), sb[k])
-            vm[k], va[k] = (torch.as_tensor(a, **f64) for a in (vk, ak))
-            it[k] += ik
-            res[k] = rk
+        with span("study.batch", K=K, item="snapshot"):
+            vm0 = torch.as_tensor(self.grid.vm0.astype(np.float64),
+                                  **f64).expand(K, n)
+            with span("io.upload", bytes=2 * 8 * sb.size):
+                sbr, sbi = (torch.as_tensor(np.ascontiguousarray(p), **f64)
+                            for p in (sb.real, sb.imag))
+            vm, va, it, res, bad = self.run_batch(
+                vm0, torch.zeros_like(vm0), sbr, sbi)
+            with span("host.sync"):
+                gated = np.flatnonzero(bad.cpu().numpy())
+            for k in gated:
+                vk, ak, ik, rk = self._host_newton(
+                    vm[k].cpu().numpy(), va[k].cpu().numpy(), sb[k])
+                vm[k], va[k] = (torch.as_tensor(a, **f64) for a in (vk, ak))
+                it[k] += ik
+                res[k] = rk
         return vm, va, it, res
 
 

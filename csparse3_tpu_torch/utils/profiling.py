@@ -2,20 +2,39 @@
 utils/profiling.py``: ``timeit`` (median wall seconds, each call ending in
 a synchronize of the device its results lie on), ``nnz_per_sec``, the
 section ``Timer``, ``trace`` (a ``torch.profiler`` context that writes a
-Chrome trace) and ``compare_with_scipy``."""
+Chrome trace) and ``compare_with_scipy``.
+
+The program's spans.  ``span(name, **counts)`` marks one call of a layer
+of the program (a study's batch, a front factorization, a sweep; never a
+loop step of a level or a group), with its static sizes as ``counts``.
+A ``Timer`` is the recorder: while one is open (``with Timer() as rec:``)
+every span records into it, and while ``torch.profiler`` runs with none
+open they record into ``profiled()``.  Otherwise ``span`` returns one
+shared no-op context: it reads no clock, adds no tensor op and never
+synchronizes.  A recorded span reads ``time.time_ns()`` twice (the clock
+of ``torch.profiler``'s host records, so the device records of a profile
+can be put inside the spans that issued them) and appends itself to its
+recorder's ``spans``; nothing is written out until the recorder is read.
+Sizes known only inside the span are added with ``note``.  One host
+thread records at a time.
+"""
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
-from dataclasses import dataclass, field
+from time import time_ns
 from typing import Callable, Dict, List
 
 import numpy as np
 import torch
 
-__all__ = ["timeit", "Timer", "nnz_per_sec", "trace", "compare_with_scipy"]
+__all__ = ["timeit", "Timer", "nnz_per_sec", "trace", "compare_with_scipy",
+           "Span", "span", "profiled"]
+
+_TORCH_PROFILER = torch.autograd.profiler
 
 
 def _tensors(out):
@@ -58,19 +77,79 @@ def nnz_per_sec(nnz: int, seconds: float) -> float:
     return nnz / seconds if seconds > 0 else float("inf")
 
 
-@dataclass
+class Span:
+    """One span: ``name``, ``start_ns`` / ``end_ns`` (``time.time_ns()``;
+    ``end_ns`` 0 while open), ``parent`` (the index in its recorder's
+    ``spans`` of the span that was open when it opened, -1 for none) and
+    ``counts`` (the sizes given to ``span``)."""
+
+    __slots__ = ("rec", "name", "counts", "parent", "start_ns", "end_ns")
+
+    def __init__(self, rec, name, counts):
+        self.rec, self.name, self.counts = rec, name, counts
+        self.parent, self.start_ns, self.end_ns = -1, 0, 0
+
+    def __enter__(self):
+        rec = self.rec
+        self.parent, rec._open = rec._open, len(rec.spans)
+        rec.spans.append(self)
+        self.start_ns = time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time_ns()
+        self.rec._open, self.rec = self.parent, None
+        return False
+
+    def note(self, **counts):
+        """Add ``counts`` to the span's sizes."""
+        self.counts.update(counts)
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-9
+
+
+class _NoSpan:
+    """The span when nothing records: enters and notes nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def note(self, **counts):
+        pass
+
+
 class Timer:
-    """Named section timer, printable as a table."""
+    """The span recorder, printable as a table.  ``span(name, **counts)``
+    (``section``) records into this timer; while it is open (``with
+    timer:``) so does every ``span`` of the program.  ``spans``: the
+    ``Span`` records in the order they opened; ``records``: {name:
+    [seconds of each closed span]}."""
 
-    records: Dict[str, List[float]] = field(default_factory=dict)
+    def __init__(self):
+        self.spans: List[Span] = []
+        self._open = -1
+        self._outer = []
 
-    @contextlib.contextmanager
-    def section(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.records.setdefault(name, []).append(time.perf_counter() - t0)
+    def span(self, name: str, **counts) -> Span:
+        return Span(self, name, counts)
+
+    #: the JAX package's name
+    section = span
+
+    @property
+    def records(self) -> Dict[str, List[float]]:
+        out: Dict[str, List[float]] = {}
+        for s in self.spans:
+            if s.end_ns:
+                out.setdefault(s.name, []).append(s.seconds)
+        return out
 
     def summary(self) -> str:
         lines = [f"{'section':<32}{'calls':>6}{'total_s':>10}{'mean_ms':>10}"]
@@ -79,19 +158,80 @@ class Timer:
                          f"{1e3 * np.mean(ts):>10.2f}")
         return "\n".join(lines)
 
+    def clear(self):
+        """Forget the spans recorded so far."""
+        self.spans, self._open = [], -1
+
+    def __enter__(self):
+        global _ACTIVE
+        self._outer.append(_ACTIVE)
+        _ACTIVE = self
+        return self
+
+    def __exit__(self, *exc):
+        global _ACTIVE
+        _ACTIVE = self._outer.pop()
+        return False
+
+
+#: the open recorder, or None
+_ACTIVE: Timer | None = None
+#: where spans record while torch.profiler runs and no recorder is open
+_PROFILED = Timer()
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str, **counts):
+    """A span of the program named ``name`` with the sizes ``counts``, as
+    a context: recorded by the open recorder, else by ``profiled()``
+    while ``torch.profiler`` runs, else the shared no-op."""
+    rec = _ACTIVE
+    if rec is None:
+        if not _TORCH_PROFILER._is_profiler_enabled:
+            return _NO_SPAN
+        rec = _PROFILED
+    return Span(rec, name, counts)
+
+
+def profiled() -> Timer:
+    """The recorder of the spans made while ``torch.profiler`` ran and no
+    recorder was open, since the process started or its ``clear()``."""
+    return _PROFILED
+
+
+def _add_spans(path: str, spans) -> None:
+    """Write ``spans`` into the Chrome trace at ``path`` as a host track of
+    their own ("program spans"), on the trace's clock."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    doc["traceEvents"].extend(
+        {"ph": "X", "cat": "program_span", "name": s.name, "pid": pid,
+         "tid": "program spans", "ts": (s.start_ns - base) / 1e3,
+         "dur": (s.end_ns - s.start_ns) / 1e3,
+         "args": {k: v if isinstance(v, (int, float, str)) else str(v)
+                  for k, v in s.counts.items()}}
+        for s in spans if s.end_ns)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """``torch.profiler`` over the block (CPU activity, and CUDA where a
-    card is present); on exit the Chrome trace is written to
-    ``log_dir/trace.json``.  Yields the profiler."""
+    card is present) with a recorder open; on exit the Chrome trace is
+    written to ``log_dir/trace.json``, the program's spans in it as a host
+    track of their own.  Yields the profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    with Timer() as rec, torch.profiler.profile(activities=acts) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    _add_spans(path, rec.spans)
 
 
 def compare_with_scipy(a, op: str = "spmv", iters: int = 5, seed: int = 0,

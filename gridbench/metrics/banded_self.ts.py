@@ -1,0 +1,15 @@
+"""Host self time of the program's ``banded.sweeps`` spans (the
+block-Thomas sweeps, ``thomas_sweeps`` / ``thomas_sweeps_sym``), as a
+share of the traced slice's wall time, in %.  Missing where the program
+records no spans."""
+
+from gridbench.spans import in_frame, recorded, self_share
+
+NAMES = ("banded.sweeps",)
+
+
+def read(ctx):
+    t, spans = ctx["trace"], recorded()
+    if ctx["item"] != "snapshot" or t is None or not spans:
+        return None
+    return self_share(in_frame(spans), NAMES, t["window_s"])

@@ -1,0 +1,14 @@
+"""Host self time of the program's ``trisolve`` spans (the level-scheduled
+triangular solves, ``TriSolvePlan.forward``), as a share of the traced
+slice's wall time, in %.  Missing where the program records no spans."""
+
+from gridbench.spans import in_frame, recorded, self_share
+
+NAMES = ("trisolve",)
+
+
+def read(ctx):
+    t, spans = ctx["trace"], recorded()
+    if ctx["item"] != "outage" or t is None or not spans:
+        return None
+    return self_share(in_frame(spans), NAMES, t["window_s"])

@@ -31,6 +31,7 @@ import csparse3_tpu_torch as pt
 from csparse3_tpu_torch.linalg import multifrontal as pmf
 from csparse3_tpu_torch.models import grids as pgrids
 from csparse3_tpu_torch.models import powerflow as ppf
+from csparse3_tpu_torch.utils import profiling
 
 # one intra-op thread: the suite runs several test processes at once
 torch.set_num_threads(1)
@@ -182,7 +183,12 @@ def test_lu_structure_matches_jax(lu_pair):
     A, p, j, *_ = lu_pair
     keys = ("nlevels", "nsnodes", "ngroups", "group_static", "groups_at")
     assert [getattr(p, k) for k in keys] == [getattr(j, k) for k in keys]
-    assert set(p.build_s) == {"splu", "fronts"}
+    # the build is timed by its span, not by an attribute of the plan
+    assert not hasattr(p, "build_s")
+    with profiling.Timer() as rec:
+        pmf.MultifrontalLU.from_matrix(A, device="cpu")
+    assert [(s.name, s.counts) for s in rec.spans] == [
+        ("setup.symbolic", {"n": A.n, "front_floats": p.front_floats})]
 
 
 def test_factor_piv_matches_jax(lu_pair):
